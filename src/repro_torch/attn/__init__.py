@@ -1,0 +1,76 @@
+"""repro_torch.attn — the attention-backend API of the port (counterpart of
+the JAX package's ``repro.attn``).
+
+    spec = attn.spec_for_layer(cfg, "local+routing")
+    out = attn.attend(spec, q, k, v, state=mu, positions=pos)     # prefill
+    out = attn.attend(spec, q, k, v, state=mu, cache=c, pos=p)    # decode
+
+``attend`` resolves the best registered backend for the tensors' device
+(the CUDA kernels for CUDA tensors, plain PyTorch on the CPU); ``impl=``
+forces one and raises `BackendResolutionError` when it cannot serve the
+call.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.attn import backends as _backends       # noqa: F401 (registers)
+from repro_torch.attn.registry import (Backend,  # noqa: F401
+                                       BackendResolutionError, CacheLayout,
+                                       resolve)
+from repro_torch.attn.spec import (AttentionSpec, head_split,  # noqa: F401
+                                   spec_for_layer, variant_for_layer)
+
+
+class AttnOutput(NamedTuple):
+    out: torch.Tensor                   # (B, H, N, dh)
+    state: Optional[torch.Tensor]       # centroids (routing variants)
+    cache: Optional[dict] = None        # updated decode cache (decode calls)
+
+
+def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
+           pad_mask=None, update_state: bool = True, cache=None, pos=None,
+           impl: Optional[str] = None) -> AttnOutput:
+    """Run the attention ``spec`` describes on un-roped q/k/v.
+
+    Prefill mode (``cache=None``): returns (out, new_state). Decode mode
+    (``cache`` given): q/k/v are one token (N=1) at position ``pos`` (B,);
+    returns the updated cache. ``state`` carries the layer's centroids.
+    """
+    platform = q.device.type
+    if cache is not None:
+        if pad_mask is not None:
+            raise ValueError("attend(cache=...) is single-token decode; "
+                             "validity lives in the cache, not a pad_mask")
+        backend = resolve(spec, impl=impl, platform=platform)
+        out, new_cache = backend.decode(spec, q, k, v, cache=cache, pos=pos,
+                                        state=state)
+        return AttnOutput(out=out, state=state, cache=new_cache)
+    backend = resolve(spec, impl=impl, platform=platform)
+    out, new_state = backend.apply(spec, q, k, v, state=state,
+                                   positions=positions, pad_mask=pad_mask,
+                                   update_state=update_state)
+    return AttnOutput(out=out, state=new_state)
+
+
+def _layout(spec: AttentionSpec, platform: str):
+    """The cache layout of the backend that resolves on ``platform``
+    (both local+routing backends share `MIXED_LAYOUT`)."""
+    return resolve(spec, platform=platform).layout
+
+
+def init_decode_cache(spec: AttentionSpec, B: int, max_len: int, dtype,
+                      device):
+    """The cache-leaf dict declared by the resolved backend."""
+    dev = torch.device(device)
+    return _layout(spec, dev.type).init(spec, B, max_len, dtype, dev)
+
+
+def prefill_cache(spec: AttentionSpec, cache, q, k, v, *, positions,
+                  state=None):
+    """Fill the decode cache from prefix q/k/v, per that layout."""
+    return _layout(spec, q.device.type).fill(spec, cache, q, k, v,
+                                             positions=positions,
+                                             state=state)

@@ -1,0 +1,171 @@
+"""Build, load and launch plumbing for the port's CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
+use it is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a
+-shared`` into ``src/repro_torch/_build/`` (git-ignored), under a file
+name that carries a hash of the source, its headers and the flags, and
+loaded with ctypes. Nothing is built when a module is imported: the CPU
+tests import every module on a host with no nvcc.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+`check` raises on anything but 0, so a refused launch (too much shared
+memory, too many threads) never passes silently. Each wrapper counts its
+own launches in a `LaunchCounter` (`counters()` / `reset_counters()`).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SUPPORTED_HEAD_DIMS = (64, 128)
+# element-type codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class LaunchCounter:
+    """Plain integer count of one wrapper's kernel launches."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+    def bump(self) -> None:
+        self.count += 1
+
+
+_COUNTERS: Dict[str, LaunchCounter] = {}
+
+
+def counter(name: str) -> LaunchCounter:
+    return _COUNTERS.setdefault(name, LaunchCounter(name))
+
+
+def counters() -> Dict[str, int]:
+    return {n: c.count for n, c in _COUNTERS.items()}
+
+
+def reset_counters() -> None:
+    for c in _COUNTERS.values():
+        c.count = 0
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(path).exists():
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                           "built on a machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc_cmd(name: str, out: Path) -> List[str]:
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no current library, one nvcc
+    process per source, all started together. Returns name -> library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = {n: _lib_path(n) for n in names}
+    procs = {}
+    for n, lib in libs.items():
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (subprocess.Popen(_nvcc_cmd(n, tmp), stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[n] = log
+        if proc.returncode != 0:
+            failed.append(f"{n}:\n{log}")
+            continue
+        os.replace(tmp, libs[n])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return libs
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``fn`` of kernel source ``name``, built if needed."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+    f = getattr(_LIBS[name], fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: "
+                           f"cudaError {err}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_tensors(what: str, **tensors: torch.Tensor) -> None:
+    """Checks shared by every wrapper, made before it dispatches, so the CPU
+    tests hold the call sites to what the kernel takes: contiguity always;
+    for CUDA tensors also one device and 16-byte alignment (dtype and shape
+    checks are per kernel)."""
+    dev = next(iter(tensors.values())).device
+    for n, t in tensors.items():
+        require(t.is_contiguous(), f"{what}: {n} must be contiguous")
+        require(t.device == dev, f"{what}: {n} is on {t.device}, not {dev}")
+        if dev.type == "cuda":
+            require(t.data_ptr() % 16 == 0,
+                    f"{what}: {n} must be 16-byte aligned (vector loads)")
+    require(dev.type in ("cpu", "cuda"),
+            f"{what}: tensors on {dev}: the kernel runs on CUDA, its plain "
+            f"version on the CPU")
+
+
+def head_dim_ok(what: str, dh: int) -> None:
+    require(dh in SUPPORTED_HEAD_DIMS,
+            f"{what}: head_dim {dh} unsupported by the CUDA kernel "
+            f"(supported: {SUPPORTED_HEAD_DIMS})")
+
+
+def dtype_code(what: str, t: torch.Tensor) -> int:
+    require(t.dtype in DTYPE_CODES,
+            f"{what}: dtype {t.dtype} unsupported (float32 or bfloat16)")
+    return DTYPE_CODES[t.dtype]
