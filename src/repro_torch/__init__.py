@@ -1,10 +1,12 @@
 """repro_torch — the PyTorch/CUDA port of the Routing Transformer system.
 
 A package of its own beside the JAX package ``repro`` (the reference): it
-imports ``torch`` and never ``jax`` or ``repro``. Slice 1 serves the paper's
+imports ``torch`` and never ``jax`` or ``repro``. It serves the paper's
 rt-enwik8 model (``serve.serving``: ``init_cache``, ``prefill``,
-``make_serve_step``) through hand-written CUDA kernels for the local-window
-prefill, the fused routing prefill and the paged routing decode
+``make_serve_step``) and trains it (``train.train_step``:
+``init_train_state``, ``make_train_step``; ``train.trainer.Trainer``)
+through hand-written CUDA kernels: the local-window and the fused routing
+attention, forward and backward, and the paged routing decode
 (``kernels/``, sources in ``csrc/``).
 """
 from __future__ import annotations

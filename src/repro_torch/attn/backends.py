@@ -1,16 +1,21 @@
 """The port's attention backends for the paper's ``local+routing`` head split
 (port of the part of the JAX package's ``attn/backends.py`` that serving
-rt-enwik8 runs).
+and training rt-enwik8 run).
 
 Registered pairs (variant, impl):
 
   local+routing/torch   plain PyTorch: blocked-window reference for the
                         local heads, gathered-block routing reference for
                         the routing heads, page-gather decode
-  local+routing/cuda    the hand-written CUDA kernels: local window kernel,
-                        fused gather-free routing kernel, paged decode
+  local+routing/cuda    the hand-written CUDA kernels: local window kernels,
+                        fused gather-free routing kernels (forward and
+                        backward, as autograd Functions), paged decode
                         kernel (priority 20, needs_cuda; the counterpart of
                         the JAX package's local+routing/pallas_paged)
+
+Both apply paths are differentiable: the plain one through autograd of its
+PyTorch ops, the kernel one through the Functions' backward kernels. The
+centroids they return carry no gradient (the EMA update is detached).
 
 Both share one cache layout (`MIXED_LAYOUT`: a 2W ring for the local heads,
 cluster pages for the routing heads) and the same cache fill, ring-local
@@ -90,9 +95,10 @@ def _local_torch(spec, q, k, v, positions, pad_mask):
 
 
 def _local_cuda(spec, q, k, v, positions, pad_mask):
-    """Every call takes the kernel (any N, any pad mask)."""
+    """Every call takes the kernels (any N, any pad mask), forward and
+    backward (`local_kernel.LocalAttention`)."""
     qr, kr = _rope_qk(spec, q, k, positions)
-    out, _ = local_kernel.local_attention(
+    out, _ = local_kernel.LocalAttention.apply(
         qr.contiguous(), kr.contiguous(), v.contiguous(), spec.window,
         spec.causal, pad_mask)
     return out

@@ -8,11 +8,14 @@ causal mask on *original* positions, scatter-mean back to sequence order,
 and optionally the EMA centroid update.
 
 ``impl="torch"`` gathers the (B,H,k,w,dh) member blocks and runs the plain
-block attention; ``impl="cuda_fused"`` hands sequence-layout q/k/v plus
-the membership indices to the fused CUDA kernel
-(`kernels.routing_attention`), which pulls member rows itself. The
-segment fold (``RoutingConfig.segments > 1``) and the routing-health
-stats of the JAX package are not ported yet and raise.
+block attention (differentiable by autograd); ``impl="cuda_fused"`` hands
+sequence-layout q/k/v plus the membership indices to the fused CUDA
+kernels (`kernels.routing_attention.RoutedAttentionFused`, forward and
+backward), which pull member rows themselves. `routed_attention_bwd_dq`
+and `routed_attention_bwd_dkv` are the plain versions of the backward
+kernels. The centroids carry no gradient. The segment fold
+(``RoutingConfig.segments > 1``) and the routing-health stats of the JAX
+package are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import RoutingConfig
+from repro_torch.core import upcast
 from repro_torch.core.kmeans import (KMeansState, cluster_scores, ema_update,
                                      normalize_routing)
 
@@ -59,32 +63,66 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 2, flat).reshape(B, H, k, w, d)
 
 
+def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B,H,k,w) membership -> row numbers of the flat (B*H*n) plane."""
+    B, H = idx.shape[:2]
+    return (torch.arange(B * H, device=idx.device)[:, None] * n
+            + idx.reshape(B * H, -1)).reshape(-1)
+
+
+def _add_rows(og: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    """og (B,H,k,w,d) summed onto the flat ``rows`` of a (B,H,n,d) plane,
+    in at least fp32."""
+    B, H, k, w, d = og.shape
+    out = torch.zeros((B * H * n, d), device=og.device,
+                      dtype=torch.promote_types(og.dtype, torch.float32))
+    out.index_add_(0, rows, upcast(og).reshape(-1, d))
+    return out.reshape(B, H, n, d)
+
+
+def scatter_add_rows(og: torch.Tensor, idx: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """The transpose of `_gather_rows`: per-cluster rows og (B,H,k,w,d) are
+    summed into (B,H,n,d) in at least fp32; a token in several clusters
+    gets the sum of its copies (`index_add_`; on CUDA its atomics add them
+    in run-dependent order, so the last fp32 bits vary from run to run)."""
+    return _add_rows(og, _flat_rows(idx, n), n)
+
+
 def _scatter_rows(og: torch.Tensor, idx: torch.Tensor, n: int,
                   mode: str) -> torch.Tensor:
     """Scatter per-cluster outputs og (B,H,k,w,d) back to (B,H,n,d).
 
-    mode="mean": scatter-add in fp32 and divide by the membership count
-    (`index_add_`; on CUDA its atomics sum a token's <= k cluster copies in
-    run-dependent order, a few fp32 ulps before the cast back).
+    mode="mean": the `scatter_add_rows` sum divided by the membership
+    count, then cast back.
     mode="last": plain scatter; with duplicate memberships the winner is
     unspecified (as in the JAX reference), so use it only without them.
     """
     B, H, k, w, d = og.shape
-    rows = (torch.arange(B * H, device=og.device)[:, None] * n
-            + idx.reshape(B * H, k * w)).reshape(-1)
-    flat_og = og.reshape(B * H * k * w, d)
+    rows = _flat_rows(idx, n)
     if mode == "last":
         out = torch.zeros((B * H * n, d), dtype=og.dtype, device=og.device)
-        out[rows] = flat_og
+        out[rows] = og.reshape(-1, d)
         return out.reshape(B, H, n, d)
     if mode != "mean":
         raise ValueError(f"unknown scatter mode {mode!r}")
-    out = torch.zeros((B * H * n, d), dtype=torch.float32, device=og.device)
-    out.index_add_(0, rows, flat_og.float())
     cnt = torch.zeros((B * H * n,), dtype=torch.float32, device=og.device)
     cnt.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float32))
-    out = out / cnt.clamp_min(1.0)[:, None]
-    return out.reshape(B, H, n, d).to(og.dtype)
+    out = _add_rows(og, rows, n) / cnt.clamp_min(1.0).reshape(B, H, n, 1)
+    return out.to(og.dtype)
+
+
+def block_keep(pos_q, pos_k, causal: bool,
+               valid_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attendable (query, key) pairs of each cluster block (B,H,k,w,w):
+    causal on original positions, padded keys never."""
+    shape = pos_q.shape + pos_k.shape[-1:]
+    keep = torch.ones(shape, dtype=torch.bool, device=pos_q.device)
+    if causal:
+        keep = keep & (pos_q[..., :, None] >= pos_k[..., None, :])
+    if valid_k is not None:
+        keep = keep & valid_k[..., None, :]
+    return keep
 
 
 def _block_attention(qg, kg, vg, pos_q, pos_k, causal: bool,
@@ -94,13 +132,9 @@ def _block_attention(qg, kg, vg, pos_q, pos_k, causal: bool,
     math of the fused kernel. Queries whose cluster holds no attendable
     key output 0. With ``return_lse`` also the per-row log-sum-exp."""
     dh = qg.shape[-1]
-    logits = torch.einsum("bhkwd,bhkud->bhkwu", qg, kg).float()
+    logits = upcast(torch.einsum("bhkwd,bhkud->bhkwu", qg, kg))
     logits = logits / float(dh) ** 0.5
-    keep = torch.ones(logits.shape, dtype=torch.bool, device=qg.device)
-    if causal:
-        keep = keep & (pos_q[..., :, None] >= pos_k[..., None, :])
-    if valid_k is not None:
-        keep = keep & valid_k[..., None, :]
+    keep = block_keep(pos_q, pos_k, causal, valid_k)
     logits = logits.masked_fill(~keep, _BIG_NEG)
     attn = torch.softmax(logits, dim=-1)
     attn = torch.where(keep.any(-1, keepdim=True), attn, 0.0)
@@ -112,15 +146,11 @@ def _block_attention(qg, kg, vg, pos_q, pos_k, causal: bool,
     return og, (m + torch.log(l.clamp_min(1e-30)))[..., 0]
 
 
-def gathered_block_attention(q, k, v, q_idx, k_idx, positions, causal=True,
-                             kvalid=None, return_lse=False):
-    """Routed attention on sequence-layout q/k/v through gathered blocks.
-
-    q/v: (B,H,N,dh); k: like q, or None for shared-QK (keys are q's rows).
-    q_idx/k_idx: (B,H,k,w) membership. positions: (B,N) original positions.
-    kvalid: (B,N) bool, False = padded key. Returns per-cluster outputs
-    (B,H,k,w,dh) (and the lse (B,H,k,w) with ``return_lse``).
-    """
+def gather_blocks(q, k, v, q_idx, k_idx, positions, kvalid=None):
+    """Member blocks of sequence-layout q/k/v: (qg, kg, vg) (B,H,k,w,dh)
+    (kg is qg for shared-QK, ``k=None``), their original positions
+    (pos_q, pos_k) (B,H,k,w) and the keys' validity (None without
+    ``kvalid``)."""
     B, H, N, _ = q.shape
     kc, w = q_idx.shape[2], q_idx.shape[3]
     qg = _gather_rows(q, q_idx)
@@ -134,8 +164,55 @@ def gathered_block_attention(q, k, v, q_idx, k_idx, positions, causal=True,
         vm = kvalid[:, None, :].expand(B, H, N)
         valid_k = torch.gather(vm, 2, k_idx.reshape(B, H, -1)).reshape(
             B, H, kc, w)
+    return qg, kg, vg, pos_q, pos_k, valid_k
+
+
+def gathered_block_attention(q, k, v, q_idx, k_idx, positions, causal=True,
+                             kvalid=None, return_lse=False):
+    """Routed attention on sequence-layout q/k/v through gathered blocks.
+
+    q/v: (B,H,N,dh); k: like q, or None for shared-QK (keys are q's rows).
+    q_idx/k_idx: (B,H,k,w) membership. positions: (B,N) original positions.
+    kvalid: (B,N) bool, False = padded key. Returns per-cluster outputs
+    (B,H,k,w,dh) (and the lse (B,H,k,w) with ``return_lse``).
+    """
+    qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
+        q, k, v, q_idx, k_idx, positions, kvalid)
     return _block_attention(qg, kg, vg, pos_q, pos_k, causal, valid_k,
                             return_lse)
+
+
+def _bwd_blocks(q, k, v, q_idx, k_idx, positions, do, lse, dsum, causal,
+                kvalid):
+    """The recurrence both backward kernels run, on gathered blocks:
+    p = keep ? exp(s - lse) : 0 (masked explicitly: a row with no key has
+    lse ~ -1e9, where exp(s - lse) of a masked score would read ~1) and
+    ds = p * (do.v^T - D) * scale. do (B,H,k,w,dh), lse/D (B,H,k,w)."""
+    qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
+        q, k, v, q_idx, k_idx, positions, kvalid)
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    s = torch.einsum("bhkwd,bhkud->bhkwu", upcast(qg), upcast(kg)) * scale
+    keep = block_keep(pos_q, pos_k, causal, valid_k)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhkwd,bhkud->bhkwu", upcast(do), upcast(vg))
+    return qg, kg, p, p * (dp - upcast(dsum)[..., None]) * scale
+
+
+def routed_attention_bwd_dq(q, k, v, q_idx, k_idx, positions, do, lse, dsum,
+                            causal=True, kvalid=None):
+    """Per-cluster dq blocks (B,H,k,w,dh) in at least fp32."""
+    _, kg, _, ds = _bwd_blocks(q, k, v, q_idx, k_idx, positions, do, lse,
+                               dsum, causal, kvalid)
+    return torch.einsum("bhkwu,bhkud->bhkwd", ds, upcast(kg))
+
+
+def routed_attention_bwd_dkv(q, k, v, q_idx, k_idx, positions, do, lse,
+                             dsum, causal=True, kvalid=None):
+    """Per-cluster (dk, dv) blocks (B,H,k,w,dh) in at least fp32."""
+    qg, _, p, ds = _bwd_blocks(q, k, v, q_idx, k_idx, positions, do, lse,
+                               dsum, causal, kvalid)
+    return (torch.einsum("bhkwu,bhkwd->bhkud", ds, upcast(qg)),
+            torch.einsum("bhkwu,bhkwd->bhkud", p, upcast(do)))
 
 
 def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
@@ -173,13 +250,12 @@ def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
         cluster_scores(r_k, state.mu), w, pad_mask)
 
     if impl == "cuda_fused":
-        from repro_torch.kernels.routing_attention import \
-            routed_attention_fused
+        from repro_torch.kernels.routing_attention import RoutedAttentionFused
         i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
-        og, _ = routed_attention_fused(
+        og, _ = RoutedAttentionFused.apply(
             r_q.contiguous(), None if shared else k_attn.contiguous(),
             v.contiguous(), i32(q_idx), i32(k_idx), i32(positions),
-            causal=cfg.causal, kvalid=pad_mask)
+            cfg.causal, pad_mask)
     else:
         og = gathered_block_attention(r_q, None if shared else k_attn, v,
                                       q_idx, k_idx, positions, cfg.causal,

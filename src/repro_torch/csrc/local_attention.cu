@@ -8,10 +8,11 @@
 //
 // What bounds it on this card: at the serving shapes (w = 256, dh = 128)
 // each query meets ~w..2w keys, about 4*dh*1.5w flops per query against
-// 4*dh bytes in and out: a few hundred flops per byte, above the H100's
-// bf16 ridge (~295), so tensor-core throughput is the bound. This version
-// runs fp32 FMAs (67 TFLOP/s peak), so it sits well under that bound;
-// wgmma is a later step.
+// its q, k, v and out rows (8*dh bytes in bf16): ~190 flops per byte,
+// under the H100's bf16 ridge (~295), so device memory bounds an ideal
+// kernel. This version runs fp32 FMAs (67 TFLOP/s peak) and re-reads k/v
+// rows per query block, so it sits far from that bound; wgmma is a later
+// step.
 // What the design does about it: the TPU kernel takes one softmax over the
 // whole (w x 2w) score tile in VMEM; here a block of 64 queries walks its
 // key range in tiles of 32 with an online softmax, so shared memory is

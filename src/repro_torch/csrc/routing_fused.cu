@@ -10,12 +10,12 @@
 // softmax. Shared-QK mode passes the q plane as k. Writes per-cluster
 // outputs (B*H, k, w, dh) and the lse (B*H, k, w).
 //
-// What bounds it on this card: each cluster is a dense (w x w) attention,
-// 4*w*dh flops per query against 3*dh*2 bytes of gathered rows: w = 64 at
-// N = 2048 and 256 at N = 8192, ~85..340 flops per byte, at or above the
-// bf16 ridge (~295), so tensor-core throughput is the bound at long N and
-// memory at short N. This version runs fp32 FMAs, so its bound is the FMA
-// rate for now; wgmma is a later step.
+// What bounds it on this card: each cluster is a (w x w) attention whose
+// causal half is needed, ~2*w*dh flops per query against 3*dh*2 bytes of
+// its q, v and out rows: ~20 flops per byte at w = 64 (N = 2048) and ~85
+// at w = 256 (N = 8192), under the bf16 ridge (~295), so device memory
+// bounds an ideal kernel. This version computes all w^2 pairs with fp32
+// FMAs, so it sits far from that bound; wgmma is a later step.
 // What the design does about it: no gathered (B,H,k,w,dh) copy of q/k/v is
 // written to device memory; rows are read by index once per query tile.
 // Hopper has no VMEM residency budget, so one kernel serves both of the

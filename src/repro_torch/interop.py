@@ -7,7 +7,9 @@ included), `kstate_from_jax` the centroid tree (per segment {layer: mu
 ``jax.tree.map(np.asarray, tree)``); nothing here imports jax. bfloat16
 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) go
 through a 16-bit integer view. `tree_to_numpy` goes the other way, with
-bfloat16 widened to float32.
+bfloat16 widened to float32. `opt_state_from_jax` and `train_state_from_jax`
+carry an Adam state and a whole JAX ``TrainState`` across, so the port can
+continue a JAX training run mid-trajectory.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.train.train_step import TrainState
 from repro_torch.tree import tree_map
 
 
@@ -46,3 +49,22 @@ def tree_to_numpy(tree: Any) -> Any:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return tree_map(conv, tree)
+
+
+def opt_state_from_jax(opt_state: Any, device="cpu") -> Any:
+    """The JAX package's Adam state ({"m", "v": fp32 trees, "count"}, numpy
+    leaves) -> the port's (``count`` a Python int)."""
+    return {"m": kstate_from_jax(opt_state["m"], device),
+            "v": kstate_from_jax(opt_state["v"], device),
+            "count": int(np.asarray(opt_state["count"]))}
+
+
+def train_state_from_jax(ts: Any, device="cpu"):
+    """A JAX ``TrainState`` (numpy leaves; no int8_ef residual) -> the
+    port's ``TrainState``, so a test can continue a JAX run."""
+    if getattr(ts, "ef_state", None) is not None:
+        raise NotImplementedError("int8_ef residuals are not ported")
+    return TrainState(params=params_from_jax(ts.params, device),
+                      kstate=kstate_from_jax(ts.kstate, device),
+                      opt_state=opt_state_from_jax(ts.opt_state, device),
+                      step=int(np.asarray(ts.step)))

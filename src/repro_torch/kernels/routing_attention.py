@@ -1,15 +1,20 @@
-"""Fused gather-free routed attention, forward: wrapper of the CUDA kernel
-``csrc/routing_fused.cu`` (replaces the TPU kernels `_f_fwd_kernel` and
-`_p_fwd_kernel` of the JAX package's ``kernels/routing_attention.py``: on
-Hopper one kernel serves both of the TPU's memory plans).
+"""Fused gather-free routed attention: wrappers of the CUDA kernels
+``csrc/routing_fused.cu`` (forward; replaces the TPU kernels `_f_fwd_kernel`
+and `_p_fwd_kernel` of the JAX package's ``kernels/routing_attention.py``:
+on Hopper one kernel serves both of the TPU's memory plans) and
+``csrc/routing_fused_bwd.cu`` (replaces `_f_dq_kernel`/`_p_dq_kernel` and
+`_f_dkv_kernel`/`_p_dkv_kernel`), and `RoutedAttentionFused`, the autograd
+Function over them.
 
 `routed_attention_fused` takes sequence-layout q/v (B,H,N,dh), k like q or
 None (shared-QK: keys are q's rows), the (B,H,k,w) int32 membership of
 queries and keys, (B,N) int32 original positions and an optional (B,N)
 key-valid mask, and returns per-cluster outputs (B,H,k,w,dh) and their
-lse (B,H,k,w) fp32. A CPU tensor goes to the plain PyTorch version
-(`routed_attention_fused_plain`: gather the blocks, attend); a CUDA tensor
-launches the kernel or raises.
+lse (B,H,k,w) fp32. The backward kernels return per-cluster gradient
+blocks; the Function scatter-adds them to sequence layout. Every wrapper
+sends a CPU tensor to its plain PyTorch version (``core/routing.py``:
+gather the blocks, attend) and launches its kernel on a CUDA tensor, or
+raises.
 """
 from __future__ import annotations
 
@@ -18,30 +23,31 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.routing import gathered_block_attention
+from repro_torch.core import routing as ref
+from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
 
 LAUNCHES = C.counter("routing_fused")
-SENTINEL = 2 ** 30          # position of a padded key inside the kernel
+LAUNCHES_BWD_DQ = C.counter("routing_fused_bwd_dq")
+LAUNCHES_BWD_DKV = C.counter("routing_fused_bwd_dkv")
+SENTINEL = 2 ** 30          # position of a padded key inside the kernels
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_DQ_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_DKV_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                 + [ctypes.c_void_p])
 
 
 def routed_attention_fused_plain(q, k, v, q_idx, k_idx, positions,
                                  causal: bool = True,
                                  kvalid: Optional[torch.Tensor] = None):
-    """The plain PyTorch version of the kernel: (out, lse)."""
-    return gathered_block_attention(q, k, v, q_idx.long(), k_idx.long(),
-                                    positions.long(), causal, kvalid,
-                                    return_lse=True)
+    """The plain PyTorch version of the forward kernel: (out, lse)."""
+    return ref.gathered_block_attention(q, k, v, q_idx.long(), k_idx.long(),
+                                        positions.long(), causal, kvalid,
+                                        return_lse=True)
 
 
-def routed_attention_fused(q: torch.Tensor, k: Optional[torch.Tensor],
-                           v: torch.Tensor, q_idx: torch.Tensor,
-                           k_idx: torch.Tensor, positions: torch.Tensor,
-                           causal: bool = True,
-                           kvalid: Optional[torch.Tensor] = None):
-    what = "routed_attention_fused"
+def _check(what, q, k, v, q_idx, k_idx, positions, kvalid, **more):
     kk = q if k is None else k
     B, H, N, dh = q.shape
     kc, w = q_idx.shape[2], q_idx.shape[3]
@@ -57,15 +63,32 @@ def routed_attention_fused(q: torch.Tensor, k: Optional[torch.Tensor],
                                  and kvalid.dtype == torch.bool),
               f"{what}: kvalid must be (B, N) bool")
     C.check_tensors(what, q=q, k=kk, v=v, q_idx=q_idx, k_idx=k_idx,
-                    positions=positions)
+                    positions=positions, **more)
+
+
+def _key_positions(positions, kvalid):
+    """Key positions as the kernels read them: SENTINEL for padded keys."""
+    if kvalid is None:
+        return positions
+    return torch.where(kvalid, positions, SENTINEL).to(torch.int32)
+
+
+def routed_attention_fused(q: torch.Tensor, k: Optional[torch.Tensor],
+                           v: torch.Tensor, q_idx: torch.Tensor,
+                           k_idx: torch.Tensor, positions: torch.Tensor,
+                           causal: bool = True,
+                           kvalid: Optional[torch.Tensor] = None):
+    what = "routed_attention_fused"
+    _check(what, q, k, v, q_idx, k_idx, positions, kvalid)
     if q.device.type == "cpu":
         return routed_attention_fused_plain(q, k, v, q_idx, k_idx, positions,
                                             causal, kvalid)
+    kk = q if k is None else k
+    B, H, N, dh = q.shape
+    kc, w = q_idx.shape[2], q_idx.shape[3]
     C.head_dim_ok(what, dh)
     code = C.dtype_code(what, q)
-    pos_k = positions
-    if kvalid is not None:
-        pos_k = torch.where(kvalid, positions, SENTINEL).to(torch.int32)
+    pos_k = _key_positions(positions, kvalid)
     out = torch.empty((B, H, kc, w, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, kc, w), dtype=torch.float32, device=q.device)
     fn = C.load("routing_fused", "routing_fused_fwd", _ARGTYPES)
@@ -75,3 +98,140 @@ def routed_attention_fused(q: torch.Tensor, k: Optional[torch.Tensor],
     C.check(err, what)
     LAUNCHES.bump()
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+def _check_bwd(what, q, k, v, q_idx, k_idx, positions, do, lse, dsum,
+               kvalid):
+    B, H, N, dh = q.shape
+    kc, w = q_idx.shape[2], q_idx.shape[3]
+    C.require(do.shape == (B, H, kc, w, dh) and do.dtype == q.dtype,
+              f"{what}: do must be (B, H, k, w, dh) in q's dtype")
+    C.require(lse.shape == dsum.shape == (B, H, kc, w)
+              and lse.dtype == dsum.dtype == upcast(q).dtype,
+              f"{what}: lse and D must be (B, H, k, w) in q's accumulation "
+              f"dtype")
+    _check(what, q, k, v, q_idx, k_idx, positions, kvalid, do=do, lse=lse,
+           dsum=dsum)
+
+
+def routed_attention_fused_bwd_dq(q, k, v, q_idx, k_idx, positions, do,
+                                  lse, dsum, causal: bool = True,
+                                  kvalid=None):
+    """Per-cluster dq blocks (B,H,k,w,dh) fp32 from the per-cluster output
+    gradient ``do`` and the forward's lse and D = rowsum(do * out)."""
+    what = "routed_attention_fused_bwd_dq"
+    _check_bwd(what, q, k, v, q_idx, k_idx, positions, do, lse, dsum, kvalid)
+    if q.device.type == "cpu":
+        return ref.routed_attention_bwd_dq(
+            q, k, v, q_idx.long(), k_idx.long(), positions.long(), do, lse,
+            dsum, causal, kvalid)
+    kk = q if k is None else k
+    B, H, N, dh = q.shape
+    kc, w = q_idx.shape[2], q_idx.shape[3]
+    C.head_dim_ok(what, dh)
+    code = C.dtype_code(what, q)
+    pos_k = _key_positions(positions, kvalid)
+    dq = torch.empty((B, H, kc, w, dh), dtype=torch.float32, device=q.device)
+    fn = C.load("routing_fused_bwd", "routing_fused_bwd_dq", _DQ_ARGTYPES)
+    err = fn(C.ptr(q), C.ptr(kk), C.ptr(v), C.ptr(q_idx), C.ptr(k_idx),
+             C.ptr(positions), C.ptr(pos_k), C.ptr(do), C.ptr(lse),
+             C.ptr(dsum), C.ptr(dq), B * H, H, N, kc, w, dh, int(causal),
+             code, C.stream())
+    C.check(err, what)
+    LAUNCHES_BWD_DQ.bump()
+    return dq
+
+
+def routed_attention_fused_bwd_dkv(q, k, v, q_idx, k_idx, positions, do,
+                                   lse, dsum, causal: bool = True,
+                                   kvalid=None):
+    """Per-cluster (dk, dv) blocks (B,H,k,w,dh) fp32; with shared-QK
+    (``k=None``) dk is the gradient of q's rows taken as keys."""
+    what = "routed_attention_fused_bwd_dkv"
+    _check_bwd(what, q, k, v, q_idx, k_idx, positions, do, lse, dsum, kvalid)
+    if q.device.type == "cpu":
+        return ref.routed_attention_bwd_dkv(
+            q, k, v, q_idx.long(), k_idx.long(), positions.long(), do, lse,
+            dsum, causal, kvalid)
+    kk = q if k is None else k
+    B, H, N, dh = q.shape
+    kc, w = q_idx.shape[2], q_idx.shape[3]
+    C.head_dim_ok(what, dh)
+    code = C.dtype_code(what, q)
+    pos_k = _key_positions(positions, kvalid)
+    dk = torch.empty((B, H, kc, w, dh), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    fn = C.load("routing_fused_bwd", "routing_fused_bwd_dkv", _DKV_ARGTYPES)
+    err = fn(C.ptr(q), C.ptr(kk), C.ptr(v), C.ptr(q_idx), C.ptr(k_idx),
+             C.ptr(positions), C.ptr(pos_k), C.ptr(do), C.ptr(lse),
+             C.ptr(dsum), C.ptr(dk), C.ptr(dv), B * H, H, N, kc, w, dh,
+             int(causal), code, C.stream())
+    C.check(err, what)
+    LAUNCHES_BWD_DKV.bump()
+    return dk, dv
+
+
+def routed_attention_fused_bwd(q, k, v, q_idx, k_idx, positions, out, lse,
+                               do, causal: bool = True, kvalid=None):
+    """Per-cluster (dqg, dkg, dvg) through the two backward kernels (their
+    plain versions for CPU tensors)."""
+    dsum = row_dot(do, out)
+    dq = routed_attention_fused_bwd_dq(q, k, v, q_idx, k_idx, positions, do,
+                                       lse, dsum, causal, kvalid)
+    dk, dv = routed_attention_fused_bwd_dkv(q, k, v, q_idx, k_idx,
+                                            positions, do, lse, dsum,
+                                            causal, kvalid)
+    return dq, dk, dv
+
+
+def routed_attention_fused_bwd_plain(q, k, v, q_idx, k_idx, positions, out,
+                                     lse, do, causal: bool = True,
+                                     kvalid=None):
+    """The plain PyTorch version of the whole backward: per-cluster (dqg,
+    dkg, dvg), p recomputed from the saved lse as the kernels do."""
+    dsum = row_dot(do, out)
+    args = (q, k, v, q_idx.long(), k_idx.long(), positions.long(), do, lse,
+            dsum, causal, kvalid)
+    return (ref.routed_attention_bwd_dq(*args),
+            *ref.routed_attention_bwd_dkv(*args))
+
+
+class RoutedAttentionFused(torch.autograd.Function):
+    """Differentiable fused routed attention through the kernels:
+    ``RoutedAttentionFused.apply(q, k, v, q_idx, k_idx, positions, causal,
+    kvalid)`` -> (per-cluster out, lse); lse carries no gradient.
+
+    The backward scatter-adds the per-cluster gradient blocks to sequence
+    layout (`index_add_`: on CUDA a token's <= k cluster copies add in
+    run-dependent order). With shared-QK (``k=None``) q's rows served as
+    both queries and keys, so q's gradient is the sum of both scatters."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_idx, k_idx, positions, causal, kvalid):
+        out, lse = routed_attention_fused(q, k, v, q_idx, k_idx, positions,
+                                          causal, kvalid)
+        ctx.save_for_backward(q, k, v, q_idx, k_idx, positions, out, lse,
+                              kvalid)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, q_idx, k_idx, positions, out, lse, kvalid = ctx.saved_tensors
+        dqg, dkg, dvg = routed_attention_fused_bwd(
+            q, k, v, q_idx, k_idx, positions, out, lse, do.contiguous(),
+            ctx.causal, kvalid)
+        N = q.shape[2]
+        qi, ki = q_idx.long(), k_idx.long()
+        dq = ref.scatter_add_rows(dqg, qi, N)
+        dk = ref.scatter_add_rows(dkg, ki, N)
+        dv = ref.scatter_add_rows(dvg, ki, N).to(v.dtype)
+        if k is None:
+            return ((dq + dk).to(q.dtype), None, dv, None, None, None, None,
+                    None)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv, None, None, None, None,
+                None)

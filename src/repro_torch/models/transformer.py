@@ -5,21 +5,34 @@ The stack is a list of *segments*; each is a repeating pattern of layer
 specs run ``n_groups`` times. Parameters, centroids and caches keep the JAX
 layout: every leaf of a segment is stacked over its groups on a leading
 (G, ...) axis, and the JAX ``lax.scan`` over groups is a Python loop here.
-A layer is norm -> self-attention -> residual -> norm -> FFN -> residual.
+A layer is norm -> self-attention -> dropout -> residual -> norm -> FFN ->
+dropout -> residual.
+
+Dropout draws from a generator seeded per (step seed, layer, site) inside
+the layer, as the JAX package folds its key in: `torch.utils.checkpoint`
+restores only the default generators' state, so a generator carried into
+a rematerialized group would draw new masks on recompute. Masks cannot
+equal the JAX package's bits (another generator), so parity is held at
+dropout 0 and dropout by its statistics.
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import attn as attn_api
 from repro_torch.attn.spec import head_split, spec_for_layer, variant_for_layer
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kmeans import init_kmeans
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map, tree_stack
+from repro_torch.tree import (tree_leaves, tree_map, tree_stack,
+                              tree_unflatten)
+
+REMAT_POLICIES = ("none", "full")
 
 
 @dataclass(frozen=True)
@@ -103,16 +116,37 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, device):
     return seg_params, seg_kstate
 
 
+def fold_seed(seed: int, *data: int) -> int:
+    """A 63-bit seed derived from ``seed`` and ``data`` (the port's
+    counterpart of ``jax.random.fold_in``)."""
+    h = hashlib.blake2b(repr((seed,) + data).encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "little") & (2 ** 63 - 1)
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]):
+    """Inverted dropout with a mask drawn from a generator seeded with
+    ``seed``: the same seed gives the same mask, so a recomputed layer
+    reproduces its forward."""
+    if seed is None or rate <= 0.0:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
                 positions=None, pad_mask=None, update_state=True,
-                impl=None, cache=None):
-    """One ``attn`` layer (no dropout: the port runs inference only).
+                impl=None, cache=None, drop_seed: Optional[int] = None):
+    """One ``attn`` layer, with dropout (rate ``cfg.dropout``) on the
+    attention and FFN outputs when ``drop_seed`` is given.
 
     Returns (x, new_kmu, new_cache). With ``cache`` (the layer's
     decode-cache leaves, prefill) the cache is filled from the same q/k/v
     the attention runs on, which needs ``positions``; else new_cache is
     None.
     """
+    seeds = ((None, None) if drop_seed is None
+             else (fold_seed(drop_seed, 0), fold_seed(drop_seed, 1)))
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = L.qkv_project(p["attn"], h, cfg)
     aspec = spec_for_layer(cfg, spec.attn)
@@ -121,6 +155,70 @@ def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
     out = attn_api.attend(aspec, q, k, v, state=kmu, positions=positions,
                           pad_mask=pad_mask, update_state=update_state,
                           impl=impl)
-    x = x + L.out_project(p["attn"], out.out)
+    x = x + _dropout(L.out_project(p["attn"], out.out), cfg.dropout,
+                     seeds[0])
     h2 = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(p["ffn"], h2, cfg.act), out.state, new_cache
+    x = x + _dropout(L.apply_mlp(p["ffn"], h2, cfg.act), cfg.dropout,
+                     seeds[1])
+    return x, out.state, new_cache
+
+
+def _unstack(tree, G: int):
+    """The G group slices of a (G, ...)-stacked tree, each leaf unbound
+    once: indexing every leaf per group would make each slice's backward
+    write a zero-filled (G, ...) gradient, G times the parameter bytes per
+    step; the backward of `torch.unbind` stacks the slices' gradients
+    once."""
+    slices = [torch.unbind(leaf, 0) for leaf in tree_leaves(tree)]
+    return [tree_unflatten(tree, [s[g] for s in slices]) for g in range(G)]
+
+
+def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
+                positions=None, pad_mask=None, impl=None,
+                remat: str = "none", drop_seed: Optional[int] = None):
+    """The whole stack over x (B,N,d) -> (x, new_seg_kstate), with each
+    routing layer's EMA centroid update.
+
+    ``remat="full"`` recomputes each group in the backward
+    (`torch.utils.checkpoint`, non-reentrant), as the JAX package's
+    ``jax.checkpoint`` per scan group: its forward kernels then run twice
+    per step. ``drop_seed`` (with ``cfg.dropout > 0``) turns dropout on;
+    layer ``n`` of the stack draws from ``fold_seed(drop_seed, n)``.
+    """
+    if remat == "save_dots":
+        raise NotImplementedError(
+            "remat='save_dots' is not ported yet; use 'full' or 'none'")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}")
+    dropout_on = drop_seed is not None and cfg.dropout > 0
+    new_seg_kstate = []
+    layer = 0
+    for si, (pattern, G) in enumerate(build_segments(cfg)):
+
+        def group_fn(x, p_group, k_group, base, pattern=pattern):
+            new_k = {}
+            for i, spec in enumerate(pattern):
+                seed = fold_seed(drop_seed, base + i) if dropout_on else None
+                x, nk, _ = apply_layer(
+                    spec, p_group[i], k_group.get(str(i)), x, cfg,
+                    positions=positions, pad_mask=pad_mask,
+                    update_state=True, impl=impl, drop_seed=seed)
+                if str(i) in k_group:
+                    new_k[str(i)] = nk
+            return x, new_k
+
+        groups = []
+        for p_group, k_group in zip(_unstack(seg_params[si], G),
+                                    _unstack(seg_kstate[si], G)):
+            if remat == "full":
+                # the layer draws nothing from the default generators, so
+                # their state need not be saved for the recompute
+                x, new_k = checkpoint(group_fn, x, p_group, k_group, layer,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                x, new_k = group_fn(x, p_group, k_group, layer)
+            groups.append(new_k)
+            layer += len(pattern)
+        new_seg_kstate.append(tree_stack(groups))
+    return x, new_seg_kstate

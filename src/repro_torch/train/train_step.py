@@ -1,0 +1,171 @@
+"""Training step: loss, grads, microbatch accumulation, optimizer update
+(port of the JAX package's ``train/train_step.py``, one device).
+
+`make_train_step(run)` returns ``(TrainState, batch) -> (TrainState,
+metrics)``. The k-means routing state rides in TrainState and is refreshed
+from the forward pass (functional EMA, no gradient). Gradient accumulation
+loops over microbatches, carrying the centroids from one to the next; the
+remat policy applies inside the model stack. Gradients come from
+``torch.autograd.grad`` on detached copies of the parameter leaves, so
+nothing accumulates in ``.grad`` and the state stays functional: the step
+returns new parameter and optimizer trees (the old ones are freed when the
+caller drops the old state).
+
+``grad_compression="int8_ef"`` raises: its data-parallel exchange belongs
+to the port's distributed slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.models.model import (apply_model, init_model, lm_loss,
+                                      next_token_batch)
+from repro_torch.models.transformer import fold_seed
+from repro_torch.optim import make_optimizer, make_schedule
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+class TrainState(NamedTuple):
+    params: Any
+    kstate: Any
+    opt_state: Any
+    step: int
+
+
+def _require_uncompressed(run: RunConfig) -> None:
+    if run.train.grad_compression != "none":
+        raise NotImplementedError(
+            f"grad_compression={run.train.grad_compression!r} needs the "
+            "data-parallel exchange of the port's distributed slice")
+
+
+def init_train_state(run: RunConfig, seed: int = 0,
+                     device="cuda") -> TrainState:
+    """Fresh parameters, centroids and optimizer state on ``device``
+    (default the card; raises without one unless ``device="cpu"``)."""
+    _require_uncompressed(run)
+    params, kstate = init_model(run.model, seed=seed, device=device)
+    opt_init, _ = make_optimizer(run.train)
+    return TrainState(params, kstate, opt_init(params), 0)
+
+
+def make_loss_fn(run: RunConfig, impl: Optional[str] = None):
+    """``loss_fn(params, kstate, batch, drop_seed) -> (loss, (new_kstate,
+    metrics))``; ``batch["tokens"]`` is (B, S+1)."""
+    mc, tc = run.model, run.train
+
+    def loss_fn(params, kstate, batch, drop_seed):
+        inputs, targets = next_token_batch(batch)
+        logits, new_k = apply_model(params, kstate, inputs, mc, impl=impl,
+                                    remat=tc.remat, drop_seed=drop_seed)
+        loss, metrics = lm_loss(logits, targets, inputs.get("pad_mask"),
+                                tc.z_loss)
+        metrics = dict(metrics)
+        metrics["loss"] = loss.detach()
+        return loss, (new_k, metrics)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn):
+    """``(params, *args) -> ((loss, aux), grads)`` with grads shaped like
+    params (the counterpart of ``jax.value_and_grad(has_aux=True)``)."""
+    def vg(params, *args):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
+            grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), aux), tree_unflatten(params, list(grads))
+    return vg
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(g.float().square().sum()
+                          for g in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / gn.clamp_min(1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+
+def make_grad_fn(run: RunConfig, loss_fn):
+    """``(params, kstate, batch, drop_seed) -> (grads, new_kstate,
+    metrics)`` with microbatch accumulation per `TrainConfig.grad_accum`:
+    the batch is cut into ``grad_accum`` consecutive row blocks, each
+    microbatch starts from the centroids the previous one left, grads sum
+    in ``accum_dtype`` and are divided by the count, and the metrics are
+    the microbatch means. Every microbatch gets the same dropout seed, as
+    in the JAX package."""
+    tc = run.train
+    vg = value_and_grad(loss_fn)
+
+    def grad_fn(params, kstate, batch, drop_seed):
+        A = tc.grad_accum
+        if A <= 1:
+            (_, (new_k, metrics)), grads = vg(params, kstate, batch,
+                                              drop_seed)
+            return grads, new_k, dict(metrics)
+        B = batch["tokens"].shape[0]
+        if B % A:
+            raise ValueError(f"batch {B} does not split into grad_accum={A} "
+                             f"microbatches")
+        acc_dt = getattr(torch, tc.accum_dtype)
+        gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
+                                              device=p.device), params)
+        kst, mlist = kstate, []
+        for a in range(A):
+            mb = {k: v[a * (B // A):(a + 1) * (B // A)]
+                  for k, v in batch.items()}
+            (_, (kst, metrics)), g = vg(params, kst, mb, drop_seed)
+            gacc = tree_map(lambda x, y: x + y.to(acc_dt), gacc, g)
+            mlist.append(metrics)
+        grads = tree_map(lambda g: g / A, gacc)
+        metrics = {k: torch.stack([m[k] for m in mlist]).mean(0)
+                   for k in mlist[0]}
+        return grads, kst, metrics
+
+    return grad_fn
+
+
+def _finish_step(tc, schedule, opt_update, ts: TrainState, grads, new_k,
+                 metrics):
+    """Shared tail: clip, lr, optimizer update, state assembly."""
+    grads, gn = clip_by_global_norm(grads, tc.grad_clip)
+    lr = schedule(ts.step + 1)
+    new_params, new_opt = opt_update(grads, ts.opt_state, ts.params, lr)
+    metrics["grad_norm"] = gn
+    metrics["lr"] = lr
+    return TrainState(new_params, new_k, new_opt, ts.step + 1), metrics
+
+
+def _drop_seed(run: RunConfig, step: int) -> Optional[int]:
+    """The dropout seed of ``step`` (None with dropout off)."""
+    return (fold_seed(run.train.seed, step) if run.model.dropout > 0
+            else None)
+
+
+def make_train_step(run: RunConfig, impl: Optional[str] = None):
+    """``train_step(ts, batch) -> (new_ts, metrics)``; the metrics are
+    0-d tensors (``lr`` a float) and are not synchronized with the host.
+    ``impl`` forces an attention backend (``"torch"``: the plain path);
+    by default CUDA tensors take the kernels."""
+    _require_uncompressed(run)
+    tc = run.train
+    loss_fn = make_loss_fn(run, impl)
+    _, opt_update = make_optimizer(tc)
+    schedule = make_schedule(tc, run.model.d_model)
+    grad_fn = make_grad_fn(run, loss_fn)
+
+    def train_step(ts: TrainState, batch: Dict[str, torch.Tensor]):
+        grads, new_k, metrics = grad_fn(ts.params, ts.kstate, batch,
+                                        _drop_seed(run, ts.step))
+        return _finish_step(tc, schedule, opt_update, ts, grads, new_k,
+                            metrics)
+
+    return train_step

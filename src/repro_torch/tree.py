@@ -27,3 +27,16 @@ def tree_stack(trees: List[Any]) -> Any:
     """Stack same-structure trees along a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in `tree_map` order."""
+    out: List[Any] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
+    """``tree``'s structure with ``leaves`` (in `tree_leaves` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
