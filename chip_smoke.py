@@ -6,15 +6,18 @@
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the seven CUDA kernels from src/repro_torch/csrc (one nvcc per
+2. build the ten CUDA kernels from src/repro_torch/csrc (one nvcc per
    source, started together) and print each kernel's registers, shared
    memory and spills;
-3. for each kernel, at the bf16 shapes its path gives it (serving for the
-   forward and decode kernels, training for the four backward kernels):
-   compare it with its plain PyTorch version run in fp32 on the same bf16
+3. for each kernel, at the shapes its path gives it (rt-enwik8 serving
+   for the local, routing and decode forward kernels, rt-enwik8 training
+   for their backward kernels, qwen2-0.5b training for the three flash
+   kernels, all bf16; the flash kernels also in fp32 at head dim 128):
+   compare it with its plain PyTorch version run in fp32 on the same
    inputs, and time the kernel, the plain version (as the plain path runs
-   it, in bf16) and, where one PyTorch call computes the same function,
-   that call (`library_ms`; the port never calls it);
+   it) and, where one PyTorch call computes the same function, that call
+   (`library_ms`; the port never calls it). The causal flash kernels must
+   take well under the time of the same call without the causal mask;
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -30,14 +33,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    kernel path chose), with the kernel path's run-to-run floor reported
    and a negative control (the routing backward with the key side of
    shared-QK dropped) that the gate must refuse; then a few bf16 steps
-   with dropout
-   0.4 through `make_train_step` (Adam, vaswani schedule, clip 1.0, remat
-   "full", B 2 x 8192 tokens of the synthetic markov task), launch counts
-   set to 0 just before and read just after: with remat "full" each
-   forward kernel runs twice per layer and microbatch (forward and
-   recompute), each backward kernel once. The loss must be finite and
-   fall;
-6. print the per-kernel JSON line, then the device JSON line last.
+   with dropout 0.4 through `make_train_step` (Adam, vaswani schedule,
+   clip 1.0, remat "full", B 2 x 8192 tokens of the synthetic markov
+   task), launch counts set to 0 just before and read just after: with
+   remat "full" each forward kernel runs twice per layer and microbatch
+   (forward and recompute), each backward kernel once. The loss must be
+   finite and fall;
+6. train qwen2-0.5b at full width and depth (24 layers, d_model 896, GQA
+   14:2, dh 64) on the flash kernels: an fp32 gate at B 1 x 2048 as in 5
+   (no routing to pin; its negative control takes each kv head's dk/dv
+   from one query head of its group), then 6 bf16 steps of B 2 x 4096
+   through `make_train_step` under the JAX launcher's run config, with
+   exactly 48 forward, 24 dq and 24 dk/dv flash launches per step and no
+   other kernel; then the training launcher `repro_torch.launch.train` at
+   its defaults (fp32, B 8 x 256) for 3 steps, in-process, with exact
+   launch counts;
+7. print the per-kernel JSON line, then the device JSON line last.
+   ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
+   decode step and train step and of one qwen2 train step.
 
 Exits non-zero without a result when no CUDA device is present, or when
 run outside a checkout of the repository.
@@ -64,6 +77,15 @@ DEVICE = "cuda"
 REQUESTS = ((4, 2048, 32), (1, 8192, 16))      # (batch, prompt, new tokens)
 TRAIN_BATCH, TRAIN_SEQ = 2, 8192               # the paper's context length
 TRAIN_STEPS = 6
+FULL_ARCH = "qwen2-0.5b"
+# the seq of the JAX package's train_4k cell; the batch cut to one card
+FULL_BATCH, FULL_SEQ = 2, 4096
+FULL_GATE_BATCH, FULL_GATE_SEQ = 1, 2048        # the fp32 gate's batch
+FULL_VOCAB = 512          # markov over min(V, 512) tokens, as the launcher
+LAUNCH_ARGV = ["--steps", "3"]                  # the launcher's defaults
+# the flash kernels at head dim 128 in fp32, as starcoder2-3b's heads:
+# (B, H, Hkv, N, dh)
+WIDE_FLASH = (1, 24, 2, 2048, 128)
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -103,38 +125,65 @@ MAX_GRAD_MEDIAN_FP32 = 2.5e-3
 # index_add_ atomics differ: sound runs read 7.7e-6..2.6e-5, the broken
 # backward 0.159 (PERF.md)
 MAX_BWD_GRAD_FP32 = 1e-3
+# a causal flash call does half the pairs of a non-causal one; with the
+# tiles above the diagonal skipped it takes ~0.5 of the time, masked ~1
+MAX_CAUSAL_OVER_DENSE = 0.85
+
+# fp32 train step of qwen2-0.5b, kernel path vs plain path (same weights,
+# dropout 0): no routing, so only the order of fp32 sums differs between
+# the flash kernels and the plain ops. Sound and broken readings (the
+# negative control below) are in PERF.md; each limit sits at least 5x from
+# both
+MAX_LOSS_DIFF_FULL = 1e-4
+MAX_GRAD_MEDIAN_FULL = 1e-4
+MAX_BWD_GRAD_FULL = 1e-3
 
 # every kernel of the port: its source, the TPU kernel it replaces (the
-# def line), and the paths that launch it
+# def line), whether it runs in the forward (twice per layer under remat
+# "full": forward and recompute) or the backward, and the paths that
+# launch it: serving and training rt-enwik8, training qwen2-0.5b through
+# make_train_step ("train_full") and through the launcher ("launch")
 KERNELS = {
     "local_attention": dict(
         route="cuda", source="src/repro_torch/csrc/local_attention.cu",
         replaces="src/repro/kernels/local_attention.py:34",
-        paths=("serve", "train")),
+        kind="forward", paths=("serve", "train")),
     "routing_fused": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused.cu",
         replaces="src/repro/kernels/routing_attention.py:325",
-        paths=("serve", "train")),
+        kind="forward", paths=("serve", "train")),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
-        paths=("serve",)),
+        kind="decode", paths=("serve",)),
     "local_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/local_attention_bwd.cu",
         replaces="src/repro/kernels/local_attention.py:59",
-        paths=("train",)),
+        kind="backward", paths=("train",)),
     "local_attention_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/local_attention_bwd.cu",
         replaces="src/repro/kernels/local_attention.py:85",
-        paths=("train",)),
+        kind="backward", paths=("train",)),
     "routing_fused_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:372",
-        paths=("train",)),
+        kind="backward", paths=("train",)),
     "routing_fused_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:411",
-        paths=("train",)),
+        kind="backward", paths=("train",)),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:47",
+        kind="forward", paths=("train_full", "launch")),
+    "flash_attention_bwd_dq": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:90",
+        kind="backward", paths=("train_full", "launch")),
+    "flash_attention_bwd_dkv": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:123",
+        kind="backward", paths=("train_full", "launch")),
 }
 
 
@@ -144,6 +193,23 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def print_dynamic_smem() -> None:
+    """Dynamic shared memory per block, which ptxas does not report: the
+    forward tile (local, fused routing and flash forward kernels), the dq
+    and dk/dv tiles (their backward kernels); the decode kernel takes
+    (cap + 1) fp32 scores."""
+    import ctypes
+    from repro_torch.kernels import common
+    fwd = common.load("flash_attention", "forward_tile_smem_bytes",
+                      [ctypes.c_int])
+    bwd = common.load("flash_attention_bwd", "backward_tile_smem_bytes",
+                      [ctypes.c_int, ctypes.c_int])
+    for dh in (64, 128):
+        print(f"  dynamic smem per block, dh {dh}: forward tile {fwd(dh)} "
+              f"B, dq tile {bwd(dh, 0)} B, dk/dv tile {bwd(dh, 1)} B; "
+              f"decode (cap + 1) * 4 B")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -400,6 +466,85 @@ def check_routing_bwd(torch, cfg, B, N, gen):
         f"B{B} H{H} N{N} dh{dh} k{kc} w{w}")
 
 
+def causal_pairs(B, H, N) -> float:
+    """Attended (query, key) pairs of causal dense attention, N = M."""
+    return B * H * N * (N + 1) / 2
+
+
+def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
+    """The three flash kernels at one causal shape: each against its plain
+    version in fp32 on the same inputs, timed beside the plain version (in
+    ``dtype``) and SDPA (forward; backward for all of dq, dk/dv). The
+    kernels skip the key tiles above the diagonal, so each must take well
+    under the time of the same call without the causal mask (twice the
+    pairs): ``causal_over_dense`` reads ~0.5 (a kernel that masks those
+    tiles instead of skipping them reads ~1)."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.core import row_dot
+    mk = dict(generator=gen, device=DEVICE, dtype=dtype)
+    q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+    out, lse = K.flash_attention(q, k, v)
+    dsum = row_dot(do, out)
+    args = (q, k, v, do, lse, dsum)
+    dq = K.flash_attention_bwd_dq(*args)
+    dk, dv = K.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    f32 = [t.float() for t in (q, k, v, do)]
+    ref_out, ref_lse = K.flash_attention_plain(*f32[:3])
+    err, lerr = max_err(out, ref_out), max_err(lse, ref_lse)
+    if not (out_ok(out, ref_out) and lerr <= LSE_TOL):
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version: out {err}, lse {lerr}")
+    args32 = (*f32, lse, dsum)
+    ref_dq = K.flash_attention_bwd_dq_plain(*args32)
+    ref_dk, ref_dv = K.flash_attention_bwd_dkv_plain(*args32)
+    del ref_out, ref_lse
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                                  retain_graph=True))
+    del o
+    pairs = causal_pairs(B, H, N)
+    shape = (f"B{B} H{H} Hkv{Hkv} N{N} dh{dh} "
+             f"{str(dtype).replace('torch.', '')} causal")
+    fwd_ms = time_ms(lambda: K.flash_attention(q, k, v))
+    b_ms, b_by = bound_ms(nbytes(q, k, v, out, lse), 4 * dh * pairs)
+    rows = {"flash_attention": dict(
+        max_abs_err=err, lse_err=lerr, ms=fwd_ms,
+        plain_ms=time_ms(lambda: K.flash_attention_plain(q, k, v)),
+        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, shape=shape,
+        causal_over_dense=fwd_ms / time_ms(
+            lambda: K.flash_attention(q, k, v, False)))}
+    rows.update(_bwd_rows(
+        ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+        ((dq,), (dk, dv)), ((ref_dq,), (ref_dk, ref_dv)),
+        (lambda: K.flash_attention_bwd_dq(*args),
+         lambda: K.flash_attention_bwd_dkv(*args)),
+        (lambda: K.flash_attention_bwd_dq_plain(*args),
+         lambda: K.flash_attention_bwd_dkv_plain(*args)),
+        lib_bwd, nbytes(q, k, v, do, lse, dsum),
+        ((nbytes(dq), 6 * dh * pairs), (nbytes(dk, dv), 8 * dh * pairs)),
+        shape))
+    out_d, lse_d = K.flash_attention(q, k, v, False)
+    dense = (q, k, v, do, lse_d, row_dot(do, out_d), False)
+    for name, fn in (("flash_attention_bwd_dq", K.flash_attention_bwd_dq),
+                     ("flash_attention_bwd_dkv", K.flash_attention_bwd_dkv)):
+        rows[name]["causal_over_dense"] = rows[name]["ms"] / time_ms(
+            lambda: fn(*dense))
+    for name, row in rows.items():
+        if row["causal_over_dense"] > MAX_CAUSAL_OVER_DENSE:
+            raise AssertionError(
+                f"{name} takes {row['causal_over_dense']:.2f} of its dense "
+                f"time on a causal call: the tiles above the diagonal are "
+                f"not skipped")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: serve full-width rt-enwik8
 # ---------------------------------------------------------------------------
@@ -519,10 +664,9 @@ def train_run_config(cfg):
         global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
 
 
-def train_batches(torch, cfg, n):
+def train_batches(torch, vocab, batch, seq, n):
     from repro_torch.data.synthetic import SyntheticLoader
-    loader = SyntheticLoader("markov", cfg.vocab_size, TRAIN_BATCH,
-                             TRAIN_SEQ, seed=0)
+    loader = SyntheticLoader("markov", vocab, batch, seq, seed=0)
     return [{k: torch.from_numpy(v).to(DEVICE)
              for k, v in next(loader).items()} for _ in range(n)]
 
@@ -547,6 +691,34 @@ def swapped(module, name, fn):
         yield
     finally:
         setattr(module, name, kept)
+
+
+@contextlib.contextmanager
+def all_of(*managers):
+    """Every context manager of ``managers`` entered, in order."""
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+def one_graph_grads(torch, run, params32, kstate, batch, contexts):
+    """Gradients of one forward graph's loss, one backward pass inside
+    each of ``contexts``: the forward is the same for all of them, so they
+    differ only in the backward."""
+    from repro_torch.train.train_step import make_loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params32)]
+    loss, _ = make_loss_fn(run)(tree_unflatten(params32, leaves), kstate,
+                                batch, None)
+    out = []
+    for i, ctx in enumerate(contexts):
+        with ctx:
+            g = torch.autograd.grad(loss, leaves,
+                                    retain_graph=i < len(contexts) - 1)
+        torch.cuda.synchronize()
+        out.append(tree_unflatten(params32, list(g)))
+    return out
 
 
 def membership_recorded(calls: list):
@@ -607,7 +779,7 @@ def train_gate(torch, cfg, params, kstate, batch):
     from repro_torch.kernels import local_attention as KL
     from repro_torch.kernels import routing_attention as KR
     from repro_torch.train.train_step import make_loss_fn, value_and_grad
-    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.tree import tree_leaves, tree_map
     run = train_run_config(with_overrides(cfg, dtype="float32", dropout=0.0))
     params32 = tree_map(lambda t: t.float(), params)
 
@@ -627,24 +799,15 @@ def train_gate(torch, cfg, params, kstate, batch):
     lu, gu, _ = step("torch")
     _, gr, _ = step(None)
 
-    # one forward graph, three backward passes
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params32)]
-    loss, _ = make_loss_fn(run)(tree_unflatten(params32, leaves), kstate,
-                                batch, None)
-
-    def grads(retain=True):
-        g = torch.autograd.grad(loss, leaves, retain_graph=retain)
-        torch.cuda.synchronize()
-        return tree_unflatten(params32, list(g))
-
-    g_kernels = grads()
-    with swapped(KL, "local_attention_bwd", KL.local_attention_bwd_plain), \
+    g_kernels, g_plain_bwd, g_broken = one_graph_grads(
+        torch, run, params32, kstate, batch, [
+            contextlib.nullcontext(),
+            all_of(swapped(KL, "local_attention_bwd",
+                           KL.local_attention_bwd_plain),
+                   swapped(KR, "routed_attention_fused_bwd",
+                           KR.routed_attention_fused_bwd_plain)),
             swapped(KR, "routed_attention_fused_bwd",
-                    KR.routed_attention_fused_bwd_plain):
-        g_plain_bwd = grads()
-    with swapped(KR, "routed_attention_fused_bwd",
-                 key_side_dropped(KR.routed_attention_fused_bwd)):
-        g_broken = grads(retain=False)
+                    key_side_dropped(KR.routed_attention_fused_bwd))])
 
     kdiff = max(float((a - b).abs().max())
                 for a, b in zip(tree_leaves(kk), tree_leaves(kp)))
@@ -671,30 +834,111 @@ def train_gate(torch, cfg, params, kstate, batch):
     return out
 
 
-def expected_train_launches(run, steps, L):
+def first_query_head_only(q, k, v, out, lse, do, causal=True):
+    """The flash backward with each kv head's dk/dv taken from the first
+    query head of its GQA group instead of the group's sum. The qwen2
+    gate's negative control."""
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import flash_attention as KF
+    dsum = row_dot(do, out)
+    dq = KF.flash_attention_bwd_dq(q, k, v, do, lse, dsum, causal)
+    dk, dv = KF.flash_attention_bwd_dkv(q, k, v, do, lse, dsum, causal)
+    B, H, M, dh = dk.shape
+    Hkv = k.shape[1]
+    return (dq, dk.reshape(B, Hkv, H // Hkv, M, dh)[:, :, 0],
+            dv.reshape(B, Hkv, H // Hkv, M, dh)[:, :, 0])
+
+
+def full_run_config(cfg, batch, seq):
+    """The JAX package's training launcher's run config (Adam, clip 1.0,
+    remat "full", lr 1e-3 on a linear warm-up of 20 steps then rsqrt)."""
+    from repro_torch.configs.base import RunConfig, TrainConfig
+    return RunConfig(model=cfg, train=TrainConfig(
+        global_batch=batch, seq_len=seq, lr=1e-3,
+        schedule="linear_warmup_rsqrt", warmup_steps=20))
+
+
+def full_train_gate(torch, cfg, params, kstate, batch):
+    """qwen2's fp32 train step (dropout 0, the same weights), two gates as
+    `train_gate` has: the kernel path against the plain path (loss and
+    the median leaf gradient difference), and on one forward graph the
+    backward kernels against the plain backward (the largest leaf
+    difference). Full attention routes nothing, so no membership is
+    pinned. Reported beside them: the kernel path against itself, and a
+    negative control (`first_query_head_only`) both gates must refuse."""
+    from repro_torch.configs import with_overrides
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_map
+    run = full_run_config(with_overrides(cfg, dtype="float32", dropout=0.0),
+                          FULL_GATE_BATCH, FULL_GATE_SEQ)
+    params32 = tree_map(lambda t: t.float(), params)
+
+    def step(impl):
+        vg = value_and_grad(make_loss_fn(run, impl=impl))
+        (loss, _), grads = vg(params32, kstate, batch, None)
+        torch.cuda.synchronize()
+        return float(loss), grads
+
+    lk, gk = step(None)
+    lp, gp = step("torch")
+    _, gr = step(None)
+    g_kernels, g_plain_bwd, g_broken = one_graph_grads(
+        torch, run, params32, kstate, batch, [
+            contextlib.nullcontext(),
+            swapped(KF, "flash_attention_bwd", KF.flash_attention_bwd_plain),
+            swapped(KF, "flash_attention_bwd", first_query_head_only)])
+    out = dict(loss_kernel=lk, loss_plain=lp, loss_diff=abs(lk - lp),
+               **grad_agreement(gk, gp),
+               backward=grad_agreement(g_kernels, g_plain_bwd),
+               repeat=grad_agreement(gr, gk),
+               first_head_only=grad_agreement(g_broken, gp),
+               first_head_only_backward=grad_agreement(g_broken,
+                                                       g_plain_bwd),
+               shape=f"B{FULL_GATE_BATCH} x {FULL_GATE_SEQ}")
+    if (out["loss_diff"] > MAX_LOSS_DIFF_FULL
+            or out["grad_rel_median"] > MAX_GRAD_MEDIAN_FULL
+            or out["backward"]["grad_rel_max"] > MAX_BWD_GRAD_FULL):
+        raise AssertionError(f"fp32 kernel and plain qwen2 train steps "
+                             f"disagree: {out}")
+    if (out["first_head_only"]["grad_rel_median"] <= MAX_GRAD_MEDIAN_FULL
+            or out["first_head_only_backward"]["grad_rel_max"]
+            <= MAX_BWD_GRAD_FULL):
+        raise AssertionError(f"the qwen2 fp32 gates pass a broken "
+                             f"backward: {out}")
+    return out
+
+
+def expected_launches(path, run, steps, L):
     """Per kernel, the launches of ``steps`` train steps of an L-layer
-    model: each forward kernel once per layer and microbatch, twice with
-    remat "full" (forward and recompute); each backward kernel once."""
+    model on ``path``: each forward kernel of the path once per layer and
+    microbatch, twice with remat "full" (forward and recompute); each
+    backward kernel once; every other kernel never."""
     tc = run.train
     fwd = L * tc.grad_accum * (2 if tc.remat == "full" else 1) * steps
     bwd = L * tc.grad_accum * steps
-    return {n: (fwd if n in ("local_attention", "routing_fused") else
-                bwd if "train" in meta["paths"] else 0)
+    return {n: (0 if path not in meta["paths"] else
+                fwd if meta["kind"] == "forward" else bwd)
             for n, meta in KERNELS.items()}
 
 
-def train(torch, cfg, params, kstate, batches, counts):
-    """``len(batches)`` bf16 train steps through `make_train_step`, from
-    the schedule's peak (see below). Asserts the exact launches, a finite
-    and falling loss; returns losses, timings and peak memory."""
+def check_launches(path, got, want):
+    if got != want:
+        raise AssertionError(f"{path} launches {got}, expected {want}")
+
+
+def train(torch, cfg, run, path, params, kstate, batches, counts):
+    """``len(batches)`` train steps through `make_train_step`, from the
+    schedule's peak (see below). Asserts the exact launches of ``path``,
+    a finite and falling loss; returns losses, timings and peak memory."""
     from repro_torch.train.train_step import TrainState, make_train_step
     from repro_torch.optim import make_optimizer
-    run = train_run_config(cfg)
     step_fn = make_train_step(run)
     opt_init, _ = make_optimizer(run.train)
-    # at step 1 the vaswani rate is 1e-6, below the bf16 resolution of the
-    # weights, so a few steps could not move the loss: start the state at
-    # the end of warm-up, the schedule's peak (~1e-3), as a run in progress
+    # at step 1 the rate is far below its peak (rt-enwik8's vaswani
+    # schedule: 1e-6, under the bf16 resolution of the weights), so a few
+    # steps could not move the loss: start the state at the end of
+    # warm-up, the schedule's peak, as a run in progress
     ts = TrainState(params, kstate, opt_init(params), run.train.warmup_steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -706,24 +950,46 @@ def train(torch, cfg, params, kstate, batches, counts):
         losses.append(float(metrics["loss"]))     # waits for the step
         times.append((time.perf_counter() - t0) * 1e3)
     got = {n: counts()[n] - before[n] for n in before}
-    want = dict.fromkeys(before, 0)
-    want.update(expected_train_launches(run, len(batches), cfg.num_layers))
-    if got != want:
-        raise AssertionError(f"train launches {got}, expected {want}")
+    check_launches(path, got, expected_launches(path, run, len(batches),
+                                                cfg.num_layers))
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train loss not finite and falling: {losses}")
+        raise AssertionError(f"{path} loss not finite and falling: "
+                             f"{losses}")
     step_ms = statistics.median(times[1:])
+    tokens = run.train.global_batch * run.train.seq_len
     return dict(losses=losses, step_ms=times, median_step_ms=step_ms,
-                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+                tokens_per_s=tokens / step_ms * 1e3,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 launches=got, grad_norm=float(metrics["grad_norm"]),
                 lr=metrics["lr"]), ts
 
 
-def profile_train(torch, cfg, ts, batch):
+def launch(torch, counts):
+    """The training launcher at its defaults (qwen2-0.5b in fp32, B 8 x
+    256) for a few steps, in-process, with the exact launches of the
+    ``launch`` path and a finite loss."""
+    from repro_torch.configs import get_config, with_overrides
+    from repro_torch.launch import train as launcher
+    args = launcher.parser().parse_args(LAUNCH_ARGV)
+    cfg = with_overrides(get_config(args.arch), dtype="float32")
+    before = counts()
+    t0 = time.perf_counter()
+    out = launcher.main(LAUNCH_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: counts()[n] - before[n] for n in before}
+    check_launches("launch", got, expected_launches(
+        "launch", full_run_config(cfg, args.batch, args.seq), args.steps,
+        cfg.num_layers))
+    if out["steps"] != args.steps or not math.isfinite(out["final_loss"]):
+        raise AssertionError(f"launcher run: {out}")
+    return dict(argv=LAUNCH_ARGV, wall_s=wall, launches=got, **out)
+
+
+def profile_train(torch, run, ts, batch):
     """Device time by operation over one bf16 train step."""
     from repro_torch.train.train_step import make_train_step
-    step_fn = make_train_step(train_run_config(cfg))
+    step_fn = make_train_step(run)
     return profiled(torch, lambda: float(step_fn(ts, batch)[1]["loss"]))
 
 
@@ -741,6 +1007,13 @@ def compare_paths(kern, plain, V):
             f"{phase}_top1": float((a.argmax(-1) == b.argmax(-1)).float()
                                    .mean())})
     return out
+
+
+def phase(name: str, t0: float) -> float:
+    """Print the seconds since ``t0`` under ``name``; return now."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.1f} s", flush=True)
+    return now
 
 
 def main(argv=None) -> int:
@@ -762,15 +1035,17 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    t = phase("build", t)
     for name, log in common.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
+    print_dynamic_smem()
 
     cfg = get_config(ARCH)
+    fcfg = get_config(FULL_ARCH)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     (B1, N1, T1), (B2, N2, T2) = REQUESTS
     kern_rows = {
@@ -779,17 +1054,21 @@ def main(argv=None) -> int:
         "routing_decode": check_decode(torch, cfg, B1, N1 + T1, gen),
         **check_local_bwd(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, gen),
         **check_routing_bwd(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, gen),
+        **check_flash(torch, FULL_BATCH, fcfg.num_heads, fcfg.num_kv_heads,
+                      FULL_SEQ, fcfg.head_dim_, torch.bfloat16, gen),
     }
     long_rows = {
         "local_attention": check_local(torch, cfg, B2, N2, gen),
         "routing_fused": check_routing(torch, cfg, B2, N2, gen),
         "routing_decode": check_decode(torch, cfg, B2, N2 + T2, gen),
     }
-    for shape_rows in (kern_rows, long_rows):
+    wide_rows = check_flash(torch, *WIDE_FLASH, torch.float32, gen)
+    for shape_rows in (kern_rows, long_rows, wide_rows):
         for name, row in shape_rows.items():
             print(f"kernel {name} [{row['shape']}]: " + ", ".join(
                 f"{k}={v}" for k, v in row.items() if k != "shape"),
                 flush=True)
+    t = phase("kernels", t)
 
     params, kstate = init_model(cfg, seed=0, device=DEVICE)
     gen_tok = torch.Generator(device=DEVICE).manual_seed(1)
@@ -841,21 +1120,60 @@ def main(argv=None) -> int:
             raise AssertionError(f"fp32 kernel and plain paths disagree: "
                                  f"{cmp32}")
     del params32
+    t = phase("serve", t)
 
-    batches = train_batches(torch, cfg, TRAIN_STEPS)
+    run = train_run_config(cfg)
+    batches = train_batches(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                            TRAIN_STEPS)
     gate = train_gate(torch, cfg, params, kstate, batches[0])
     print(f"train fp32 gate {json.dumps(gate)}", flush=True)
     common.reset_counters()
-    train_row, trained = train(torch, cfg, params, kstate, batches,
-                               common.counters)
+    train_row, trained = train(torch, cfg, run, "train", params, kstate,
+                               batches, common.counters)
     launches["train"] = common.counters()
     print(f"train {json.dumps(train_row)}", flush=True)
+    t = phase("train", t)
+    if args.out:
+        prof = profile(torch, cfg, params, kstate, prompts[0])
+        prof["train_step"] = profile_train(torch, run, trained, batches[-1])
+    del params, kstate, trained, batches, prompts, kern_runs
+    torch.cuda.empty_cache()
+
+    # qwen2-0.5b: full attention on the flash kernels
+    fparams, fkstate = init_model(fcfg, seed=0, device=DEVICE)
+    fvocab = min(fcfg.vocab_size, FULL_VOCAB)
+    gate_batch = train_batches(torch, fvocab, FULL_GATE_BATCH,
+                               FULL_GATE_SEQ, 1)[0]
+    full_gate = full_train_gate(torch, fcfg, fparams, fkstate, gate_batch)
+    print(f"train_full fp32 gate {json.dumps(full_gate)}", flush=True)
+    t = phase("train_full gate", t)
+    frun = full_run_config(fcfg, FULL_BATCH, FULL_SEQ)
+    fbatches = train_batches(torch, fvocab, FULL_BATCH, FULL_SEQ,
+                             TRAIN_STEPS)
+    common.reset_counters()
+    full_row, ftrained = train(torch, fcfg, frun, "train_full", fparams,
+                               fkstate, fbatches, common.counters)
+    launches["train_full"] = common.counters()
+    full_row["shape"] = f"B{FULL_BATCH} x {FULL_SEQ}"
+    print(f"train_full {json.dumps(full_row)}", flush=True)
+    t = phase("train_full", t)
+    if args.out:
+        prof["train_full_step"] = profile_train(torch, frun, ftrained,
+                                                fbatches[-1])
+    del fparams, fkstate, ftrained, fbatches
+    torch.cuda.empty_cache()
+
+    common.reset_counters()
+    launch_row = launch(torch, common.counters)
+    launches["launch"] = common.counters()
+    print(f"launch {json.dumps(launch_row)}", flush=True)
+    t = phase("launch", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
                 raise AssertionError(f"kernel {name} never ran on the "
                                      f"{path} path")
-
     kernels = []
     for name, meta in KERNELS.items():
         row = kern_rows[name]
@@ -868,14 +1186,15 @@ def main(argv=None) -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"]))
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
-        prof = profile(torch, cfg, params, kstate, prompts[0])
-        prof["train_step"] = profile_train(torch, cfg, trained, batches[-1])
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             card=card, kernels=kernels, long_prompt_kernels=long_rows,
-            serving=serving_rows, train_gate=gate, train=train_row,
-            profile=prof), indent=1))
+            wide_head_kernels=wide_rows, serving=serving_rows,
+            train_gate=gate, train=train_row, train_full_gate=full_gate,
+            train_full=full_row, launch=launch_row, profile=prof),
+            indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

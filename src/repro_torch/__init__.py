@@ -3,10 +3,11 @@
 A package of its own beside the JAX package ``repro`` (the reference): it
 imports ``torch`` and never ``jax`` or ``repro``. It serves the paper's
 rt-enwik8 model (``serve.serving``: ``init_cache``, ``prefill``,
-``make_serve_step``) and trains it (``train.train_step``:
-``init_train_state``, ``make_train_step``; ``train.trainer.Trainer``)
-through hand-written CUDA kernels: the local-window and the fused routing
-attention, forward and backward, and the paged routing decode
+``make_serve_step``) and trains it and the dense full-attention models
+such as qwen2-0.5b (``train.train_step``: ``init_train_state``,
+``make_train_step``; ``train.trainer.Trainer``; ``launch.train``) through
+hand-written CUDA kernels: the local-window, the fused routing and the
+dense flash attention, forward and backward, and the paged routing decode
 (``kernels/``, sources in ``csrc/``).
 """
 from __future__ import annotations

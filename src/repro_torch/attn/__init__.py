@@ -5,10 +5,10 @@ the JAX package's ``repro.attn``).
     out = attn.attend(spec, q, k, v, state=mu, positions=pos)     # prefill
     out = attn.attend(spec, q, k, v, state=mu, cache=c, pos=p)    # decode
 
-``attend`` resolves the best registered backend for the tensors' device
-(the CUDA kernels for CUDA tensors, plain PyTorch on the CPU); ``impl=``
-forces one and raises `BackendResolutionError` when it cannot serve the
-call.
+``attend`` resolves the best registered backend whose capabilities cover
+the call on the tensors' device (the CUDA kernels for CUDA tensors, plain
+PyTorch on the CPU); ``impl=`` forces one and raises
+`BackendResolutionError` when it cannot serve the call.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 from repro_torch.attn import backends as _backends       # noqa: F401 (registers)
 from repro_torch.attn.registry import (Backend,  # noqa: F401
                                        BackendResolutionError, CacheLayout,
-                                       resolve)
+                                       backends_for, resolve)
 from repro_torch.attn.spec import (AttentionSpec, head_split,  # noqa: F401
                                    spec_for_layer, variant_for_layer)
 
@@ -38,17 +38,23 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
     Prefill mode (``cache=None``): returns (out, new_state). Decode mode
     (``cache`` given): q/k/v are one token (N=1) at position ``pos`` (B,);
     returns the updated cache. ``state`` carries the layer's centroids.
+    A call under autograd with q, k or v requiring grad resolves only
+    differentiable backends.
     """
     platform = q.device.type
     if cache is not None:
         if pad_mask is not None:
             raise ValueError("attend(cache=...) is single-token decode; "
                              "validity lives in the cache, not a pad_mask")
-        backend = resolve(spec, impl=impl, platform=platform)
+        backend = resolve(spec, decode=True, impl=impl, platform=platform)
         out, new_cache = backend.decode(spec, q, k, v, cache=cache, pos=pos,
                                         state=state)
         return AttnOutput(out=out, state=state, cache=new_cache)
-    backend = resolve(spec, impl=impl, platform=platform)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v))
+    backend = resolve(spec, padded=pad_mask is not None,
+                      positioned=positions is not None,
+                      needs_grad=needs_grad, impl=impl, platform=platform)
     out, new_state = backend.apply(spec, q, k, v, state=state,
                                    positions=positions, pad_mask=pad_mask,
                                    update_state=update_state)
@@ -56,9 +62,13 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
 
 
 def _layout(spec: AttentionSpec, platform: str):
-    """The cache layout of the backend that resolves on ``platform``
-    (both local+routing backends share `MIXED_LAYOUT`)."""
-    return resolve(spec, platform=platform).layout
+    """The cache layout of the decode backend that resolves on
+    ``platform`` (both local+routing backends share `MIXED_LAYOUT`)."""
+    if not any(b.caps.supports_decode for b in backends_for(spec.variant)):
+        raise NotImplementedError(
+            f"decode caches of the {spec.variant!r} variant are not ported "
+            f"yet (ROADMAP Queue 1: serve the full-attention families)")
+    return resolve(spec, decode=True, platform=platform).layout
 
 
 def init_decode_cache(spec: AttentionSpec, B: int, max_len: int, dtype,

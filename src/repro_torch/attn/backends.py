@@ -1,9 +1,20 @@
 """The port's attention backends for the paper's ``local+routing`` head split
-(port of the part of the JAX package's ``attn/backends.py`` that serving
-and training rt-enwik8 run).
+and for dense ``full`` attention (port of the part of the JAX package's
+``attn/backends.py`` that serving and training rt-enwik8 and training the
+full-attention models run).
 
 Registered pairs (variant, impl):
 
+  full/torch            plain PyTorch: one-shot or KV-chunked online
+                        softmax (`core.attention.full_attention`), causal on
+                        the given positions, pad mask; no decode yet (the
+                        append cache is not ported)
+  full/cuda             the hand-written CUDA flash kernels, forward and
+                        backward (`kernels.flash_attention.FlashAttention`;
+                        priority 10, needs_cuda; the counterpart of the JAX
+                        package's full/pallas, with its capabilities: the
+                        causal mask is on row indices, so no positions, no
+                        pad mask, no decode)
   local+routing/torch   plain PyTorch: blocked-window reference for the
                         local heads, gathered-block routing reference for
                         the routing heads, page-gather decode
@@ -13,7 +24,7 @@ Registered pairs (variant, impl):
                         kernel (priority 20, needs_cuda; the counterpart of
                         the JAX package's local+routing/pallas_paged)
 
-Both apply paths are differentiable: the plain one through autograd of its
+All apply paths are differentiable: the plain one through autograd of its
 PyTorch ops, the kernel one through the Functions' backward kernels. The
 centroids they return carry no gradient (the EMA update is detached).
 
@@ -32,12 +43,13 @@ from dataclasses import replace
 import torch
 
 from repro_torch.attn import registry
-from repro_torch.attn.registry import Backend, CacheLayout
-from repro_torch.attn.spec import AttentionSpec, head_split
+from repro_torch.attn.registry import Backend, CacheLayout, Capabilities
+from repro_torch.attn.spec import AttentionSpec, head_split, resolve_chunk
 from repro_torch.core.attention import full_attention
 from repro_torch.core.kmeans import KMeansState, normalize_routing
 from repro_torch.core.local import local_attention
 from repro_torch.core.routing import routed_attention
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import local_attention as local_kernel
 from repro_torch.kernels import routing_decode as decode_kernel
 from repro_torch.models import layers as L
@@ -87,8 +99,23 @@ def _routing_subspec(spec: AttentionSpec) -> AttentionSpec:
 
 
 # ---------------------------------------------------------------------------
-# Apply (prefill) paths
+# Apply (train / prefill) paths
 # ---------------------------------------------------------------------------
+def _full_torch_apply(spec, q, k, v, *, state=None, positions=None,
+                      pad_mask=None, update_state=True):
+    qr, kr = _rope_qk(spec, q, k, positions)
+    return full_attention(qr, kr, v, spec.causal, pad_mask, positions,
+                          chunk=resolve_chunk(spec, q.shape[2])), state
+
+
+def _full_cuda_apply(spec, q, k, v, *, state=None, positions=None,
+                     pad_mask=None, update_state=True):
+    qr, kr = _rope_qk(spec, q, k, positions)
+    out = flash_kernel.FlashAttention.apply(qr.contiguous(), kr.contiguous(),
+                                            v.contiguous(), spec.causal)
+    return out, state
+
+
 def _local_torch(spec, q, k, v, positions, pad_mask):
     qr, kr = _rope_qk(spec, q, k, positions)
     return local_attention(qr, kr, v, spec.window, spec.causal, pad_mask)
@@ -161,7 +188,7 @@ def _local_decode(spec, q, k, v, *, cache, pos):
     lo = (pos // window - 1) * window      # start of block b-1
     valid = ((cp >= lo.clamp_min(0)[:, None]) & (cp >= 0)
              & (cp <= pos[:, None]))
-    o = full_attention(qr, ck, cv, pad_mask=valid)
+    o = full_attention(qr, ck, cv, causal=False, pad_mask=valid)
     return o, {"lk": ck, "lv": cv, "lpos": cp}
 
 
@@ -276,13 +303,28 @@ MIXED_LAYOUT = CacheLayout(name="ring+pages", init=_mixed_cache,
                            fill=_mixed_fill)
 
 registry.register(Backend(
+    variant="full", impl="torch", apply=_full_torch_apply,
+    caps=Capabilities(supports_grad=True)))
+
+# supports_positions=False: the flash kernels mask causality by row index,
+# so a call with positions (a prefill) goes to full/torch
+registry.register(Backend(
+    variant="full", impl="cuda", apply=_full_cuda_apply, priority=10,
+    caps=Capabilities(supports_pad_mask=False, supports_positions=False,
+                      supports_grad=True, needs_cuda=True)))
+
+_MIXED_CAPS = dict(supports_decode=True, supports_pad_mask=True,
+                   supports_positions=True, supports_grad=True)
+
+registry.register(Backend(
     variant="local+routing", impl="torch",
     apply=_make_mixed_apply(_local_torch, "torch"),
     decode=_make_mixed_decode(decode_kernel.paged_routing_decode_plain),
-    layout=MIXED_LAYOUT))
+    layout=MIXED_LAYOUT, caps=Capabilities(**_MIXED_CAPS)))
 
 registry.register(Backend(
     variant="local+routing", impl="cuda",
     apply=_make_mixed_apply(_local_cuda, "cuda_fused"),
     decode=_make_mixed_decode(decode_kernel.paged_routing_decode),
-    layout=MIXED_LAYOUT, needs_cuda=True, priority=20))
+    layout=MIXED_LAYOUT, priority=20,
+    caps=Capabilities(**_MIXED_CAPS, needs_cuda=True)))

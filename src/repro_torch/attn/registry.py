@@ -1,23 +1,26 @@
-"""Attention backend registry: (variant, impl) -> Backend
+"""Attention backend registry: (variant, impl) -> Backend + capabilities
 (port of the JAX package's ``attn/registry.py``).
 
 Resolution (`resolve`): among the backends registered for the spec's
-variant, drop the CUDA-only ones off the card, then take the highest
-``priority``. Kernel backends register with ``needs_cuda=True``:
-auto-selection picks them for CUDA tensors and never elsewhere, while an
-explicit ``impl=`` runs anywhere (on CPU tensors every kernel wrapper
-takes its plain version).
+variant, drop those whose capabilities do not cover the call (a decode
+path needed, a pad mask or explicit positions present, a gradient taken,
+a CUDA-only backend off the card), then take the highest ``priority``.
+Kernel backends register with ``needs_cuda=True``: auto-selection picks
+them for CUDA tensors and never elsewhere, while an explicit ``impl=``
+runs anywhere (on CPU tensors every kernel wrapper takes its plain
+version). Every other gap of a forced ``impl=`` raises
+`BackendResolutionError`, naming the backend auto-selection would use.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.attn.spec import AttentionSpec
 
 
 class BackendResolutionError(ValueError):
-    """No registered backend satisfies the call."""
+    """No registered backend satisfies the call (or a forced one can't)."""
 
 
 @dataclass(frozen=True)
@@ -35,17 +38,37 @@ class CacheLayout:
 
 
 @dataclass(frozen=True)
+class Capabilities:
+    """What a backend can serve. ``needs_cuda`` gates auto-selection only;
+    the other flags hold for a forced ``impl=`` too.
+
+    ``supports_positions``: the causal mask honours caller-supplied
+    positions; a kernel that masks by row index declares False, so a call
+    with positions goes to (or, forced, refuses into) the reference.
+    ``supports_grad``: the apply path is differentiable (autograd of
+    PyTorch ops, or a kernel with a backward Function).
+    """
+
+    supports_decode: bool = False
+    supports_pad_mask: bool = True
+    supports_positions: bool = True
+    supports_grad: bool = False
+    needs_cuda: bool = False
+
+
+@dataclass(frozen=True)
 class Backend:
     """apply(spec, q, k, v, *, state, positions, pad_mask, update_state)
           -> (out, new_state)
-    decode(spec, q, k, v, *, cache, pos, state) -> (out, new_cache)"""
+    decode(spec, q, k, v, *, cache, pos, state) -> (out, new_cache)
+          [supports_decode only, with its ``layout``]"""
 
     variant: str
     impl: str
     apply: Callable
-    decode: Callable
-    layout: CacheLayout
-    needs_cuda: bool = False
+    caps: Capabilities
+    decode: Optional[Callable] = None
+    layout: Optional[CacheLayout] = None
     priority: int = 0
 
     @property
@@ -63,6 +86,10 @@ _REGISTRY: Dict[Tuple[str, str], Backend] = {}
 def register(backend: Backend) -> Backend:
     if backend.key in _REGISTRY:
         raise ValueError(f"backend {backend.name} already registered")
+    if backend.caps.supports_decode and (backend.decode is None
+                                         or backend.layout is None):
+        raise ValueError(f"{backend.name}: supports_decode without a decode "
+                         f"fn and a CacheLayout")
     _REGISTRY[backend.key] = backend
     return backend
 
@@ -77,17 +104,59 @@ def get(variant: str, impl: str) -> Backend:
     return b
 
 
-def resolve(spec: AttentionSpec, *, impl: Optional[str] = None,
+def backends_for(variant: str) -> List[Backend]:
+    return [b for b in _REGISTRY.values() if b.variant == variant]
+
+
+def _gaps(b: Backend, *, decode: bool, padded: bool, positioned: bool,
+          needs_grad: bool, platform: str, forced: bool) -> List[str]:
+    """Capability gaps of ``b`` for this call. ``needs_cuda`` counts only
+    against auto-selection."""
+    gaps = []
+    if decode and not b.caps.supports_decode:
+        gaps.append("call needs a decode path (cache given) but "
+                    "supports_decode=False")
+    if padded and not b.caps.supports_pad_mask:
+        gaps.append("call has a pad_mask but supports_pad_mask=False")
+    if positioned and not b.caps.supports_positions:
+        gaps.append("call has explicit positions but the backend masks "
+                    "by row index (supports_positions=False)")
+    if needs_grad and not b.caps.supports_grad:
+        gaps.append("call is differentiated but supports_grad=False")
+    if not forced and b.caps.needs_cuda and platform != "cuda":
+        gaps.append(f"needs_cuda on platform {platform!r}")
+    return gaps
+
+
+def resolve(spec: AttentionSpec, *, decode: bool = False,
+            padded: bool = False, positioned: bool = False,
+            needs_grad: bool = False, impl: Optional[str] = None,
             platform: str = "cpu") -> Backend:
     """Pick the backend for a call on ``platform`` tensors, or raise.
-    ``impl`` forces one."""
+    ``impl`` forces one; a capability it lacks is an error."""
+    kw = dict(decode=decode, padded=padded, positioned=positioned,
+              needs_grad=needs_grad, platform=platform)
     if impl is not None:
-        return get(spec.variant, impl)
-    cands = [b for b in _REGISTRY.values() if b.variant == spec.variant]
-    ok = [b for b in cands if platform == "cuda" or not b.needs_cuda]
+        b = get(spec.variant, impl)
+        gaps = _gaps(b, forced=True, **kw)
+        if gaps:
+            msg = (f"forced backend {b.name} cannot serve this call:\n  - "
+                   + "\n  - ".join(gaps))
+            ok = [c for c in backends_for(spec.variant)
+                  if not _gaps(c, forced=False, **kw)]
+            if ok:
+                alt = max(ok, key=lambda c: c.priority)
+                msg += (f"\nauto-selection (impl=None) would serve this "
+                        f"call with {alt.name}")
+            raise BackendResolutionError(msg)
+        return b
+    cands = backends_for(spec.variant)
+    ok = [b for b in cands if not _gaps(b, forced=False, **kw)]
     if not ok:
+        detail = "; ".join(
+            f"{b.name}: {', '.join(_gaps(b, forced=False, **kw))}"
+            for b in cands)
         raise BackendResolutionError(
-            f"no registered backend for variant {spec.variant!r} runs on "
-            f"platform {platform!r} (registered: "
-            f"{[b.name for b in cands] or 'none'})")
+            f"no registered backend for variant {spec.variant!r} covers "
+            f"this call on platform {platform!r} ({detail or 'none'})")
     return max(ok, key=lambda b: b.priority)

@@ -6,6 +6,11 @@ geometry, causality, GQA split, rope); the registry
 (`repro_torch.attn.registry`) says *how* (which backend implements it on
 the tensors' device). ``spec_for_layer(cfg, variant)`` is the one place
 config fields are interpreted, and is cached.
+
+Chunking contract (`chunk`): ``None`` = auto: the full-attention reference
+takes an online-softmax KV chunk when the sequence is long (N > 4096);
+``0`` = one-shot softmax; ``c > 0`` = chunk c. `resolve_chunk` settles it
+at call time, since the auto rule depends on the sequence length.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ VARIANTS = ("full", "local", "routing", "local+routing")
 # cheapest variant that keeps the paper's locality prior.
 _DOWNGRADE = {"local+routing": "local", "routing": "local"}
 
+AUTO_CHUNK_THRESHOLD = 4096
+AUTO_CHUNK = 1024
+
 
 @dataclass(frozen=True)
 class AttentionSpec:
@@ -34,6 +42,7 @@ class AttentionSpec:
     window         local-attention window (variants with a local part)
     rope_theta     rotary base, or None for no rope (routing heads are
                    never roped — routing vectors are content)
+    chunk          KV chunk of the full variant: None=auto, 0=one-shot
     routing        RoutingConfig (variants with a routing part)
     routing_heads  Hr of the local+routing head split (0 elsewhere)
     """
@@ -45,6 +54,7 @@ class AttentionSpec:
     causal: bool = True
     window: int = 0
     rope_theta: Optional[float] = None
+    chunk: Optional[int] = None
     routing: Optional[RoutingConfig] = None
     routing_heads: int = 0
 
@@ -112,7 +122,7 @@ def spec_for_layer(cfg: ModelConfig, variant: str) -> AttentionSpec:
     rope = cfg.rope_theta if cfg.position == "rope" else None
     common = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                   head_dim=cfg.head_dim_, causal=cfg.is_causal,
-                  rope_theta=rope)
+                  rope_theta=rope, chunk=cfg.attn_chunk)
     if variant == "full":
         return AttentionSpec(variant="full", **common)
     if variant == "local":
@@ -136,3 +146,11 @@ def spec_for_layer(cfg: ModelConfig, variant: str) -> AttentionSpec:
                            routing_heads=0)
         return spec
     raise ValueError(f"unknown attention variant {variant!r}")
+
+
+def resolve_chunk(spec: AttentionSpec, seq_len: int) -> int:
+    """The KV chunk of a call: an explicit value wins (0 = one-shot), None
+    chunks long sequences."""
+    if spec.chunk is not None:
+        return spec.chunk
+    return AUTO_CHUNK if seq_len > AUTO_CHUNK_THRESHOLD else 0

@@ -1,17 +1,23 @@
-"""Config registry of the port: the paper's Routing Transformer models.
+"""Config registry of the port: the dense family (the paper's Routing
+Transformer models and four full-attention models).
 
 `get_config(arch)` returns the full published config; `reduced_config(arch)`
 returns the same-family miniature the CPU parity tests run. Both are copies
-of the JAX package's registry functions, restricted to the paper's own
-models (the only family the port serves so far).
+of the JAX package's registry functions, restricted to that family.
 """
 from __future__ import annotations
 
-from repro_torch.configs import paper
+from repro_torch.configs import (granite_8b, paper, phi4_mini_3_8b,
+                                 qwen2_0_5b, starcoder2_3b)
 from repro_torch.configs.base import (ModelConfig, RoutingConfig,  # noqa: F401
                                       with_overrides)
 
 ARCHS = {
+    "granite-8b": granite_8b.config,
+    "qwen2-0.5b": qwen2_0_5b.config,
+    "starcoder2-3b": starcoder2_3b.config,
+    "phi4-mini-3.8b": phi4_mini_3_8b.config,
+    # the paper's own models
     "rt-wikitext103": paper.wikitext103,
     "rt-enwik8": paper.enwik8,
     "rt-imagenet64": paper.imagenet64,

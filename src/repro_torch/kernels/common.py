@@ -165,6 +165,13 @@ def head_dim_ok(what: str, dh: int) -> None:
             f"(supported: {SUPPORTED_HEAD_DIMS})")
 
 
+def group_sum(x: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """(B,H,N,dh) per query head -> (B,Hkv,N,dh): sum each kv head's
+    query group (GQA), as the JAX package does after its dk/dv kernels."""
+    B, H, N, dh = x.shape
+    return x.reshape(B, Hkv, H // Hkv, N, dh).sum(2)
+
+
 def dtype_code(what: str, t: torch.Tensor) -> int:
     require(t.dtype in DTYPE_CODES,
             f"{what}: dtype {t.dtype} unsupported (float32 or bfloat16)")

@@ -149,13 +149,6 @@ def local_attention_bwd_dkv(q, k, v, do, lse, dsum, window: int,
     return dk, dv
 
 
-def _group_sum(x: torch.Tensor, Hkv: int) -> torch.Tensor:
-    """(B,H,N,dh) per query head -> (B,Hkv,N,dh): sum each kv head's
-    query group (GQA)."""
-    B, H, N, dh = x.shape
-    return x.reshape(B, Hkv, H // Hkv, N, dh).sum(2)
-
-
 def local_attention_bwd(q, k, v, out, lse, do, window: int,
                         causal: bool = True, pad_mask=None):
     """(dq (B,H,N,dh), dk, dv (B,Hkv,N,dh)) in at least fp32 through the
@@ -165,7 +158,7 @@ def local_attention_bwd(q, k, v, out, lse, do, window: int,
                                 pad_mask)
     dk, dv = local_attention_bwd_dkv(q, k, v, do, lse, dsum, window, causal,
                                      pad_mask)
-    return dq, _group_sum(dk, k.shape[1]), _group_sum(dv, k.shape[1])
+    return dq, C.group_sum(dk, k.shape[1]), C.group_sum(dv, k.shape[1])
 
 
 def local_attention_bwd_plain(q, k, v, out, lse, do, window: int,
@@ -177,7 +170,7 @@ def local_attention_bwd_plain(q, k, v, out, lse, do, window: int,
                                     pad_mask)
     dk, dv = ref.local_attention_bwd_dkv(q, k, v, do, lse, dsum, window,
                                          causal, pad_mask)
-    return dq, _group_sum(dk, k.shape[1]), _group_sum(dv, k.shape[1])
+    return dq, C.group_sum(dk, k.shape[1]), C.group_sum(dv, k.shape[1])
 
 
 class LocalAttention(torch.autograd.Function):

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs import reduced_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.synthetic import SyntheticLoader
+from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import local_attention as local_k
 from repro_torch.kernels import routing_attention as routing_k
 from repro_torch.models.model import init_model
@@ -78,7 +79,7 @@ def test_source_imports_no_jax_or_repro(path):
 
 
 @pytest.mark.parametrize("sub", ["kernels", "attn", "serve", "models",
-                                 "core", "optim", "train", "data"])
+                                 "core", "optim", "train", "data", "launch"])
 def test_no_exception_handler_on_the_path(sub):
     """Nothing on the serving or training path catches an error and
     carries on. A try with only a finally catches nothing, unless its
@@ -148,11 +149,14 @@ def _bwd_calls(q, bad_lse=False):
             q, None, q, idx, idx, pos, do_g, lse_g, dsum_g),
         lambda: routing_k.routed_attention_fused_bwd_dkv(
             q, None, q, idx, idx, pos, do_g, lse_g, dsum_g),
+        lambda: flash_k.flash_attention_bwd_dq(q, q, q, q, lse, dsum),
+        lambda: flash_k.flash_attention_bwd_dkv(q, q, q, q, lse, dsum),
     ]
 
 
-@pytest.mark.parametrize("which", range(4), ids=[
-    "local_dq", "local_dkv", "routing_dq", "routing_dkv"])
+@pytest.mark.parametrize("which", range(6), ids=[
+    "local_dq", "local_dkv", "routing_dq", "routing_dkv", "flash_dq",
+    "flash_dkv"])
 def test_backward_wrappers_check_before_dispatch(which):
     """Each backward wrapper refuses a non-contiguous tensor and an lse of
     the wrong shape already on the CPU, where it would then run its plain

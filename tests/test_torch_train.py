@@ -1,4 +1,5 @@
-"""Slice parity: the port trains reduced rt-enwik8 as the JAX package does.
+"""Slice parity: the port trains reduced rt-enwik8 and qwen2-0.5b as the
+JAX package does.
 
 The same inputs (numpy, from seeds; JAX parameters and train states carried
 across with `repro_torch.interop`) go through the JAX package and the port
@@ -6,18 +7,20 @@ on the CPU:
 
 * pieces: synthetic batches (bit-equal), the LR schedules, Adam, global-norm
   clipping;
-* the model: `apply_model` + `lm_loss` loss, gradients and new centroids
+* the model, for each arch (rt-enwik8's local+routing heads, qwen2-0.5b's
+  full attention with its qkv biases set from the seed, since the JAX init
+  zeros them): `apply_model` + `lm_loss` loss, gradients and new centroids
   against ``jax.value_and_grad`` of `make_loss_fn`, the JAX side on its
   Pallas kernels in interpret mode (REPRO_ATTN_PLATFORM=tpu +
   REPRO_FORCE_INTERPRET=1), the port on its plain backend and forced onto
   its kernel backend (impl="cuda": the autograd Functions, whose wrappers
   take their plain versions for CPU tensors);
-* training: a 20-step loss trajectory and the final parameters against JAX
-  `make_train_step` (grad_accum 1 and 2), and a port run continuing a JAX
-  run mid-trajectory;
+* training, for each arch: a 20-step loss trajectory and the final
+  parameters against JAX `make_train_step` (grad_accum 1 and 2); and a port
+  run continuing a JAX rt-enwik8 run mid-trajectory;
 * what has no JAX counterpart to match: dropout by its statistics, remat
-  "full" against "none" with dropout on, the trainer loop, and the fp32
-  gradient gate of ``chip_smoke.py`` against a broken backward.
+  "full" against "none" with dropout on (each arch), the trainer loop, and
+  the fp32 gradient gate of ``chip_smoke.py`` against a broken backward.
 
 Tolerances (fp32): loss 1e-5 and gradients 1e-5 relative to each leaf's
 largest entry for one step (two frameworks summing the same fp32 products
@@ -52,8 +55,10 @@ from repro_torch.optim.adam import adam
 from repro_torch.train import train_step
 from repro_torch.train.trainer import Trainer
 from repro_torch.tree import tree_leaves
+from test_torch_full import with_qkv_biases
 
 ARCH = "rt-enwik8"
+ARCHS = ["rt-enwik8", "qwen2-0.5b"]
 B, S = 2, 64
 STEP_TOL = 1e-5
 TRAJ_TOL = 1e-5
@@ -63,12 +68,12 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _runs(grad_accum=1, warmup=100, batch=B):
+def _runs(grad_accum=1, warmup=100, batch=B, arch=ARCH):
     kw = dict(global_batch=batch, seq_len=S, warmup_steps=warmup,
               grad_accum=grad_accum)
-    return (JaxRunConfig(model=jax_reduced_config(ARCH),
+    return (JaxRunConfig(model=jax_reduced_config(arch),
                          train=JaxTrainConfig(**kw)),
-            RunConfig(model=reduced_config(ARCH), train=TrainConfig(**kw)))
+            RunConfig(model=reduced_config(arch), train=TrainConfig(**kw)))
 
 
 def _batches(n, batch=B, start=0):
@@ -153,14 +158,15 @@ def test_clip_by_global_norm_matches_jax(max_norm):
 # ---------------------------------------------------------------------------
 # the model: one step's loss, gradients and centroids
 # ---------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def jax_step():
-    """Loss, grads and new kstate of one fp32 step, JAX on its Pallas
-    kernels in interpret mode."""
-    jrun, _ = _runs()
+@pytest.fixture(scope="module", params=ARCHS)
+def jax_step(request):
+    """Loss, grads and new kstate of one fp32 step of each arch, JAX on
+    its Pallas kernels in interpret mode."""
+    jrun, _ = _runs(arch=request.param)
     params, kstate = jax.jit(lambda k: __import__(
         "repro.models.model", fromlist=["init_model"]).init_model(
         jrun.model, k))(jax.random.PRNGKey(0))
+    params = with_qkv_biases(_np(params), 4)
     batch = _batches(1)[0]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("REPRO_ATTN_PLATFORM", "tpu")
@@ -168,13 +174,14 @@ def jax_step():
         vg = jax.jit(jax.value_and_grad(jax_train_step.make_loss_fn(jrun),
                                         has_aux=True))
         (loss, (new_k, _)), grads = vg(params, kstate, batch, None)
-    return dict(params=_np(params), kstate=_np(kstate), batch=batch,
-                loss=float(loss), grads=_np(grads), new_k=_np(new_k))
+    return dict(arch=request.param, params=params, kstate=_np(kstate),
+                batch=batch, loss=float(loss), grads=_np(grads),
+                new_k=_np(new_k))
 
 
 @pytest.mark.parametrize("impl", [None, "cuda"])
 def test_model_loss_grads_and_centroids_match_jax(jax_step, impl):
-    _, run = _runs()
+    _, run = _runs(arch=jax_step["arch"])
     vg = train_step.value_and_grad(train_step.make_loss_fn(run, impl=impl))
     batch = {"tokens": torch.from_numpy(jax_step["batch"]["tokens"])}
     (loss, (new_k, metrics)), grads = vg(
@@ -207,25 +214,61 @@ def _port_trajectory(run, ts, batches, impl=None):
     return ts, losses
 
 
+def _determined_tolerance(jrun, run, ts, batch):
+    """Per parameter leaf, the elementwise tolerance of a 20-step Adam
+    trajectory: TRAJ_TOL where the first step's gradient is determined in
+    fp32 (JAX and the port agree on it to 1e-3 of its value), else twice
+    the summed learning rate. Where a gradient is fp32 cancellation noise
+    (qwen2's key bias in the rope's slow dimensions, which at theta 1e6
+    barely turn over 64 positions, so the bias shifts all of a query's
+    scores alike; a few FFN weights with gradients ~1e-8 of their leaf's
+    largest) Adam (eps 1e-9) scales the noise to steps of up to the rate.
+    Such elements must stay under 0.1% of all."""
+    vg = jax.jit(jax.value_and_grad(jax_train_step.make_loss_fn(jrun),
+                                    has_aux=True))
+    jg = _np(vg(ts.params, ts.kstate, batch, None)[1])
+    pg = train_step.value_and_grad(train_step.make_loss_fn(run))(
+        params_from_jax(ts.params), kstate_from_jax(ts.kstate),
+        {"tokens": torch.from_numpy(batch["tokens"])}, None)[1]
+    schedule = make_schedule(run.train, run.model.d_model)
+    adam_bound = 2 * sum(schedule(s) for s in range(1, 21))
+    noisy = [np.abs(p - j) > 1e-3 * np.abs(j)
+             for p, j in zip(tree_leaves(tree_to_numpy(pg)),
+                             jax.tree.leaves(jg))]
+    assert sum(n.sum() for n in noisy) <= 1e-3 * sum(n.size for n in noisy)
+    return [np.where(n, adam_bound, TRAJ_TOL) for n in noisy]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("grad_accum,impl", [(1, None), (1, "cuda"),
                                              (2, None)])
-def test_train_trajectory_matches_jax(grad_accum, impl):
+def test_train_trajectory_matches_jax(grad_accum, impl, arch):
     """20 fp32 steps from the same JAX initial state (Adam, vaswani
-    schedule with a 100-step warm-up, clipping, remat "full")."""
+    schedule with a 100-step warm-up, clipping, remat "full"). Parameters
+    agree elementwise to TRAJ_TOL; for qwen2, to TRAJ_TOL wherever the
+    gradient is determined in fp32 (`_determined_tolerance`)."""
     batch = 2 * grad_accum
-    jrun, run = _runs(grad_accum, batch=batch)
-    jts = jax_train_step.init_train_state(jrun, jax.random.PRNGKey(1))
-    pts = train_state_from_jax(_np(jts))
+    jrun, run = _runs(grad_accum, batch=batch, arch=arch)
+    jts = _np(jax_train_step.init_train_state(jrun, jax.random.PRNGKey(1)))
+    jts = jts._replace(params=with_qkv_biases(jts.params, 5))
+    pts = train_state_from_jax(jts)
     batches = _batches(20, batch=batch)
+    init = jts
     jts, jl = _jax_trajectory(jrun, jts, batches)
     pts, pl = _port_trajectory(run, pts, batches, impl)
     np.testing.assert_allclose(pl, jl, atol=TRAJ_TOL)
     assert pl[-1] < pl[0]
     assert pts.step == int(jts.step) == 20
     assert pts.opt_state["count"] == 20
-    for g, w in zip(tree_leaves(tree_to_numpy(pts.params)),
-                    jax.tree.leaves(_np(jts.params))):
-        np.testing.assert_allclose(g, w, atol=TRAJ_TOL)
+    tols = (_determined_tolerance(jrun, run, init, batches[0])
+            if arch != ARCH else None)
+    for i, (g, w) in enumerate(zip(tree_leaves(tree_to_numpy(pts.params)),
+                                   jax.tree.leaves(_np(jts.params)))):
+        if tols is None:
+            np.testing.assert_allclose(g, w, atol=TRAJ_TOL)
+        else:
+            assert (np.abs(g - w) <= tols[i]).all(), \
+                f"leaf {i}: largest difference {np.abs(g - w).max()}"
     _leaf_close(pts.kstate, _np(jts.kstate), TRAJ_TOL)
 
 
@@ -262,12 +305,13 @@ def test_dropout_statistics_and_determinism():
     assert T.fold_seed(0, 1) != T.fold_seed(0, 2) != T.fold_seed(1, 1)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("impl", [None, "cuda"])
-def test_remat_full_equals_none_with_dropout(impl):
+def test_remat_full_equals_none_with_dropout(impl, arch):
     """Rematerialized groups redraw the same dropout masks: loss and
     gradients with remat "full" equal those without (1e-6: the same ops
     in the same order; only the recomputation differs)."""
-    cfg = with_overrides(reduced_config(ARCH), dropout=0.4)
+    cfg = with_overrides(reduced_config(arch), dropout=0.4)
     from repro_torch.models.model import init_model
     params, kstate = init_model(cfg, seed=0, device="cpu")
     batch = {"tokens": torch.from_numpy(_batches(1)[0]["tokens"])}
