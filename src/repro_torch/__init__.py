@@ -2,13 +2,14 @@
 
 A package of its own beside the JAX package ``repro`` (the reference): it
 imports ``torch`` and never ``jax`` or ``repro``. It serves the paper's
-rt-enwik8 model (``serve.serving``: ``init_cache``, ``prefill``,
-``make_serve_step``) and trains it and the dense full-attention models
-such as qwen2-0.5b (``train.train_step``: ``init_train_state``,
-``make_train_step``; ``train.trainer.Trainer``; ``launch.train``) through
-hand-written CUDA kernels: the local-window, the fused routing and the
-dense flash attention, forward and backward, and the paged routing decode
-(``kernels/``, sources in ``csrc/``).
+rt-enwik8 and rt-cifar10 models (``serve.serving``: ``init_cache``,
+``prefill``, ``make_serve_step``) and trains them and the dense
+full-attention models such as qwen2-0.5b (``train.train_step``:
+``init_train_state``, ``make_train_step``; ``train.trainer.Trainer``;
+``launch.train``) through hand-written CUDA kernels: the local-window,
+the fused and the gathered routing and the dense flash attention, forward
+and backward, and the paged routing decode (``kernels/``, sources in
+``csrc/``).
 """
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 the JAX package's ``repro.attn``).
 
     spec = attn.spec_for_layer(cfg, "local+routing")
-    out = attn.attend(spec, q, k, v, state=mu, positions=pos)     # prefill
+    out = attn.attend(spec, q, k, v, state=mu, positions=pos)     # train
+    out = attn.attend(spec, q, k, v, state=mu, positions=pos,
+                      fill=c)                                     # prefill
     out = attn.attend(spec, q, k, v, state=mu, cache=c, pos=p)    # decode
 
 ``attend`` resolves the best registered backend whose capabilities cover
@@ -27,19 +29,23 @@ from repro_torch.attn.spec import (AttentionSpec, head_split,  # noqa: F401
 class AttnOutput(NamedTuple):
     out: torch.Tensor                   # (B, H, N, dh)
     state: Optional[torch.Tensor]       # centroids (routing variants)
-    cache: Optional[dict] = None        # updated decode cache (decode calls)
+    cache: Optional[dict] = None        # updated decode cache (decode and
+                                        # filling prefill calls)
 
 
 def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
            pad_mask=None, update_state: bool = True, cache=None, pos=None,
-           impl: Optional[str] = None) -> AttnOutput:
+           impl: Optional[str] = None, fill=None) -> AttnOutput:
     """Run the attention ``spec`` describes on un-roped q/k/v.
 
-    Prefill mode (``cache=None``): returns (out, new_state). Decode mode
-    (``cache`` given): q/k/v are one token (N=1) at position ``pos`` (B,);
-    returns the updated cache. ``state`` carries the layer's centroids.
-    A call under autograd with q, k or v requiring grad resolves only
-    differentiable backends.
+    Prefill mode (``cache=None``): returns (out, new_state); with ``fill``
+    (a decode cache of ``spec``, per the layout `init_decode_cache`
+    builds) also that cache filled from the keys, routing vectors and
+    centroid scores this attention computed, which needs ``positions``.
+    Decode mode (``cache`` given): q/k/v are one token (N=1) at position
+    ``pos`` (B,); returns the updated cache. ``state`` carries the layer's
+    centroids. A call under autograd with q, k or v requiring grad
+    resolves only differentiable backends.
     """
     platform = q.device.type
     if cache is not None:
@@ -55,15 +61,18 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
     backend = resolve(spec, padded=pad_mask is not None,
                       positioned=positions is not None,
                       needs_grad=needs_grad, impl=impl, platform=platform)
-    out, new_state = backend.apply(spec, q, k, v, state=state,
-                                   positions=positions, pad_mask=pad_mask,
-                                   update_state=update_state)
-    return AttnOutput(out=out, state=new_state)
+    out, new_state, prefix = backend.apply(
+        spec, q, k, v, state=state, positions=positions, pad_mask=pad_mask,
+        update_state=update_state)
+    new_cache = None if fill is None else _layout(spec, platform).fill(
+        fill, prefix, positions=positions)
+    return AttnOutput(out=out, state=new_state, cache=new_cache)
 
 
 def _layout(spec: AttentionSpec, platform: str):
     """The cache layout of the decode backend that resolves on
-    ``platform`` (both local+routing backends share `MIXED_LAYOUT`)."""
+    ``platform`` (the plain and the kernel backend of a variant share
+    one)."""
     if not any(b.caps.supports_decode for b in backends_for(spec.variant)):
         raise NotImplementedError(
             f"decode caches of the {spec.variant!r} variant are not ported "
@@ -76,11 +85,3 @@ def init_decode_cache(spec: AttentionSpec, B: int, max_len: int, dtype,
     """The cache-leaf dict declared by the resolved backend."""
     dev = torch.device(device)
     return _layout(spec, dev.type).init(spec, B, max_len, dtype, dev)
-
-
-def prefill_cache(spec: AttentionSpec, cache, q, k, v, *, positions,
-                  state=None):
-    """Fill the decode cache from prefix q/k/v, per that layout."""
-    return _layout(spec, q.device.type).fill(spec, cache, q, k, v,
-                                             positions=positions,
-                                             state=state)

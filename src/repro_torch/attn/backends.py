@@ -1,7 +1,7 @@
-"""The port's attention backends for the paper's ``local+routing`` head split
-and for dense ``full`` attention (port of the part of the JAX package's
-``attn/backends.py`` that serving and training rt-enwik8 and training the
-full-attention models run).
+"""The port's attention backends (port of the JAX package's
+``attn/backends.py`` for the variants the port serves and trains: the
+paper's ``local``, ``routing`` and ``local+routing`` attention and dense
+``full`` attention).
 
 Registered pairs (variant, impl):
 
@@ -15,30 +15,52 @@ Registered pairs (variant, impl):
                         package's full/pallas, with its capabilities: the
                         causal mask is on row indices, so no positions, no
                         pad mask, no decode)
-  local+routing/torch   plain PyTorch: blocked-window reference for the
-                        local heads, gathered-block routing reference for
-                        the routing heads, page-gather decode
-  local+routing/cuda    the hand-written CUDA kernels: local window kernels,
-                        fused gather-free routing kernels (forward and
-                        backward, as autograd Functions), paged decode
-                        kernel (priority 20, needs_cuda; the counterpart of
-                        the JAX package's local+routing/pallas_paged)
+  local/torch           blocked-window reference; ring decode
+  local/cuda            the local-window kernels forward and backward
+                        (`kernels.local_attention.LocalAttention`; priority
+                        10); ring decode (plain ops in both packages: there
+                        is no local decode kernel)
+  routing/torch         gathered-block routing reference; page-gather decode
+  routing/cuda          the fused gather-free routing kernels forward and
+                        backward (`kernels.routing_attention`), the paged
+                        decode kernel (priority 20; the JAX package's
+                        routing/pallas_paged)
+  local+routing/torch   both references on the two head groups
+  local+routing/cuda    the local-window and the fused routing kernels, the
+                        paged decode kernel (priority 20; the JAX
+                        package's local+routing/pallas_paged)
+  {local, routing, local+routing}/cuda_gathered
+                        the gathered routing kernels
+                        (`kernels.routing_gathered`) on the routing heads,
+                        the local-window kernels on the local heads: the JAX
+                        package's local/pallas, routing/pallas and
+                        local+routing/pallas, which only a forced
+                        ``impl="pallas"`` reaches. Priority 0 and no
+                        decode: auto-selection never takes them.
 
-All apply paths are differentiable: the plain one through autograd of its
-PyTorch ops, the kernel one through the Functions' backward kernels. The
-centroids they return carry no gradient (the EMA update is detached).
+Every kernel backend has ``needs_cuda``. All apply paths are
+differentiable: the plain ones through autograd of their PyTorch ops, the
+kernel ones through the Functions' backward kernels. The centroids they
+return carry no gradient (the EMA update is detached).
 
-Both share one cache layout (`MIXED_LAYOUT`: a 2W ring for the local heads,
-cluster pages for the routing heads) and the same cache fill, ring-local
-decode, token routing and page-slot write, so the two paths walk the same
-cache trajectory. Rope is applied here to the local heads only; routing
-heads are content. Decode updates return new cache leaves (clone, then
-write) rather than writing in place, as the JAX functions do: the serve
-step's ``active`` mask then selects between old and new leaves.
+Cache layouts: a 2W ring for local heads (`RING_LAYOUT`), cluster pages for
+routing heads (`PAGES_LAYOUT`), both for the head split (`MIXED_LAYOUT`);
+the plain and the kernel backend of a variant share its layout, its decode
+glue (ring-local decode, token routing, page-slot write) and its fill, so
+the two paths walk the same cache trajectory. Every apply returns, beside
+its output and centroids, the `Prefix` its attention computed (the local
+heads' roped keys, the routing heads' routing vectors and centroid
+scores; empty for ``full``): a prefill fills the cache from it instead of
+computing it again.
+Rope is applied here to local heads only; routing heads are content.
+Decode updates return new cache leaves (clone, then write) rather than
+writing in place, as the JAX functions do: the serve step's ``active`` mask
+then selects between old and new leaves.
 """
 from __future__ import annotations
 
 from dataclasses import replace
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,6 +75,15 @@ from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import local_attention as local_kernel
 from repro_torch.kernels import routing_decode as decode_kernel
 from repro_torch.models import layers as L
+
+
+class Prefix(NamedTuple):
+    """What a prefill's attention computed that the cache fill reuses:
+    ``ring`` the local heads' (roped keys, values) (B,Hkv,N,dh); ``pages``
+    the routing heads' (routing vectors (B,Hr,N,dh), centroid scores
+    (B,Hr,N,k) fp32, values expanded to Hr heads)."""
+    ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    pages: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +130,14 @@ def _routing_subspec(spec: AttentionSpec) -> AttentionSpec:
 
 
 # ---------------------------------------------------------------------------
-# Apply (train / prefill) paths
+# Apply (train / prefill) paths: (out, new_state, Prefix)
 # ---------------------------------------------------------------------------
 def _full_torch_apply(spec, q, k, v, *, state=None, positions=None,
                       pad_mask=None, update_state=True):
     qr, kr = _rope_qk(spec, q, k, positions)
-    return full_attention(qr, kr, v, spec.causal, pad_mask, positions,
-                          chunk=resolve_chunk(spec, q.shape[2])), state
+    out = full_attention(qr, kr, v, spec.causal, pad_mask, positions,
+                         chunk=resolve_chunk(spec, q.shape[2]))
+    return out, state, Prefix()
 
 
 def _full_cuda_apply(spec, q, k, v, *, state=None, positions=None,
@@ -113,66 +145,97 @@ def _full_cuda_apply(spec, q, k, v, *, state=None, positions=None,
     qr, kr = _rope_qk(spec, q, k, positions)
     out = flash_kernel.FlashAttention.apply(qr.contiguous(), kr.contiguous(),
                                             v.contiguous(), spec.causal)
-    return out, state
+    return out, state, Prefix()
 
 
-def _local_torch(spec, q, k, v, positions, pad_mask):
-    qr, kr = _rope_qk(spec, q, k, positions)
-    return local_attention(qr, kr, v, spec.window, spec.causal, pad_mask)
+def _make_local_apply(kernel: bool):
+    """Local-window attention: the plain reference, or (``kernel``) the
+    kernels forward and backward (`local_kernel.LocalAttention`, any N,
+    any pad mask)."""
+    def apply(spec, q, k, v, *, state=None, positions=None, pad_mask=None,
+              update_state=True):
+        qr, kr = _rope_qk(spec, q, k, positions)
+        if kernel:
+            out, _ = local_kernel.LocalAttention.apply(
+                qr.contiguous(), kr.contiguous(), v.contiguous(),
+                spec.window, spec.causal, pad_mask)
+        else:
+            out = local_attention(qr, kr, v, spec.window, spec.causal,
+                                  pad_mask)
+        return out, state, Prefix(ring=(kr, v))
+    return apply
 
 
-def _local_cuda(spec, q, k, v, positions, pad_mask):
-    """Every call takes the kernels (any N, any pad mask), forward and
-    backward (`local_kernel.LocalAttention`)."""
-    qr, kr = _rope_qk(spec, q, k, positions)
-    out, _ = local_kernel.LocalAttention.apply(
-        qr.contiguous(), kr.contiguous(), v.contiguous(), spec.window,
-        spec.causal, pad_mask)
-    return out
+def _make_routing_apply(routing_impl: str):
+    """Routed attention on every head of ``spec`` through
+    `core.routing.routed_attention` with ``impl=routing_impl``."""
+    def apply(spec, q, k, v, *, state=None, positions=None, pad_mask=None,
+              update_state=True):
+        rc = spec.routing
+        g = spec.q_per_kv
+        v_e = _expand_kv(v, g).contiguous()
+        k_in = (None if (rc.share_qk and spec.causal) or k is None
+                else _expand_kv(k, g).contiguous())
+        ro = routed_attention(q.contiguous(), k_in, v_e,
+                              KMeansState(mu=state), rc, positions, pad_mask,
+                              update_state, impl=routing_impl)
+        return ro.out, ro.state.mu, Prefix(pages=(ro.r_q, ro.scores, v_e))
+    return apply
 
 
-def _make_mixed_apply(local_fn, routing_impl: str):
+def _make_mixed_apply(local_apply, routing_apply):
+    """local+routing: ``local_apply`` on the local heads, ``routing_apply``
+    on the routing heads, outputs concatenated local first."""
     def apply(spec, q, k, v, *, state=None, positions=None, pad_mask=None,
               update_state=True):
         (ql, kl, vl), (qr, kr, vr) = _split_heads(spec, q, k, v)
-        o_l = local_fn(_local_subspec(spec), ql, kl, vl, positions, pad_mask)
-        rspec = _routing_subspec(spec)
-        rc = rspec.routing
-        g = rspec.q_per_kv
-        k_in = (None if (rc.share_qk and rspec.causal) or kr is None
-                else _expand_kv(kr, g).contiguous())
-        ro = routed_attention(qr.contiguous(), k_in,
-                              _expand_kv(vr, g).contiguous(),
-                              KMeansState(mu=state), rc, positions, pad_mask,
-                              update_state, impl=routing_impl)
-        return torch.cat([o_l, ro.out], dim=1), ro.state.mu
+        o_l, _, pl = local_apply(_local_subspec(spec), ql, kl, vl,
+                                 positions=positions, pad_mask=pad_mask)
+        o_r, mu, pr = routing_apply(_routing_subspec(spec), qr, kr, vr,
+                                    state=state, positions=positions,
+                                    pad_mask=pad_mask,
+                                    update_state=update_state)
+        return (torch.cat([o_l, o_r], dim=1), mu,
+                Prefix(ring=pl.ring, pages=pr.pages))
     return apply
 
 
 # ---------------------------------------------------------------------------
-# Decode paths + cache layout
+# Decode paths + cache layouts
 # ---------------------------------------------------------------------------
 def _page_dims(spec, max_len):
     kc = spec.routing.num_clusters
     return kc, spec.routing.window or max(1, max_len // kc)
 
 
-def _mixed_cache(spec, B, max_len, dtype, device):
-    dh, W = spec.head_dim, spec.window
-    _, Hr, kvl, _ = head_split(spec)
+def _ring_cache(spec, B, max_len, dtype, device):
+    """2W ring of a local (sub)spec's kv heads."""
+    dh, W, kv = spec.head_dim, spec.window, spec.num_kv_heads
+    z = dict(dtype=dtype, device=device)
+    return {"lk": torch.zeros((B, kv, 2 * W, dh), **z),
+            "lv": torch.zeros((B, kv, 2 * W, dh), **z),
+            "lpos": torch.full((B, 2 * W), -1, dtype=torch.int32,
+                               device=device)}
+
+
+def _pages_cache(spec, B, max_len, dtype, device):
+    """Cluster pages of a routing (sub)spec's heads."""
+    dh, Hr = spec.head_dim, spec.num_heads
     kc, cap = _page_dims(spec, max_len)
     z = dict(dtype=dtype, device=device)
-    return {"lk": torch.zeros((B, kvl, 2 * W, dh), **z),
-            "lv": torch.zeros((B, kvl, 2 * W, dh), **z),
-            "lpos": torch.full((B, 2 * W), -1, dtype=torch.int32,
-                               device=device),
-            "rk": torch.zeros((B, Hr, kc, cap, dh), **z),
+    return {"rk": torch.zeros((B, Hr, kc, cap, dh), **z),
             "rv": torch.zeros((B, Hr, kc, cap, dh), **z),
             "rlen": torch.zeros((B, Hr, kc), dtype=torch.int32,
                                 device=device)}
 
 
-def _local_decode(spec, q, k, v, *, cache, pos):
+def _mixed_cache(spec, B, max_len, dtype, device):
+    return {**_ring_cache(_local_subspec(spec), B, max_len, dtype, device),
+            **_pages_cache(_routing_subspec(spec), B, max_len, dtype,
+                           device)}
+
+
+def _local_decode(spec, q, k, v, *, cache, pos, state=None):
     """Blocked-local decode over the 2W ring: attend keys whose stored
     absolute position lies in blocks b-1, b of the query position."""
     qr, kr = _rope_qk(spec, q, k, pos[:, None])
@@ -217,36 +280,44 @@ def _write_page_slot(cache, r, v0, c, plen):
     return {"rk": ck, "rv": cv, "rlen": cl}
 
 
-def _make_mixed_decode(page_attention):
-    """local+routing decode: ring-local half + cluster-paged routing half,
-    whose page attention is ``page_attention`` (plain or kernel)."""
+def _make_routing_decode(page_attention):
+    """Cluster-paged routing decode: the token routes to its argmax
+    centroid and attends only that page (+ itself) through
+    ``page_attention`` (plain or kernel)."""
     def decode(spec, q, k, v, *, cache, pos, state=None):
-        (ql, kl, vl), (qr, _, vr) = _split_heads(spec, q, k, v)
+        v0 = _expand_kv(v, spec.q_per_kv)[:, :, 0].contiguous()
+        r, c, plen = _route_token(q, state, cache)
+        o = page_attention(r.contiguous(), v0, cache["rk"], cache["rv"],
+                           cache["rlen"], c.to(torch.int32))
+        return o[:, :, None, :], _write_page_slot(cache, r, v0, c, plen)
+    return decode
+
+
+def _make_mixed_decode(routing_decode):
+    """local+routing decode: ring-local half + cluster-paged routing
+    half."""
+    def decode(spec, q, k, v, *, cache, pos, state=None):
+        (ql, kl, vl), (qr, kr, vr) = _split_heads(spec, q, k, v)
         o_l, ring = _local_decode(_local_subspec(spec), ql, kl, vl,
                                   cache=cache, pos=pos)
-        rspec = _routing_subspec(spec)
-        v0 = _expand_kv(vr, rspec.q_per_kv)[:, :, 0].contiguous()
-        r, c, plen = _route_token(qr, state, cache)
-        o_r = page_attention(r.contiguous(), v0, cache["rk"], cache["rv"],
-                             cache["rlen"], c.to(torch.int32))
-        pages = _write_page_slot(cache, r, v0, c, plen)
-        return torch.cat([o_l, o_r[:, :, None, :]], dim=1), {**ring, **pages}
+        o_r, pages = routing_decode(_routing_subspec(spec), qr, kr, vr,
+                                    cache=cache, pos=pos, state=state)
+        return torch.cat([o_l, o_r], dim=1), {**ring, **pages}
     return decode
 
 
 # ---------------------------------------------------------------------------
-# Prefill cache fill
+# Prefill cache fill, from the attention's Prefix
 # ---------------------------------------------------------------------------
-def _ring_fill(spec, cache, k, v, *, positions):
+def _ring_fill(cache, prefix: Prefix, *, positions):
     """Place token t at ring slot t % 2W; keep the last 2W tokens."""
+    kr, v = prefix.ring
     B, N = positions.shape
-    kr = k if spec.rope_theta is None else L.apply_rope(k, positions,
-                                                         spec.rope_theta)
     S2 = cache["lk"].shape[2]
     take = min(N, S2)
     tail_pos = positions[:, -take:]
     slots = tail_pos % S2                                  # (B,take)
-    bi = torch.arange(B, device=k.device)[:, None]
+    bi = torch.arange(B, device=kr.device)[:, None]
     out = {n: cache[n].clone() for n in ("lk", "lv", "lpos")}
     # (B,take,Hkv,dh) rows land at [b, :, slot]
     out["lk"][bi, :, slots] = kr[:, :, -take:].transpose(1, 2).to(
@@ -257,16 +328,13 @@ def _ring_fill(spec, cache, k, v, *, positions):
     return out
 
 
-def _pages_fill(spec, cache, q, v, *, state):
+def _pages_fill(cache, prefix: Prefix, *, positions):
     """Route every prefix token to its argmax page, keeping the most
     recent ``cap`` per page at the ring slots sequential decode would
     have used."""
-    B = q.shape[0]
-    vr = _expand_kv(v, spec.q_per_kv)
-    r = normalize_routing(q)                               # (B,Hr,N,dh)
+    r, scores, vr = prefix.pages
+    B, Hr = r.shape[:2]
     kc, cap = cache["rk"].shape[2], cache["rk"].shape[3]
-    Hr = r.shape[1]
-    scores = torch.einsum("bhnd,hkd->bhnk", r.float(), state.float())
     assign = scores.argmax(-1)                             # (B,Hr,N)
     memb = torch.nn.functional.one_hot(assign, kc)         # (B,Hr,N,kc)
     rank_from_end = memb.flip(2).cumsum(2).flip(2)
@@ -276,8 +344,8 @@ def _pages_fill(spec, cache, q, v, *, state):
     write_slot = torch.where(
         keep, (torch.gather(counts, 2, assign) % cap - rank_from_end) % cap,
         cap)                                               # cap = trash
-    bi = torch.arange(B, device=q.device)[:, None, None]
-    hi = torch.arange(Hr, device=q.device)[None, :, None]
+    bi = torch.arange(B, device=r.device)[:, None, None]
+    hi = torch.arange(Hr, device=r.device)[None, :, None]
     pad = torch.zeros_like(cache["rk"][:, :, :, :1])
     rk = torch.cat([cache["rk"], pad], 3)
     rv = torch.cat([cache["rv"], pad], 3)
@@ -288,17 +356,16 @@ def _pages_fill(spec, cache, q, v, *, state):
             "rlen": counts.to(torch.int32)}
 
 
-def _mixed_fill(spec, cache, q, k, v, *, positions, state=None):
-    (_, kl, vl), (qr, _, vr) = _split_heads(spec, q, k, v)
-    ring = _ring_fill(_local_subspec(spec), cache, kl, vl,
-                      positions=positions)
-    pages = _pages_fill(_routing_subspec(spec), cache, qr, vr, state=state)
-    return {**ring, **pages}
+def _mixed_fill(cache, prefix: Prefix, *, positions):
+    return {**_ring_fill(cache, prefix, positions=positions),
+            **_pages_fill(cache, prefix, positions=positions)}
 
 
 # ---------------------------------------------------------------------------
 # Registration
 # ---------------------------------------------------------------------------
+RING_LAYOUT = CacheLayout(name="ring", init=_ring_cache, fill=_ring_fill)
+PAGES_LAYOUT = CacheLayout(name="pages", init=_pages_cache, fill=_pages_fill)
 MIXED_LAYOUT = CacheLayout(name="ring+pages", init=_mixed_cache,
                            fill=_mixed_fill)
 
@@ -313,18 +380,44 @@ registry.register(Backend(
     caps=Capabilities(supports_pad_mask=False, supports_positions=False,
                       supports_grad=True, needs_cuda=True)))
 
-_MIXED_CAPS = dict(supports_decode=True, supports_pad_mask=True,
-                   supports_positions=True, supports_grad=True)
+_CAPS = dict(supports_pad_mask=True, supports_positions=True,
+             supports_grad=True)
 
-registry.register(Backend(
-    variant="local+routing", impl="torch",
-    apply=_make_mixed_apply(_local_torch, "torch"),
-    decode=_make_mixed_decode(decode_kernel.paged_routing_decode_plain),
-    layout=MIXED_LAYOUT, caps=Capabilities(**_MIXED_CAPS)))
 
-registry.register(Backend(
-    variant="local+routing", impl="cuda",
-    apply=_make_mixed_apply(_local_cuda, "cuda_fused"),
-    decode=_make_mixed_decode(decode_kernel.paged_routing_decode),
-    layout=MIXED_LAYOUT, priority=20,
-    caps=Capabilities(**_MIXED_CAPS, needs_cuda=True)))
+def _register(variant, impl, apply, priority=0, decode=None, layout=None):
+    """A backend of the paper's variants: every impl but ``torch`` runs
+    kernels (needs_cuda); a backend with a decode path owns ``layout``."""
+    registry.register(Backend(
+        variant=variant, impl=impl, apply=apply, decode=decode,
+        layout=layout, priority=priority,
+        caps=Capabilities(supports_decode=decode is not None,
+                          needs_cuda=impl != "torch", **_CAPS)))
+
+
+_local_torch = _make_local_apply(kernel=False)
+_local_cuda = _make_local_apply(kernel=True)
+_routing_torch = _make_routing_apply("torch")
+_routing_fused = _make_routing_apply("cuda_fused")
+_routing_gathered = _make_routing_apply("cuda_gathered")
+_decode_plain = _make_routing_decode(decode_kernel.paged_routing_decode_plain)
+_decode_kernel = _make_routing_decode(decode_kernel.paged_routing_decode)
+
+# cuda_gathered: priority 0, registered after torch (which wins the tie)
+# and without decode, so auto-selection never takes it
+_register("local", "torch", _local_torch, 0, _local_decode, RING_LAYOUT)
+_register("local", "cuda", _local_cuda, 10, _local_decode, RING_LAYOUT)
+_register("local", "cuda_gathered", _local_cuda)
+
+_register("routing", "torch", _routing_torch, 0, _decode_plain, PAGES_LAYOUT)
+_register("routing", "cuda", _routing_fused, 20, _decode_kernel,
+          PAGES_LAYOUT)
+_register("routing", "cuda_gathered", _routing_gathered)
+
+_register("local+routing", "torch",
+          _make_mixed_apply(_local_torch, _routing_torch), 0,
+          _make_mixed_decode(_decode_plain), MIXED_LAYOUT)
+_register("local+routing", "cuda",
+          _make_mixed_apply(_local_cuda, _routing_fused), 20,
+          _make_mixed_decode(_decode_kernel), MIXED_LAYOUT)
+_register("local+routing", "cuda_gathered",
+          _make_mixed_apply(_local_cuda, _routing_gathered))

@@ -28,8 +28,10 @@ class CacheLayout:
     """Decode-cache layout owned by a backend.
 
     ``init(spec, B, max_len, dtype, device)``   build the cache-leaf dict
-    ``fill(spec, cache, q, k, v, *, positions, state)``
-                                               fill it from prefix q/k/v
+    ``fill(cache, prefix, *, positions)``      fill it from the `Prefix`
+                                               (roped keys, routing vectors,
+                                               centroid scores) the
+                                               prefill's attention computed
     """
 
     name: str
@@ -59,7 +61,8 @@ class Capabilities:
 @dataclass(frozen=True)
 class Backend:
     """apply(spec, q, k, v, *, state, positions, pad_mask, update_state)
-          -> (out, new_state)
+          -> (out, new_state, prefix): the `Prefix` a cache fill reuses
+          (empty for a variant without a decode layout)
     decode(spec, q, k, v, *, cache, pos, state) -> (out, new_cache)
           [supports_decode only, with its ``layout``]"""
 

@@ -11,9 +11,14 @@ and optionally the EMA centroid update.
 block attention (differentiable by autograd); ``impl="cuda_fused"`` hands
 sequence-layout q/k/v plus the membership indices to the fused CUDA
 kernels (`kernels.routing_attention.RoutedAttentionFused`, forward and
-backward), which pull member rows themselves. `routed_attention_bwd_dq`
-and `routed_attention_bwd_dkv` are the plain versions of the backward
-kernels. The centroids carry no gradient. The segment fold
+backward), which pull member rows themselves; ``impl="cuda_gathered"``
+gathers the blocks here, as XLA does for the JAX package's gathered
+kernel, and runs the gathered CUDA kernels on them
+(`kernels.routing_gathered.attend_blocks`; the scatter back to sequence
+layout is the backward of the gather). `block_attention`, `block_bwd_dq`
+and `block_bwd_dkv` are the plain versions of the block kernels,
+`routed_attention_bwd_dq` and `routed_attention_bwd_dkv` those of the
+fused backward kernels. The centroids carry no gradient. The segment fold
 (``RoutingConfig.segments > 1``) and the routing-health stats of the JAX
 package are not ported yet and raise.
 """
@@ -29,12 +34,14 @@ from repro_torch.core.kmeans import (KMeansState, cluster_scores, ema_update,
                                      normalize_routing)
 
 _BIG_NEG = -1e9
-IMPLS = ("torch", "cuda_fused")
+IMPLS = ("torch", "cuda_fused", "cuda_gathered")
 
 
 class RoutingOutput(NamedTuple):
     out: torch.Tensor           # (B, H, N, dh)
     state: KMeansState          # updated (or unchanged) centroids
+    r_q: torch.Tensor           # (B, H, N, dh) routing vectors of q
+    scores: torch.Tensor        # (B, H, N, k) fp32 centroid affinities of r_q
 
 
 def balanced_topk(scores: torch.Tensor, window: int,
@@ -72,11 +79,14 @@ def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def _add_rows(og: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
     """og (B,H,k,w,d) summed onto the flat ``rows`` of a (B,H,n,d) plane,
-    in at least fp32."""
+    in at least fp32. Deterministic: ``index_put_`` with ``accumulate``
+    sorts the rows (stably) and adds the copies of a row in the order
+    they appear in ``rows``, on the card too, where ``index_add_`` adds
+    them by atomics in an order that changes from run to run."""
     B, H, k, w, d = og.shape
     out = torch.zeros((B * H * n, d), device=og.device,
                       dtype=torch.promote_types(og.dtype, torch.float32))
-    out.index_add_(0, rows, upcast(og).reshape(-1, d))
+    out.index_put_((rows,), upcast(og).reshape(-1, d), accumulate=True)
     return out.reshape(B, H, n, d)
 
 
@@ -84,8 +94,7 @@ def scatter_add_rows(og: torch.Tensor, idx: torch.Tensor,
                      n: int) -> torch.Tensor:
     """The transpose of `_gather_rows`: per-cluster rows og (B,H,k,w,d) are
     summed into (B,H,n,d) in at least fp32; a token in several clusters
-    gets the sum of its copies (`index_add_`; on CUDA its atomics add them
-    in run-dependent order, so the last fp32 bits vary from run to run)."""
+    gets the sum of its copies, added in cluster order (`_add_rows`)."""
     return _add_rows(og, _flat_rows(idx, n), n)
 
 
@@ -93,8 +102,8 @@ def _scatter_rows(og: torch.Tensor, idx: torch.Tensor, n: int,
                   mode: str) -> torch.Tensor:
     """Scatter per-cluster outputs og (B,H,k,w,d) back to (B,H,n,d).
 
-    mode="mean": the `scatter_add_rows` sum divided by the membership
-    count, then cast back.
+    mode="mean": the `_add_rows` sum divided by the membership count
+    (summed in the same call, as a column of ones), then cast back.
     mode="last": plain scatter; with duplicate memberships the winner is
     unspecified (as in the JAX reference), so use it only without them.
     """
@@ -106,10 +115,9 @@ def _scatter_rows(og: torch.Tensor, idx: torch.Tensor, n: int,
         return out.reshape(B, H, n, d)
     if mode != "mean":
         raise ValueError(f"unknown scatter mode {mode!r}")
-    cnt = torch.zeros((B * H * n,), dtype=torch.float32, device=og.device)
-    cnt.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float32))
-    out = _add_rows(og, rows, n) / cnt.clamp_min(1.0).reshape(B, H, n, 1)
-    return out.to(og.dtype)
+    ones = torch.ones(og.shape[:-1] + (1,), dtype=og.dtype, device=og.device)
+    out, cnt = _add_rows(torch.cat([og, ones], -1), rows, n).split(d, -1)
+    return (out / cnt.clamp_min(1.0)).to(og.dtype)
 
 
 def block_keep(pos_q, pos_k, causal: bool,
@@ -125,20 +133,21 @@ def block_keep(pos_q, pos_k, causal: bool,
     return keep
 
 
-def _block_attention(qg, kg, vg, pos_q, pos_k, causal: bool,
-                     valid_k: Optional[torch.Tensor] = None,
-                     return_lse: bool = False):
-    """Intra-cluster attention on gathered blocks (B,H,k,w,dh); the plain
-    math of the fused kernel. Queries whose cluster holds no attendable
-    key output 0. With ``return_lse`` also the per-row log-sum-exp."""
+def block_attention(qg, kg, vg, pos_q, pos_k, causal: bool,
+                    valid_k: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
+    """Intra-cluster attention on gathered blocks (..., w, dh) with their
+    (..., w) positions: the plain math of the fused and the gathered
+    kernels. Queries whose cluster holds no attendable key output 0. With
+    ``return_lse`` also the per-row log-sum-exp."""
     dh = qg.shape[-1]
-    logits = upcast(torch.einsum("bhkwd,bhkud->bhkwu", qg, kg))
+    logits = upcast(torch.einsum("...wd,...ud->...wu", qg, kg))
     logits = logits / float(dh) ** 0.5
     keep = block_keep(pos_q, pos_k, causal, valid_k)
     logits = logits.masked_fill(~keep, _BIG_NEG)
     attn = torch.softmax(logits, dim=-1)
     attn = torch.where(keep.any(-1, keepdim=True), attn, 0.0)
-    og = torch.einsum("bhkwu,bhkud->bhkwd", attn.to(vg.dtype), vg)
+    og = torch.einsum("...wu,...ud->...wd", attn.to(vg.dtype), vg)
     if not return_lse:
         return og
     m = logits.amax(-1, keepdim=True)
@@ -178,41 +187,59 @@ def gathered_block_attention(q, k, v, q_idx, k_idx, positions, causal=True,
     """
     qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
         q, k, v, q_idx, k_idx, positions, kvalid)
-    return _block_attention(qg, kg, vg, pos_q, pos_k, causal, valid_k,
-                            return_lse)
+    return block_attention(qg, kg, vg, pos_q, pos_k, causal, valid_k,
+                           return_lse)
 
 
-def _bwd_blocks(q, k, v, q_idx, k_idx, positions, do, lse, dsum, causal,
-                kvalid):
-    """The recurrence both backward kernels run, on gathered blocks:
-    p = keep ? exp(s - lse) : 0 (masked explicitly: a row with no key has
-    lse ~ -1e9, where exp(s - lse) of a masked score would read ~1) and
-    ds = p * (do.v^T - D) * scale. do (B,H,k,w,dh), lse/D (B,H,k,w)."""
-    qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
-        q, k, v, q_idx, k_idx, positions, kvalid)
-    scale = 1.0 / float(q.shape[-1]) ** 0.5
-    s = torch.einsum("bhkwd,bhkud->bhkwu", upcast(qg), upcast(kg)) * scale
+def block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal, valid_k):
+    """The recurrence the backward kernels run, on gathered blocks
+    (..., w, dh): p = keep ? exp(s - lse) : 0 (masked explicitly: a row
+    with no key has lse ~ -1e9, where exp(s - lse) of a masked score would
+    read ~1) and ds = p * (do.v^T - D) * scale. do (..., w, dh), lse/D
+    (..., w). Returns (p, ds)."""
+    scale = 1.0 / float(qg.shape[-1]) ** 0.5
+    s = torch.einsum("...wd,...ud->...wu", upcast(qg), upcast(kg)) * scale
     keep = block_keep(pos_q, pos_k, causal, valid_k)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
-    dp = torch.einsum("bhkwd,bhkud->bhkwu", upcast(do), upcast(vg))
-    return qg, kg, p, p * (dp - upcast(dsum)[..., None]) * scale
+    dp = torch.einsum("...wd,...ud->...wu", upcast(do), upcast(vg))
+    return p, p * (dp - upcast(dsum)[..., None]) * scale
+
+
+def block_bwd_dq(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
+                 valid_k=None):
+    """dq blocks (..., w, dh) in at least fp32."""
+    _, ds = block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
+                      valid_k)
+    return torch.einsum("...wu,...ud->...wd", ds, upcast(kg))
+
+
+def block_bwd_dkv(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
+                  valid_k=None):
+    """(dk, dv) blocks (..., w, dh) in at least fp32."""
+    p, ds = block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
+                      valid_k)
+    return (torch.einsum("...wu,...wd->...ud", ds, upcast(qg)),
+            torch.einsum("...wu,...wd->...ud", p, upcast(do)))
 
 
 def routed_attention_bwd_dq(q, k, v, q_idx, k_idx, positions, do, lse, dsum,
                             causal=True, kvalid=None):
-    """Per-cluster dq blocks (B,H,k,w,dh) in at least fp32."""
-    _, kg, _, ds = _bwd_blocks(q, k, v, q_idx, k_idx, positions, do, lse,
-                               dsum, causal, kvalid)
-    return torch.einsum("bhkwu,bhkud->bhkwd", ds, upcast(kg))
+    """Per-cluster dq blocks (B,H,k,w,dh) in at least fp32, from
+    sequence-layout q/k/v (the plain version of the fused dq kernel)."""
+    qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
+        q, k, v, q_idx, k_idx, positions, kvalid)
+    return block_bwd_dq(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
+                        valid_k)
 
 
 def routed_attention_bwd_dkv(q, k, v, q_idx, k_idx, positions, do, lse,
                              dsum, causal=True, kvalid=None):
-    """Per-cluster (dk, dv) blocks (B,H,k,w,dh) in at least fp32."""
-    qg, _, p, ds = _bwd_blocks(q, k, v, q_idx, k_idx, positions, do, lse,
-                               dsum, causal, kvalid)
-    return (torch.einsum("bhkwu,bhkwd->bhkud", ds, upcast(qg)),
-            torch.einsum("bhkwu,bhkwd->bhkud", p, upcast(do)))
+    """Per-cluster (dk, dv) blocks (B,H,k,w,dh) in at least fp32, from
+    sequence-layout q/k/v (the plain version of the fused dk/dv kernel)."""
+    qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
+        q, k, v, q_idx, k_idx, positions, kvalid)
+    return block_bwd_dkv(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
+                         valid_k)
 
 
 def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
@@ -245,24 +272,30 @@ def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
         r_k = k_attn = r_q
     else:
         r_k = k_attn = normalize_routing(k if k is not None else q)
-    q_idx = balanced_topk(cluster_scores(r_q, state.mu), w, pad_mask)
+    scores_q = cluster_scores(r_q, state.mu)
+    q_idx = balanced_topk(scores_q, w, pad_mask)
     k_idx = q_idx if shared else balanced_topk(
         cluster_scores(r_k, state.mu), w, pad_mask)
 
+    k_in = None if shared else k_attn
     if impl == "cuda_fused":
         from repro_torch.kernels.routing_attention import RoutedAttentionFused
         i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
         og, _ = RoutedAttentionFused.apply(
-            r_q.contiguous(), None if shared else k_attn.contiguous(),
+            r_q.contiguous(), None if k_in is None else k_in.contiguous(),
             v.contiguous(), i32(q_idx), i32(k_idx), i32(positions),
             cfg.causal, pad_mask)
+    elif impl == "cuda_gathered":
+        from repro_torch.kernels.routing_gathered import attend_blocks
+        qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
+            r_q, k_in, v, q_idx, k_idx, positions, pad_mask)
+        og = attend_blocks(qg, kg, vg, pos_q, pos_k, cfg.causal, valid_k)
     else:
-        og = gathered_block_attention(r_q, None if shared else k_attn, v,
-                                      q_idx, k_idx, positions, cfg.causal,
-                                      pad_mask)
+        og = gathered_block_attention(r_q, k_in, v, q_idx, k_idx, positions,
+                                      cfg.causal, pad_mask)
     out = _scatter_rows(og, q_idx, N, cfg.scatter_mode)
     new_state = state
     if update_state:
         new_state = ema_update(state, r_q, None if shared else r_k,
                                pad_mask, cfg.decay)
-    return RoutingOutput(out=out, state=new_state)
+    return RoutingOutput(out=out, state=new_state, r_q=r_q, scores=scores_q)

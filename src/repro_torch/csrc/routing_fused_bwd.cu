@@ -17,8 +17,8 @@
 // per-cluster dk, dv (B*H, k, w, dh). All fp32. Shared-QK passes the q
 // plane as k; the caller then adds the scattered dk to q's gradient. The
 // scatter-add of these blocks to sequence layout (a token sits in up to k
-// clusters) stays in PyTorch (`index_add_`), as the JAX package leaves it
-// to XLA.
+// clusters) stays in PyTorch (`core.routing.scatter_add_rows`, in a fixed
+// order), as the JAX package leaves it to XLA.
 //
 // What bounds it on this card: each cluster is a (w x w) problem whose
 // causal half is needed, 6*dh (dq) or 8*dh (dk/dv) flops per pair against

@@ -205,9 +205,10 @@ class RoutedAttentionFused(torch.autograd.Function):
     kvalid)`` -> (per-cluster out, lse); lse carries no gradient.
 
     The backward scatter-adds the per-cluster gradient blocks to sequence
-    layout (`index_add_`: on CUDA a token's <= k cluster copies add in
-    run-dependent order). With shared-QK (``k=None``) q's rows served as
-    both queries and keys, so q's gradient is the sum of both scatters."""
+    layout (`core.routing.scatter_add_rows`: a token's <= k cluster copies
+    add in cluster order, the same in every run). With shared-QK
+    (``k=None``) q's rows served as both queries and keys, so q's gradient
+    is the sum of both scatters."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_idx, k_idx, positions, causal, kvalid):
@@ -225,13 +226,17 @@ class RoutedAttentionFused(torch.autograd.Function):
         dqg, dkg, dvg = routed_attention_fused_bwd(
             q, k, v, q_idx, k_idx, positions, out, lse, do.contiguous(),
             ctx.causal, kvalid)
-        N = q.shape[2]
+        N, dh = q.shape[2], q.shape[3]
         qi, ki = q_idx.long(), k_idx.long()
-        dq = ref.scatter_add_rows(dqg, qi, N)
-        dk = ref.scatter_add_rows(dkg, ki, N)
-        dv = ref.scatter_add_rows(dvg, ki, N).to(v.dtype)
+        # one scatter per membership: with shared-QK all three gradients
+        # share q's, otherwise dk and dv share k's
         if k is None:
-            return ((dq + dk).to(q.dtype), None, dv, None, None, None, None,
-                    None)
-        return (dq.to(q.dtype), dk.to(k.dtype), dv, None, None, None, None,
-                None)
+            dq, dk, dv = ref.scatter_add_rows(
+                torch.cat([dqg, dkg, dvg], -1), qi, N).split(dh, -1)
+            return ((dq + dk).to(q.dtype), None, dv.to(v.dtype), None, None,
+                    None, None, None)
+        dq = ref.scatter_add_rows(dqg, qi, N)
+        dk, dv = ref.scatter_add_rows(torch.cat([dkg, dvg], -1), ki,
+                                      N).split(dh, -1)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)

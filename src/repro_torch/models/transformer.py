@@ -141,26 +141,23 @@ def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
     attention and FFN outputs when ``drop_seed`` is given.
 
     Returns (x, new_kmu, new_cache). With ``cache`` (the layer's
-    decode-cache leaves, prefill) the cache is filled from the same q/k/v
-    the attention runs on, which needs ``positions``; else new_cache is
-    None.
+    decode-cache leaves, prefill) the cache is filled from what the
+    attention computed (roped keys, routing vectors, centroid scores),
+    which needs ``positions``; else new_cache is None.
     """
     seeds = ((None, None) if drop_seed is None
              else (fold_seed(drop_seed, 0), fold_seed(drop_seed, 1)))
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = L.qkv_project(p["attn"], h, cfg)
-    aspec = spec_for_layer(cfg, spec.attn)
-    new_cache = None if cache is None else attn_api.prefill_cache(
-        aspec, cache, q, k, v, positions=positions, state=kmu)
-    out = attn_api.attend(aspec, q, k, v, state=kmu, positions=positions,
-                          pad_mask=pad_mask, update_state=update_state,
-                          impl=impl)
+    out = attn_api.attend(spec_for_layer(cfg, spec.attn), q, k, v,
+                          state=kmu, positions=positions, pad_mask=pad_mask,
+                          update_state=update_state, impl=impl, fill=cache)
     x = x + _dropout(L.out_project(p["attn"], out.out), cfg.dropout,
                      seeds[0])
     h2 = L.apply_norm(p["ln2"], x, cfg.norm)
     x = x + _dropout(L.apply_mlp(p["ffn"], h2, cfg.act), cfg.dropout,
                      seeds[1])
-    return x, out.state, new_cache
+    return x, out.state, out.cache
 
 
 def _unstack(tree, G: int):

@@ -2,8 +2,10 @@
 dense family (port of that path of the JAX package's ``serve/serving.py``).
 
 Cache layout (per segment, leaves stacked over groups G), as declared by
-the resolved decode backend (`attn.backends.MIXED_LAYOUT` for the paper's
-local+routing models):
+the resolved decode backend of each layer's variant
+(`attn.backends.RING_LAYOUT` for ``local`` layers, `PAGES_LAYOUT` for
+``routing`` layers, `MIXED_LAYOUT` for ``local+routing`` layers: rt-cifar10
+holds rings on layers 0-7 and rings + pages on 8-11):
   local heads     ring of 2W slots + stored absolute positions (lk, lv,
                   lpos): decode reproduces the blocked prefill semantics
   routing heads   cluster pages (rk, rv: (G,B,Hr,kc,cap,dh), rlen): a
@@ -12,7 +14,8 @@ local+routing models):
 
 On CUDA tensors prefill runs the local-window and the fused routing kernels
 and decode runs the paged decode kernel; ``impl="torch"`` forces the plain
-PyTorch path (the comparison `chip_smoke.py` makes on the card).
+PyTorch path (the comparison `chip_smoke.py` makes on the card). A prefill
+fills each layer's cache from what that layer's attention computed.
 """
 from __future__ import annotations
 

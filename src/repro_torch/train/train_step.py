@@ -16,14 +16,15 @@ to the port's distributed slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import RunConfig
+from repro_torch.attn.spec import spec_for_layer
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.model import (apply_model, init_model, lm_loss,
                                       next_token_batch)
-from repro_torch.models.transformer import fold_seed
+from repro_torch.models.transformer import build_segments, fold_seed
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -70,17 +71,52 @@ def make_loss_fn(run: RunConfig, impl: Optional[str] = None):
     return loss_fn
 
 
-def value_and_grad(loss_fn):
+def value_and_grad(loss_fn, cfg: Optional[ModelConfig] = None):
     """``(params, *args) -> ((loss, aux), grads)`` with grads shaped like
-    params (the counterpart of ``jax.value_and_grad(has_aux=True)``)."""
+    params (the counterpart of ``jax.value_and_grad(has_aux=True)``). With
+    ``cfg``, the leaves `unread_leaves` names get a zero gradient, as in
+    JAX; any other leaf the loss does not use raises."""
     def vg(params, *args):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
+        unread = None if cfg is None else unread_leaves(params, cfg)
         with torch.enable_grad():
             loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
-            grads = torch.autograd.grad(loss, leaves)
-        return (loss.detach(), aux), tree_unflatten(params, list(grads))
+            grads = leaf_grads(loss, leaves, unread)
+        return (loss.detach(), aux), tree_unflatten(params, grads)
     return vg
+
+
+def unread_leaves(params, cfg: ModelConfig) -> List[bool]:
+    """Flags, in `tree_leaves` order, of the parameters the loss never
+    reads: the key projection (``wk``, ``bk``) of a layer whose every head
+    is causal shared-QK routing, since its keys are its queries."""
+    flags = tree_map(lambda _: False, params)
+    for seg, (pattern, _) in zip(flags["stack"], build_segments(cfg)):
+        for layer, s in zip(seg, pattern):
+            spec = spec_for_layer(cfg, s.attn)
+            if (spec.variant == "routing" and spec.causal
+                    and spec.routing.share_qk):
+                for name in ("wk", "bk"):
+                    if name in layer["attn"]:
+                        layer["attn"][name] = True
+    return tree_leaves(flags)
+
+
+def leaf_grads(loss, leaves, unread: Optional[List[bool]] = None,
+               **kwargs):
+    """``torch.autograd.grad`` of ``loss`` for every leaf: zeros for the
+    leaves flagged in ``unread``; a leaf the loss does not use and
+    ``unread`` does not flag raises."""
+    unread = unread or [False] * len(leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, **kwargs)
+    cut = [i for i, (g, u) in enumerate(zip(grads, unread))
+           if g is None and not u]
+    if cut:
+        raise RuntimeError(f"parameter leaves {cut} are not used by the "
+                           f"loss")
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -103,7 +139,7 @@ def make_grad_fn(run: RunConfig, loss_fn):
     the microbatch means. Every microbatch gets the same dropout seed, as
     in the JAX package."""
     tc = run.train
-    vg = value_and_grad(loss_fn)
+    vg = value_and_grad(loss_fn, run.model)
 
     def grad_fn(params, kstate, batch, drop_seed):
         A = tc.grad_accum

@@ -48,6 +48,7 @@ from repro.models.model import apply_model as jax_apply_model
 from repro.models.model import init_model as jax_init_model
 from repro_torch import attn
 from repro_torch.attn import registry
+from repro_torch.attn.backends import Prefix
 from repro_torch.attn.spec import AttentionSpec, spec_for_layer
 from repro_torch.configs import reduced_config
 from repro_torch.configs.base import RunConfig, TrainConfig
@@ -324,7 +325,7 @@ def test_a_backend_without_a_gradient_is_left_out_of_differentiated_calls():
 
     def apply(spec, q, k, v, **kw):
         used.append("nograd")
-        return q, None
+        return q, None, Prefix()
     registry.register(registry.Backend(
         variant="full", impl="nograd", apply=apply, priority=50,
         caps=registry.Capabilities()))

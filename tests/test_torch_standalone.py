@@ -28,6 +28,7 @@ from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import local_attention as local_k
 from repro_torch.kernels import routing_attention as routing_k
+from repro_torch.kernels import routing_gathered as gathered_k
 from repro_torch.models.model import init_model
 from repro_torch.serve import serving
 from repro_torch.train.train_step import init_train_state
@@ -142,6 +143,10 @@ def _bwd_calls(q, bad_lse=False):
     lse, lse_g = dsum.clone(), dsum_g.clone()
     if bad_lse:
         lse, lse_g = lse[..., :-2].contiguous(), lse_g[..., :-2].contiguous()
+    # the gathered kernels' (n, w, dh) blocks: q's (B*H, N, dh) planes
+    qf, lse_f, dsum_f = q.flatten(0, 1), lse.flatten(0, 1), dsum.flatten(0, 1)
+    pos_f = torch.arange(N, dtype=torch.int32)[None].expand(
+        B * H, N).contiguous()
     return [
         lambda: local_k.local_attention_bwd_dq(q, q, q, q, lse, dsum, 16),
         lambda: local_k.local_attention_bwd_dkv(q, q, q, q, lse, dsum, 16),
@@ -151,12 +156,16 @@ def _bwd_calls(q, bad_lse=False):
             q, None, q, idx, idx, pos, do_g, lse_g, dsum_g),
         lambda: flash_k.flash_attention_bwd_dq(q, q, q, q, lse, dsum),
         lambda: flash_k.flash_attention_bwd_dkv(q, q, q, q, lse, dsum),
+        lambda: gathered_k.routed_attention_blocks_bwd_dq(
+            qf, qf, qf, pos_f, pos_f, qf, lse_f, dsum_f),
+        lambda: gathered_k.routed_attention_blocks_bwd_dkv(
+            qf, qf, qf, pos_f, pos_f, qf, lse_f, dsum_f),
     ]
 
 
-@pytest.mark.parametrize("which", range(6), ids=[
+@pytest.mark.parametrize("which", range(8), ids=[
     "local_dq", "local_dkv", "routing_dq", "routing_dkv", "flash_dq",
-    "flash_dkv"])
+    "flash_dkv", "gathered_dq", "gathered_dkv"])
 def test_backward_wrappers_check_before_dispatch(which):
     """Each backward wrapper refuses a non-contiguous tensor and an lse of
     the wrong shape already on the CPU, where it would then run its plain
