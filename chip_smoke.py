@@ -21,6 +21,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    call computes the same function, that call (`library_ms`; the port
    never calls it). The causal flash kernels must take well under the
    time of the same call without the causal mask;
+   the flash kernels also in bf16 at head dim 128, and all three in bf16
+   at the shapes their 128-row tiles make ragged (`FLASH_EDGES`), each
+   bf16 forward row reporting SDPA's own error against the same fp32
+   plain version beside its own; the ptxas lines of the bf16 flash
+   forward on the tensor cores must show no spills;
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -53,6 +58,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    other kernel; then the training launcher `repro_torch.launch.train` at
    its defaults (fp32, B 8 x 256) for 3 steps, in-process, with exact
    launch counts;
+   between the fp32 gate and the bf16 steps, a bf16 gate at the gate's
+   shape (`full_train_gate_bf16`): the kernel path and, as the yardstick,
+   the plain path with SDPA in place of the flash kernels, each against
+   the plain path (`BF16_GATE_FACTOR`), the kernel path against itself,
+   and the fp32 gate's negative control;
 7. rt-cifar10 at full width and depth (12 layers, d_model 512, 8 heads of
    dh 64; layers 0-7 local, 8-11 local+routing, k 6, window 512): the fp32
    gates of 5 at B 1 x 3072 for the auto-selected kernels and for the
@@ -78,10 +88,12 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -103,6 +115,20 @@ LAUNCH_ARGV = ["--steps", "3"]                  # the launcher's defaults
 # the flash kernels at head dim 128 in fp32, as starcoder2-3b's heads:
 # (B, H, Hkv, N, dh)
 WIDE_FLASH = (1, 24, 2, 2048, 128)
+# (and in bf16: the tensor-core forward's dh 128 instance)
+#
+# the three flash kernels in bf16 at the shapes their 128-row tiles make
+# ragged, (B, H, Hkv, N, M, dh, causal): N and M of 1, 127, 129 and 200,
+# M != N with the causal mask on row indices, causal and not, GQA 2:1 and
+# 7:1, dh 64 and 128. With N 127 < M 200 causal, the keys past row 126 are
+# seen by no query (their dk and dv are zero)
+FLASH_EDGES = tuple(
+    (1, H, Hkv, N, M, dh, causal) for dh in (64, 128)
+    for H, Hkv, N, M, causal in ((2, 1, 1, 1, True), (14, 2, 127, 129, True),
+                                 (7, 1, 200, 127, False),
+                                 (4, 2, 129, 200, False),
+                                 (2, 1, 127, 200, True),
+                                 (14, 2, 200, 1, True)))
 # rt-cifar10 (the JAX registry's default row of the Table 1 grid: layers
 # 0-7 local, 8-11 local+routing with 4 routing heads, k 6, window 512): its
 # sequence of 32x32x3 bytes, the batch cut to one card; the fp32 gates at
@@ -126,6 +152,14 @@ GATHERED_RAGGED = (1, 2, 8, 200, 64)
 # bf16 ulps at the top of the range); the fp32 lse by 1e-4 absolute
 OUT_REL_TOL = 2.0 ** -7
 LSE_TOL = 1e-4
+# the flash forward also row by row: |out - ref| / |ref| over each query
+# row's head dim (2-norms) in every row. OUT_REL_TOL is set by the largest
+# output, which an early row (few keys) holds; a late row averages
+# thousands of keys, its values are far smaller, and a fault in its P V (a
+# value tile left out or misplaced) can stay under that limit while it
+# moves the row by ~10%. Rounding P and the output to bf16 costs ~2^-9 of
+# a row; SDPA, which rounds the same, is read beside each bf16 row
+ROW_REL_TOL = 2.0 ** -7
 # kernel path vs plain path logits, both in fp32 on the same weights (the
 # plain path teacher-forced with the kernel path's tokens): the kernels and
 # the plain ops sum in different orders. Sound runs read a largest
@@ -195,6 +229,15 @@ MAX_CAUSAL_OVER_DENSE = 0.85
 MAX_LOSS_DIFF_FULL = 1e-4
 MAX_GRAD_MEDIAN_FULL = 1e-4
 MAX_BWD_GRAD_FULL = 1e-3
+# bf16 train step of qwen2-0.5b (dropout 0, the same bf16 weights): the
+# kernel path and, as the yardstick, the plain path with SDPA in place of
+# the flash kernels, each against the plain path. The three round
+# differently in bf16 (the plain path rounds the logits too, the
+# tensor-core forward and SDPA round P), so the kernel path's median leaf
+# gradient difference may be at most this factor times SDPA's, the
+# negative control must exceed that limit, and the kernel path must repeat
+# itself exactly (no atomics on it)
+BF16_GATE_FACTOR = 1.25
 
 # every kernel of the port: its source, the TPU kernel it replaces (the
 # def line), whether it runs in the forward (twice per layer under remat
@@ -294,6 +337,12 @@ def print_dynamic_smem() -> None:
         print(f"  dynamic smem per block, dh {dh}: forward tile {fwd(dh)} "
               f"B, dq tile {bwd(dh, 0)} B, dk/dv tile {bwd(dh, 1)} B; "
               f"decode (cap + 1) * 4 B")
+    # the bf16 flash forward runs on the tensor cores with tiles of its own
+    fwd_tc = common.load("flash_attention", "flash_fwd_wgmma_smem_bytes",
+                         [ctypes.c_int])
+    for dh in (64, 128):
+        print(f"  dynamic smem per block, dh {dh}: bf16 flash forward "
+              f"(wgmma + TMA) {fwd_tc(dh)} B")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -580,9 +629,16 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
     if not (out_ok(out, ref_out) and lerr <= LSE_TOL):
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"version: out {err}, lse {lerr}")
+    row_err = row_rel_err(out, ref_out)
+    if row_err > ROW_REL_TOL:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version in a row: {row_err}")
     args32 = (*f32, lse, dsum)
     ref_dq = K.flash_attention_bwd_dq_plain(*args32)
     ref_dk, ref_dv = K.flash_attention_bwd_dkv_plain(*args32)
+    sdpa_out = (sdpa_out_errs(torch, q, k, v, ref_out, True)
+                if dtype == torch.bfloat16 else {})
+    out_rel = rel_err(out, ref_out)
     del ref_out, ref_lse
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -604,6 +660,9 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
         bound_ms=b_ms, bound_by=b_by, shape=shape,
         causal_over_dense=fwd_ms / time_ms(
             lambda: K.flash_attention(q, k, v, False)))}
+    rows["flash_attention"]["row_rel_err"] = row_err
+    if sdpa_out:
+        rows["flash_attention"].update(out_rel_err=out_rel, **sdpa_out)
     rows.update(_bwd_rows(
         ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
         ((dq,), (dk, dv)), ((ref_dq,), (ref_dk, ref_dv)),
@@ -626,6 +685,75 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
                 f"{name} takes {row['causal_over_dense']:.2f} of its dense "
                 f"time on a causal call: the tiles above the diagonal are "
                 f"not skipped")
+    return rows
+
+
+def rel_err(a, ref) -> float:
+    """Largest |a - ref| over the largest |ref|."""
+    return max_err(a, ref) / float(ref.abs().max())
+
+
+def row_rel_err(a, ref) -> float:
+    """Largest over rows of |a - ref| / |ref|, 2-norms over the last dim."""
+    ref = ref.float()
+    return float(((a.float() - ref).norm(dim=-1)
+                  / ref.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def sdpa_out_errs(torch, q, k, v, ref_out, causal) -> dict:
+    """SDPA's own error on the same bf16 inputs (causal on row indices,
+    GQA) against the fp32 plain output ``ref_out``, relative to its largest
+    value and row by row: context for a bf16 forward row, never a limit."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)
+    return dict(sdpa_out_rel_err=rel_err(out, ref_out),
+                sdpa_row_rel_err=row_rel_err(out, ref_out))
+
+
+def check_flash_edges(torch, gen) -> list:
+    """The three flash kernels in bf16 at FLASH_EDGES, each against its
+    plain version in fp32 on the same inputs: out within OUT_REL_TOL of its
+    largest reference value and within ROW_REL_TOL in every row, lse within
+    LSE_TOL; dq, dk and dv within BWD_REL_TOL of their largest reference
+    values. With a single key (M = 1) dq and dk are zero in exact
+    arithmetic (a softmax over one key has no gradient) and both read as
+    fp32 rounding, so they are scaled by dv's largest reference value
+    instead. SDPA's own forward error is reported beside each row."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.core import row_dot
+    rows = []
+    for B, H, Hkv, N, M, dh, causal in FLASH_EDGES:
+        mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+        q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, M, dh), **mk) for _ in range(2))
+        out, lse = K.flash_attention(q, k, v, causal)
+        args = (q, k, v, do, lse, row_dot(do, out), causal)
+        got = (K.flash_attention_bwd_dq(*args),
+               *K.flash_attention_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, do)]
+        ref_out, ref_lse = K.flash_attention_plain(*f32[:3], causal)
+        args32 = (*f32, *args[4:])
+        refs = (K.flash_attention_bwd_dq_plain(*args32),
+                *K.flash_attention_bwd_dkv_plain(*args32))
+        scales = [float(r.abs().max()) for r in refs]
+        if M == 1:
+            scales[:2] = [scales[2]] * 2
+        row = dict(shape=(f"B{B} H{H} Hkv{Hkv} N{N} M{M} dh{dh} "
+                          f"{'causal' if causal else 'full'}"),
+                   out_rel_err=rel_err(out, ref_out),
+                   row_rel_err=row_rel_err(out, ref_out),
+                   lse_err=max_err(lse, ref_lse),
+                   grad_rel_err=[max_err(a, r) / sc
+                                 for a, r, sc in zip(got, refs, scales)],
+                   **sdpa_out_errs(torch, q, k, v, ref_out, causal))
+        rows.append(row)
+        if not (row["out_rel_err"] <= OUT_REL_TOL
+                and row["row_rel_err"] <= ROW_REL_TOL
+                and row["lse_err"] <= LSE_TOL
+                and all(e <= BWD_REL_TOL for e in row["grad_rel_err"])):
+            raise AssertionError(f"a flash kernel disagrees with its plain "
+                                 f"version at a ragged shape: {row}")
     return rows
 
 
@@ -1151,6 +1279,63 @@ def full_train_gate(torch, cfg, params, kstate, batch):
     return out
 
 
+def sdpa_attention(torch):
+    """A stand-in for `FlashAttention` that calls SDPA (causal on row
+    indices, GQA): the bf16 gate's yardstick, swapped in here only; the
+    port never calls SDPA."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return types.SimpleNamespace(apply=lambda q, k, v, causal: sdpa(
+        q, k, v, is_causal=causal, enable_gqa=True))
+
+
+def full_train_gate_bf16(torch, cfg, params, kstate, batch):
+    """qwen2's bf16 train step (dropout 0, the same bf16 weights) on three
+    paths, each against the plain path (loss and median leaf gradient
+    difference): the kernel path; as the yardstick, the plain path with
+    SDPA in place of the flash kernels (`sdpa_attention`); and the negative
+    control `first_query_head_only`. The kernel path's median must stay
+    within BF16_GATE_FACTOR times SDPA's, the control must exceed that
+    limit, and the kernel path run again must give the same gradients
+    (``repeat`` 0.0)."""
+    from repro_torch.configs import with_overrides
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_map
+    run = full_run_config(with_overrides(cfg, dropout=0.0), FULL_GATE_BATCH,
+                          FULL_GATE_SEQ)
+
+    def step(ctx=contextlib.nullcontext(), impl=None):
+        with ctx:
+            vg = value_and_grad(make_loss_fn(run, impl=impl))
+            (loss, _), grads = vg(params, kstate, batch, None)
+            torch.cuda.synchronize()
+        return float(loss), tree_map(lambda t: t.float(), grads)
+
+    lk, gk = step()
+    lp, gp = step(impl="torch")
+    ls, gs = step(swapped(KF, "FlashAttention", sdpa_attention(torch)))
+    _, gr = step()
+    _, gb = step(swapped(KF, "flash_attention_bwd", first_query_head_only))
+    limit = BF16_GATE_FACTOR * grad_agreement(gs, gp)["grad_rel_median"]
+    out = dict(loss_kernel=lk, loss_plain=lp, loss_sdpa=ls,
+               loss_diff=abs(lk - lp), sdpa_loss_diff=abs(ls - lp),
+               kernel=grad_agreement(gk, gp), sdpa=grad_agreement(gs, gp),
+               grad_median_limit=limit, repeat=grad_agreement(gr, gk),
+               first_head_only=grad_agreement(gb, gp),
+               shape=f"B{FULL_GATE_BATCH} x {FULL_GATE_SEQ}")
+    if out["kernel"]["grad_rel_median"] > limit:
+        raise AssertionError(f"bf16 kernel and plain qwen2 train steps "
+                             f"disagree by more than {BF16_GATE_FACTOR}x "
+                             f"SDPA's difference: {out}")
+    if out["repeat"]["grad_rel_max"] != 0.0:
+        raise AssertionError(f"the bf16 qwen2 kernel path differs from "
+                             f"itself on the same inputs: {out}")
+    if out["first_head_only"]["grad_rel_median"] <= limit:
+        raise AssertionError(f"the qwen2 bf16 gate passes a broken "
+                             f"backward: {out}")
+    return out
+
+
 def layer_counts(cfg) -> dict:
     """How many layers of ``cfg`` have local heads, routing heads and full
     attention (a local+routing layer counts in the first two)."""
@@ -1422,9 +1607,18 @@ def main(argv=None) -> int:
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
     t = phase("build", t)
     for name, log in common.BUILD_LOGS.items():
+        entry = ""
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
+            entry = line if "Compiling entry function" in line else entry
+            # the bf16 flash forward keeps its accumulators in registers
+            if "flash_fwd_wgmma" in entry and any(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                raise AssertionError(f"flash_fwd_wgmma spills: {line}")
+    if "flash_attention" not in common.BUILD_LOGS:
+        raise AssertionError("no nvcc log of flash_attention: its spill "
+                             "check cannot run")
     print_dynamic_smem()
 
     cfg = get_config(ARCH)
@@ -1452,6 +1646,9 @@ def main(argv=None) -> int:
         "routing_decode": check_decode(torch, cfg, B2, N2 + T2, gen),
     }
     wide_rows = check_flash(torch, *WIDE_FLASH, torch.float32, gen)
+    wide_bf16_rows = check_flash(torch, *WIDE_FLASH, torch.bfloat16, gen)
+    flash_edges = check_flash_edges(torch, gen)
+    print(f"flash edges {json.dumps(flash_edges)}", flush=True)
     gathered_rows = {
         "rt-enwik8": check_gathered(
             torch, 1, head_split(cfg)[1], cfg.routing.num_clusters,
@@ -1463,6 +1660,7 @@ def main(argv=None) -> int:
     for shape_rows in (kern_rows, long_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
+    print_rows(wide_bf16_rows)
     t = phase("kernels", t)
 
     # rt-enwik8: serve, then train
@@ -1504,6 +1702,10 @@ def main(argv=None) -> int:
     full_gate = full_train_gate(torch, fcfg, fparams, fkstate, gate_batch)
     print(f"train_full fp32 gate {json.dumps(full_gate)}", flush=True)
     t = phase("train_full gate", t)
+    full_gate_bf16 = full_train_gate_bf16(torch, fcfg, fparams, fkstate,
+                                          gate_batch)
+    print(f"train_full bf16 gate {json.dumps(full_gate_bf16)}", flush=True)
+    t = phase("train_full bf16 gate", t)
     frun = full_run_config(fcfg, FULL_BATCH, FULL_SEQ)
     fbatches = train_batches(torch, fvocab, FULL_BATCH, FULL_SEQ,
                              TRAIN_STEPS)
@@ -1605,6 +1807,8 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(dict(
             card=card, kernels=kernels, long_prompt_kernels=long_rows,
             wide_head_kernels=wide_rows, gathered_kernels=gathered_rows,
+            wide_head_bf16_kernels=wide_bf16_rows, flash_edges=flash_edges,
+            train_full_gate_bf16=full_gate_bf16,
             serving=serving_rows, train_gate=gate,
             train_gathered_gate=gathered_gate, train=train_row,
             train_full_gate=full_gate, train_full=full_row,

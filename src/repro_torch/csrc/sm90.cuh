@@ -1,0 +1,399 @@
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels (today
+// the bf16 flash forward, flash_attention.cu): mbarriers, TMA tile loads
+// from a tensor map, a ring of stages that TMA fills and warpgroups
+// consume, the wgmma shared-memory descriptor of the 128-byte swizzle, and
+// the bf16 `wgmma` instructions (fp32 accumulators) in SS form (A and B
+// from shared memory, m64n128k16) and RS form (A from registers, m64n64k16
+// and m64n128k16). Raw PTX, so a source that includes this header builds
+// in seconds.
+//
+// Tiles: a tensor map cuts a (rows, dh) bf16 plane into boxes of 64
+// columns (128 bytes, the widest box the 128-byte swizzle takes) by R
+// rows; a box lands in shared memory as R rows of 128 bytes, 1024-byte
+// aligned, swizzled in atoms of 8 rows. A head of 128 columns is two
+// boxes, one after the other.
+//
+// wgmma reads such a box in two ways (the descriptor's fields are in
+// 16-byte units):
+// - K-major (the reduction runs along the row): 8-row groups 1024 bytes
+//   apart (SBO); the k16 slice kk of a box starts kk * 32 bytes in.
+// - MN-major (the reduction runs down the rows; the transpose bit): 8-row
+//   groups 1024 bytes apart (SBO), 64-column groups one box apart (LBO);
+//   the k16 slice kk starts kk * 16 rows = kk * 2048 bytes in.
+//
+// Fragments (m64nNk16, fp32 accumulator): thread t of the warpgroup holds
+// rows r = 16 * (t / 32) + (t % 32) / 4 and r + 8; register 4j + e is
+// (r, 8j + 2(t % 4) + e), register 4j + 2 + e is (r + 8, same column).
+// The bf16 A fragment of an RS k16 slice c is the accumulator's columns
+// 16c .. 16c + 15 packed in pairs: registers 8c .. 8c + 7 in order
+// (`pack_a`).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int WG = 128;                  // threads of a warpgroup
+constexpr int BOX_COLS = 64;             // bf16 columns of one box (128 B)
+constexpr int ROW_BYTES = 128;           // bytes of one box row
+constexpr uint32_t ATOM_BYTES = 1024;    // 8 rows x 128 B: one swizzle atom
+constexpr int RING_STAGES = 2;           // stages of a kernel's TMA ring
+constexpr int BLOCK_THREADS = 2 * WG;    // two consumer warpgroups a block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces ``bytes`` of TMA transfers to come.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spins until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A ring of shared-memory stages that TMA fills
+// ---------------------------------------------------------------------------
+// A block of BLOCK_THREADS keeps one set of tiles resident (loaded once,
+// counted on its own barrier) and walks the others through the ring: tile
+// j of the walk lands in stage j % RING_STAGES. Thread 0 of the block is
+// the producer: a kernel's load(j) takes the barrier `produce` returns
+// (once the stage's previous tile is released) for its TMA loads. Each
+// consumer warpgroup waits for tile j with `wait`; `advance` releases the
+// stage and has thread 0 load the tile that takes it next.
+struct Ring {
+  static constexpr int S = RING_STAGES;
+  uint64_t full[S], empty[S];
+
+  // The whole block: thread 0 initialises ``resident`` (one arrival, with
+  // the resident tiles' bytes) and the ring (one release per warpgroup);
+  // then the block syncs.
+  __device__ __forceinline__ void init(uint64_t* resident) {
+    if (threadIdx.x == 0) {
+      mbar_init(resident, 1);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], BLOCK_THREADS / WG);
+      }
+      fence_barrier_init();
+    }
+    __syncthreads();
+  }
+  // Thread 0: the first tiles of a walk of ``ntiles``, one per stage.
+  template <typename Load>
+  __device__ __forceinline__ void prime(int ntiles, Load load) {
+    for (int j = 0; j < min(S, ntiles); ++j) load(j);
+  }
+  __device__ __forceinline__ uint64_t* produce(int j, uint32_t bytes) {
+    const int s = j % S;
+    if (j >= S) mbar_wait(&empty[s], (j / S - 1) & 1);
+    mbar_expect_tx(&full[s], bytes);
+    return &full[s];
+  }
+  __device__ __forceinline__ void wait(int j) {
+    mbar_wait(&full[j % S], (j / S) & 1);
+  }
+  // Every thread, once its warpgroup is done with tile j of ``ntiles``.
+  template <typename Load>
+  __device__ __forceinline__ void advance(int j, int ntiles, Load load) {
+    if (threadIdx.x % WG == 0) mbar_arrive(&empty[j % S]);
+    if (threadIdx.x == 0 && j + S < ntiles) load(j + S);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+// The box of ``map`` at coordinates (c0 column, c1 row, c2 plane) into
+// shared memory at ``dst``; completion is counted on ``bar``. Rows past the
+// plane's end arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+// Descriptor of a 128-byte-swizzled tile in shared memory (1024-byte
+// aligned); ``lbo`` and ``sbo`` in bytes.
+__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = (smem_u32(smem) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;   // layout: 128-byte swizzle
+  return d;
+}
+
+// A K-major operand's k16 slice ``kk`` of a tile stored as boxes of
+// ``box_bytes`` each (dh / 64 boxes of 64 columns).
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int kk,
+                                           uint32_t box_bytes) {
+  const char* p = static_cast<const char*>(tile) + (kk / 4) * box_bytes +
+                  (kk % 4) * 32;
+  return desc_sw128(p, 16, ATOM_BYTES);
+}
+
+// An MN-major operand's k16 slice ``kk`` (rows 16kk .. 16kk + 15) of a tile
+// stored as boxes of ``box_bytes`` each.
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk,
+                                            uint32_t box_bytes) {
+  const char* p = static_cast<const char*>(tile) + kk * 16 * ROW_BYTES;
+  return desc_sw128(p, box_bytes, ATOM_BYTES);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
+               : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of ``r`` across an
+// asynchronous wgmma that uses them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The RS A fragments of an fp32 accumulator of R registers (R / 8 k16
+// slices), rounded to bf16.
+template <int R>
+__device__ __forceinline__ void pack_a(const float (&d)[R],
+                                       uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < R / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[c][i] = pack_bf16(d[8 * c + 2 * i], d[8 * c + 2 * i + 1]);
+}
+
+// D (64 x 128) (+)= A (64 x 16) . B (16 x 128), both from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64) (+)= A (64 x 16, registers) . B (16 x 64), B from shared
+// memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// D (64 x 128) (+)= A (64 x 16, registers) . B (16 x 128), B from shared
+// memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up at run time, so the
+// library needs no -lcuda. cudaGetDriverEntryPointByVersion needs CUDA 12.5
+// or later.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a bf16 tensor (planes, rows, dh), contiguous, in boxes of 64
+// columns by ``box_rows`` rows of one plane, 128-byte swizzled; rows past a
+// plane's end read as zeros. Returns a cudaError_t code.
+inline int map_rows(CUtensorMap* map, const void* base, int planes, int rows,
+                    int dh, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(dh) * 2,
+      static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(dh) * 2};
+  const cuuint32_t box[3] = {BOX_COLS, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<void*>(base), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A struct of tiles in dynamic shared memory, placed at the first 1024-byte
+// boundary (the swizzle atoms need it): the bytes to ask for, and the place.
+template <typename Sm>
+constexpr size_t aligned_smem_bytes() {
+  return sizeof(Sm) + 1024;
+}
+template <typename Sm>
+__device__ __forceinline__ Sm& aligned_smem(unsigned char* raw) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(raw);
+  return *reinterpret_cast<Sm*>((a + 1023) & ~uintptr_t(1023));
+}
+
+}  // namespace sm90

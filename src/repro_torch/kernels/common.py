@@ -86,12 +86,16 @@ BUILD_LOGS: Dict[str, str] = {}
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every named source that has no current library, one nvcc
-    process per source, all started together. Returns name -> library."""
+    process per source, all started together. Returns name -> library.
+    Each library's nvcc log is kept beside it and read into ``BUILD_LOGS``
+    also when the library is current."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {n: _lib_path(n) for n in names}
     procs = {}
     for n, lib in libs.items():
         if lib.exists():
+            if lib.with_suffix(".log").exists():
+                BUILD_LOGS[n] = lib.with_suffix(".log").read_text()
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (subprocess.Popen(_nvcc_cmd(n, tmp), stdout=subprocess.PIPE,
@@ -104,6 +108,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{n}:\n{log}")
             continue
+        libs[n].with_suffix(".log").write_text(log)
         os.replace(tmp, libs[n])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

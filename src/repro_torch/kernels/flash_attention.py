@@ -10,6 +10,17 @@ mask compares row indices (query row i sees key rows j <= i, also when
 M != N), as the TPU kernel does. Any N, M >= 1. Every wrapper sends a CPU
 tensor to its plain PyTorch version (``core/attention.py``) and launches
 its kernel on a CUDA tensor, or raises.
+
+All three kernels do 4 to 8 * dh flops per attended pair on inputs read
+once, far above the card's bf16 ridge, so the tensor cores bound them. The
+dtype alone picks the forward's design: in bf16 it runs ``wgmma`` on tiles
+that TMA loads (``csrc/sm90.cuh``), with the softmax in fp32 and P rounded
+to bf16 as the operand of P V; in fp32 it keeps the FMA tile `FlashTile`
+shared with the local-window and routing kernels, whose products stay full
+fp32, as PyTorch's fp32 matmul does (no TF32). The dq and dk/dv kernels run
+the FMA tiles in both dtypes. TMA needs 16-byte aligned bases and row
+strides: the wrappers take contiguous, 16-byte aligned tensors (checked),
+and dh 64 or 128 gives rows of 128 or 256 bytes in bf16.
 """
 from __future__ import annotations
 
@@ -31,8 +42,12 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def flash_attention_plain(q, k, v, causal: bool = True):
-    """The plain PyTorch version of the forward kernel: (out, lse)."""
-    return ref.full_attention(q, k, v, causal, return_lse=True)
+    """The plain PyTorch version of the forward kernel: (out in q's dtype,
+    lse in at least fp32). It computes in at least fp32 and rounds only
+    the output, as the TPU kernel does (it upcasts q, k and v)."""
+    out, lse = ref.full_attention(upcast(q), upcast(k), upcast(v), causal,
+                                  return_lse=True)
+    return out.to(q.dtype), lse
 
 
 # the plain PyTorch versions of the two backward kernels
