@@ -23,9 +23,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    time of the same call without the causal mask;
    the flash kernels also in bf16 at head dim 128, and all three in bf16
    at the shapes their 128-row tiles make ragged (`FLASH_EDGES`), each
-   bf16 forward row reporting SDPA's own error against the same fp32
-   plain version beside its own; the ptxas lines of the bf16 flash
-   forward on the tensor cores must show no spills;
+   bf16 row reporting SDPA's own error (forward, and dq, dk and dv)
+   against the same fp32 plain version beside its own; the ptxas lines of
+   the bf16 flash kernels on the tensor cores (forward, dq, dk/dv) must
+   show no spills;
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -180,6 +181,18 @@ MAX_MEDIAN_DIFF_FP32 = 1e-2
 # same bf16 inputs and the same lse and D): only the order of fp32 sums
 # differs, so a tenth of a percent of the largest reference value
 BWD_REL_TOL = 1e-3
+# the flash backward also row by row (`grad_row_errs`): |d - ref| / |ref|
+# over each query row of dq and each key row of dk and dv (2-norms over the
+# head dim). BWD_REL_TOL is set by the largest value, which an early row
+# holds; under causality a late key row's dk and dv sum a few P ~ 1/N terms
+# and read ~1e-4..1e-5 of it, so a fault there (the last key row left
+# unwritten, a wrong diagonal mask, a stale query tile) can stay under that
+# limit while it moves the row by ~100%. P and dS as hi + lo bf16 pairs
+# read ~6e-6 a row in fp32 sums (tests/test_torch_flash_bwd_split.py) and
+# up to ~2.5e-5 with the tensor cores' own accumulation on the card; one
+# bf16 value each, as SDPA rounds them, 3-4.5e-3 (SDPA is read beside each
+# bf16 row)
+BWD_ROW_REL_TOL = 1e-3
 # fp32 train step, kernel path vs plain path (same weights, dropout 0, the
 # plain path fed the kernel path's cluster membership): the loss, and the
 # median over parameter leaves of |g_kernel - g_plain| / |g_plain|. Left to
@@ -337,12 +350,15 @@ def print_dynamic_smem() -> None:
         print(f"  dynamic smem per block, dh {dh}: forward tile {fwd(dh)} "
               f"B, dq tile {bwd(dh, 0)} B, dk/dv tile {bwd(dh, 1)} B; "
               f"decode (cap + 1) * 4 B")
-    # the bf16 flash forward runs on the tensor cores with tiles of its own
+    # the bf16 flash kernels run on the tensor cores with tiles of their own
     fwd_tc = common.load("flash_attention", "flash_fwd_wgmma_smem_bytes",
                          [ctypes.c_int])
+    bwd_tc = common.load("flash_attention_bwd", "flash_bwd_wgmma_smem_bytes",
+                         [ctypes.c_int, ctypes.c_int])
     for dh in (64, 128):
-        print(f"  dynamic smem per block, dh {dh}: bf16 flash forward "
-              f"(wgmma + TMA) {fwd_tc(dh)} B")
+        print(f"  dynamic smem per block, dh {dh}: bf16 flash (wgmma + TMA) "
+              f"forward {fwd_tc(dh)} B, dq {bwd_tc(dh, 0)} B, dk/dv "
+              f"{bwd_tc(dh, 1)} B")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -636,8 +652,16 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
     args32 = (*f32, lse, dsum)
     ref_dq = K.flash_attention_bwd_dq_plain(*args32)
     ref_dk, ref_dv = K.flash_attention_bwd_dkv_plain(*args32)
-    sdpa_out = (sdpa_out_errs(torch, q, k, v, ref_out, True)
-                if dtype == torch.bfloat16 else {})
+    grad_row = grad_row_errs((dq, dk, dv), (ref_dq, ref_dk, ref_dv), True)
+    if max(grad_row) > BWD_ROW_REL_TOL:
+        raise AssertionError(f"a flash backward kernel disagrees with its "
+                             f"plain version in a row: {grad_row}")
+    bf16 = dtype == torch.bfloat16
+    sdpa_out = sdpa_out_errs(torch, q, k, v, ref_out, True) if bf16 else {}
+    sdpa_grad = (sdpa_grad_errs(torch, q, k, v, do, (ref_dq, ref_dk, ref_dv),
+                                True) if bf16 else None)
+    fp64 = (fp64_grad_errs(K, args, (dq, dk, dv), (ref_dq, ref_dk, ref_dv))
+            if bf16 else None)
     out_rel = rel_err(out, ref_out)
     del ref_out, ref_lse
 
@@ -673,6 +697,18 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
         lib_bwd, nbytes(q, k, v, do, lse, dsum),
         ((nbytes(dq), 6 * dh * pairs), (nbytes(dk, dv), 8 * dh * pairs)),
         shape))
+    rows["flash_attention_bwd_dq"]["grad_row_rel_err"] = grad_row[:1]
+    rows["flash_attention_bwd_dkv"]["grad_row_rel_err"] = grad_row[1:]
+    if sdpa_grad:
+        for name, part in (("flash_attention_bwd_dq", slice(0, 1)),
+                           ("flash_attention_bwd_dkv", slice(1, 3))):
+            rows[name].update(
+                {key: val[part] for key, val in sdpa_grad.items()},
+                **{key: val[part] for key, val in fp64.items()})
+        rows["flash_attention_bwd_dq"]["grad_rel_err"] = [
+            rel_err(dq, ref_dq)]
+        rows["flash_attention_bwd_dkv"]["grad_rel_err"] = [
+            rel_err(dk, ref_dk), rel_err(dv, ref_dv)]
     out_d, lse_d = K.flash_attention(q, k, v, False)
     dense = (q, k, v, do, lse_d, row_dot(do, out_d), False)
     for name, fn in (("flash_attention_bwd_dq", K.flash_attention_bwd_dq),
@@ -700,6 +736,28 @@ def row_rel_err(a, ref) -> float:
                   / ref.norm(dim=-1).clamp_min(1e-30)).max())
 
 
+def grad_row_errs(got, refs, causal) -> list:
+    """The largest |g - ref| / |ref| over each query row of dq and each key
+    row of dk and dv (2-norms over the head dim). A row whose gradient is
+    zero in exact arithmetic reads fp32 rounding over itself, so it is
+    scaled by dv's largest row instead, as `grad_scales` scales M = 1: dq
+    of a query row that sees a single key (row 0 under causality; every
+    row when M = 1) and every row of dk when M = 1. Rows that no query sees
+    are zero in both and read 0."""
+    M = refs[1].shape[-2]
+    dv_row = float(refs[2].float().norm(dim=-1).max())
+    zero = (slice(None) if M == 1 else slice(0, int(causal)),
+            slice(None) if M == 1 else slice(0, 0), slice(0, 0))
+    errs = []
+    for g, r, z in zip(got, refs, zero):
+        r = r.float()
+        den = r.norm(dim=-1)
+        den[..., z] = dv_row
+        errs.append(float(((g.float() - r).norm(dim=-1)
+                           / den.clamp_min(1e-30)).max()))
+    return errs
+
+
 def sdpa_out_errs(torch, q, k, v, ref_out, causal) -> dict:
     """SDPA's own error on the same bf16 inputs (causal on row indices,
     GQA) against the fp32 plain output ``ref_out``, relative to its largest
@@ -710,15 +768,63 @@ def sdpa_out_errs(torch, q, k, v, ref_out, causal) -> dict:
                 sdpa_row_rel_err=row_rel_err(out, ref_out))
 
 
+def grad_scales(refs, M) -> list:
+    """The largest |value| of each of dq, dk, dv; with a single key (M = 1)
+    dq and dk are zero in exact arithmetic (a softmax over one key has no
+    gradient) and read as fp32 rounding, so dv's is taken for them."""
+    scales = [float(r.abs().max()) for r in refs]
+    if M == 1:
+        scales[:2] = [scales[2]] * 2
+    return scales
+
+
+def fp64_grad_errs(K, args, got, refs) -> dict:
+    """The kernel's dq, dk and dv (``got``) and the fp32 plain version's
+    (``refs``) on batch 0 against the plain version run in fp64 on the same
+    inputs, lse and D, each over the largest fp64 value: whether the
+    kernel's distance from the fp32 plain version is its own or the fp32
+    plain version's order of sums. Causal; context, never a limit."""
+    a64 = [t[:1].double() for t in args]
+    r64 = (K.flash_attention_bwd_dq_plain(*a64),
+           *K.flash_attention_bwd_dkv_plain(*a64))
+
+    def errs(xs):
+        return [float((x[:1].double() - r).abs().max() / r.abs().max())
+                for x, r in zip(xs, r64)]
+    return dict(kernel_vs_fp64=errs(got), plain_vs_fp64=errs(refs))
+
+
+def sdpa_grad_errs(torch, q, k, v, do, refs, causal) -> dict:
+    """SDPA's own dq, dk and dv on the same bf16 inputs (causal on row
+    indices, GQA) against the fp32 plain gradients ``refs`` (dk and dv per
+    query head, group-summed here), each relative to its largest reference
+    value (`grad_scales`) and row by row (`grad_row_errs`): context for a
+    bf16 backward row, never a limit. SDPA rounds P and dS to bf16 as its
+    products' operands."""
+    from repro_torch.kernels import common
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=causal, enable_gqa=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    Hkv = k.shape[1]
+    refs = (refs[0], *(common.group_sum(r, Hkv) for r in refs[1:]))
+    return dict(
+        sdpa_grad_rel_err=[max_err(g, r) / sc for g, r, sc in zip(
+            grads, refs, grad_scales(refs, k.shape[2]))],
+        sdpa_grad_row_rel_err=grad_row_errs(grads, refs, causal))
+
+
 def check_flash_edges(torch, gen) -> list:
     """The three flash kernels in bf16 at FLASH_EDGES, each against its
     plain version in fp32 on the same inputs: out within OUT_REL_TOL of its
     largest reference value and within ROW_REL_TOL in every row, lse within
     LSE_TOL; dq, dk and dv within BWD_REL_TOL of their largest reference
-    values. With a single key (M = 1) dq and dk are zero in exact
-    arithmetic (a softmax over one key has no gradient) and both read as
-    fp32 rounding, so they are scaled by dv's largest reference value
-    instead. SDPA's own forward error is reported beside each row."""
+    values and within BWD_ROW_REL_TOL in every row. With a single key
+    (M = 1) dq and dk are zero in exact arithmetic (a softmax over one key
+    has no gradient) and both read as fp32 rounding, so they are scaled by
+    dv's largest reference value instead (row by row, by dv's largest row:
+    `grad_row_errs`). SDPA's own errors (forward, dq, dk, dv) are reported
+    beside each row."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.core import row_dot
     rows = []
@@ -736,9 +842,7 @@ def check_flash_edges(torch, gen) -> list:
         args32 = (*f32, *args[4:])
         refs = (K.flash_attention_bwd_dq_plain(*args32),
                 *K.flash_attention_bwd_dkv_plain(*args32))
-        scales = [float(r.abs().max()) for r in refs]
-        if M == 1:
-            scales[:2] = [scales[2]] * 2
+        scales = grad_scales(refs, M)
         row = dict(shape=(f"B{B} H{H} Hkv{Hkv} N{N} M{M} dh{dh} "
                           f"{'causal' if causal else 'full'}"),
                    out_rel_err=rel_err(out, ref_out),
@@ -746,12 +850,15 @@ def check_flash_edges(torch, gen) -> list:
                    lse_err=max_err(lse, ref_lse),
                    grad_rel_err=[max_err(a, r) / sc
                                  for a, r, sc in zip(got, refs, scales)],
-                   **sdpa_out_errs(torch, q, k, v, ref_out, causal))
+                   grad_row_rel_err=grad_row_errs(got, refs, causal),
+                   **sdpa_out_errs(torch, q, k, v, ref_out, causal),
+                   **sdpa_grad_errs(torch, q, k, v, do, refs, causal))
         rows.append(row)
         if not (row["out_rel_err"] <= OUT_REL_TOL
                 and row["row_rel_err"] <= ROW_REL_TOL
                 and row["lse_err"] <= LSE_TOL
-                and all(e <= BWD_REL_TOL for e in row["grad_rel_err"])):
+                and all(e <= BWD_REL_TOL for e in row["grad_rel_err"])
+                and max(row["grad_row_rel_err"]) <= BWD_ROW_REL_TOL):
             raise AssertionError(f"a flash kernel disagrees with its plain "
                                  f"version at a ragged shape: {row}")
     return rows
@@ -1606,19 +1713,28 @@ def main(argv=None) -> int:
     t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
     t = phase("build", t)
+    # the bf16 flash kernels on the tensor cores keep their accumulators
+    # in registers
+    no_spill = {"flash_attention": ("flash_fwd_wgmma",),
+                "flash_attention_bwd": ("flash_bwd_dq_wgmma",
+                                        "flash_bwd_dkv_wgmma")}
+    seen = set()
     for name, log in common.BUILD_LOGS.items():
         entry = ""
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
             entry = line if "Compiling entry function" in line else entry
-            # the bf16 flash forward keeps its accumulators in registers
-            if "flash_fwd_wgmma" in entry and any(
-                    int(n) for n in re.findall(r"(\d+) bytes spill", line)):
-                raise AssertionError(f"flash_fwd_wgmma spills: {line}")
-    if "flash_attention" not in common.BUILD_LOGS:
-        raise AssertionError("no nvcc log of flash_attention: its spill "
-                             "check cannot run")
+            spills = re.findall(r"(\d+) bytes spill", line)
+            for fn in no_spill.get(name, ()):
+                if fn in entry and spills:
+                    seen.add(fn)
+                    if any(int(n) for n in spills):
+                        raise AssertionError(f"{fn} spills: {line}")
+    missing = {fn for fns in no_spill.values() for fn in fns} - seen
+    if missing:
+        raise AssertionError(f"no ptxas lines of {sorted(missing)} in the "
+                             f"nvcc logs: their spill check cannot run")
     print_dynamic_smem()
 
     cfg = get_config(ARCH)

@@ -1,11 +1,13 @@
-// Hopper (sm_90a) building blocks of the port's tensor-core kernels (today
-// the bf16 flash forward, flash_attention.cu): mbarriers, TMA tile loads
-// from a tensor map, a ring of stages that TMA fills and warpgroups
-// consume, the wgmma shared-memory descriptor of the 128-byte swizzle, and
-// the bf16 `wgmma` instructions (fp32 accumulators) in SS form (A and B
-// from shared memory, m64n128k16) and RS form (A from registers, m64n64k16
-// and m64n128k16). Raw PTX, so a source that includes this header builds
-// in seconds.
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels (the
+// bf16 flash forward, flash_attention.cu, and backward,
+// flash_attention_bwd.cu): mbarriers, a warpgroup's named barrier, TMA
+// tile loads from a tensor map, a ring of stages that TMA fills and
+// warpgroups consume, the wgmma shared-memory descriptor of the 128-byte
+// swizzle, and the bf16 `wgmma` instructions (fp32 accumulators) in SS form
+// (A and B from shared memory, both K-major, m64n32k16, m64n64k16 and
+// m64n128k16) and RS form (A from registers, B MN-major, m64n64k16 and
+// m64n128k16). Raw PTX, so a source that includes this header builds in
+// seconds.
 //
 // Tiles: a tensor map cuts a (rows, dh) bf16 plane into boxes of 64
 // columns (128 bytes, the widest box the 128-byte swizzle takes) by R
@@ -26,7 +28,9 @@
 // (r, 8j + 2(t % 4) + e), register 4j + 2 + e is (r + 8, same column).
 // The bf16 A fragment of an RS k16 slice c is the accumulator's columns
 // 16c .. 16c + 15 packed in pairs: registers 8c .. 8c + 7 in order
-// (`pack_a`).
+// (`pack_a`), or as two: its bf16 rounding and the bf16 rounding of what
+// that leaves (`pack_a_split`), whose two products sum to the fp32 value's
+// product within ~2^-16 of it.
 #pragma once
 
 #include <cuda.h>
@@ -91,6 +95,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// The 128 threads of one warpgroup wait for each other (barrier ``id``,
+// 1..15; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -235,6 +245,64 @@ __device__ __forceinline__ void pack_a(const float (&d)[R],
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       a[c][i] = pack_bf16(d[8 * c + 2 * i], d[8 * c + 2 * i + 1]);
+}
+
+// The same, with the value x of each element as two bf16 fragments:
+// hi = bf16(x) and lo = bf16(x - hi).
+template <int R>
+__device__ __forceinline__ void pack_a_split(const float (&d)[R],
+                                             uint32_t (&hi)[R / 8][4],
+                                             uint32_t (&lo)[R / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < R / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = d[8 * c + 2 * i], x1 = d[8 * c + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[c][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[c][i] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+}
+
+// D (64 x 32) (+)= A (64 x 16) . B (16 x 32), both from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64) (+)= A (64 x 16) . B (16 x 64), both from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // D (64 x 128) (+)= A (64 x 16) . B (16 x 128), both from shared memory,

@@ -13,14 +13,18 @@ its kernel on a CUDA tensor, or raises.
 
 All three kernels do 4 to 8 * dh flops per attended pair on inputs read
 once, far above the card's bf16 ridge, so the tensor cores bound them. The
-dtype alone picks the forward's design: in bf16 it runs ``wgmma`` on tiles
-that TMA loads (``csrc/sm90.cuh``), with the softmax in fp32 and P rounded
-to bf16 as the operand of P V; in fp32 it keeps the FMA tile `FlashTile`
-shared with the local-window and routing kernels, whose products stay full
-fp32, as PyTorch's fp32 matmul does (no TF32). The dq and dk/dv kernels run
-the FMA tiles in both dtypes. TMA needs 16-byte aligned bases and row
-strides: the wrappers take contiguous, 16-byte aligned tensors (checked),
-and dh 64 or 128 gives rows of 128 or 256 bytes in bf16.
+dtype alone picks each kernel's design. In bf16 all three run ``wgmma`` on
+tiles that TMA loads (``csrc/sm90.cuh``), with the softmax and the
+backward's P and dS in fp32 on the accumulators: the forward rounds P to
+bf16 as the operand of P V, as SDPA does; the dq and dk/dv kernels feed P
+and dS to their products as hi + lo bf16 pairs, which keeps dq, dk and dv
+within a few 1e-5 of their largest fp32 value, where one bf16 value each
+would put them 1.4-2.6e-3 off (chip_smoke.py allows 1e-3). In fp32 they
+keep the FMA tiles (`FlashTile`, `DqTile`, `DkvTile`) shared with the
+local-window and routing kernels, whose products stay full fp32, as
+PyTorch's fp32 matmul does (no TF32). TMA needs 16-byte aligned bases and
+row strides: the wrappers take contiguous, 16-byte aligned tensors
+(checked), and dh 64 or 128 gives rows of 128 or 256 bytes in bf16.
 """
 from __future__ import annotations
 
