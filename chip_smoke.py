@@ -24,9 +24,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the flash kernels also in bf16 at head dim 128, and all three in bf16
    at the shapes their 128-row tiles make ragged (`FLASH_EDGES`), each
    bf16 row reporting SDPA's own error (forward, and dq, dk and dv)
-   against the same fp32 plain version beside its own; the ptxas lines of
-   the bf16 flash kernels on the tensor cores (forward, dq, dk/dv) must
-   show no spills;
+   against the same fp32 plain version beside its own; the gathered
+   kernels' dq, dk and dv also row by row under their position mask, each
+   row of dq and dk allowed twice its probabilistic fp32 rounding floor
+   (`gathered_grad_row_errs`), and all three in bf16 at the w their tiles
+   make ragged (`GATHERED_EDGES`: causal shared-QK, causal separate-QK
+   with queries that see no key, non-causal with a cluster all padding),
+   SDPA's backward errors beside each bf16 row, the bf16 gathered
+   backward also against fp64 and timed in a CUDA graph (`graph_ms`); the
+   ptxas lines of the bf16 kernels on the tensor cores (flash forward,
+   dq, dk/dv; gathered dq, dk/dv) must show no spills;
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -147,6 +154,17 @@ ENWIK8_GATHERED_GATE_BATCH = 1
 # the gathered kernels in fp32, non-causal, separate keys, padded keys, w
 # not a multiple of the tiles: (B, H, k, w, dh)
 GATHERED_RAGGED = (1, 2, 8, 200, 64)
+# the gathered kernels in bf16 at the w their 128-row blocks and 64- (32-)
+# row tiles make ragged, (B, H, k, w, dh, causal, shared): each w and dh
+# causal shared-QK (positions from balanced_topk, as the routing layers
+# make them), causal separate-QK (cluster 0's keys all after its queries,
+# so its queries see no key) and non-causal with padded keys (cluster 0
+# all padding). At w 1 every query keeps at most one key, so dq and dk are
+# zero in exact arithmetic (`gathered_grad_scales`)
+GATHERED_EDGES = tuple(
+    (1, 2, 3, w, dh, causal, shared) for w in (1, 63, 129, 200)
+    for dh in (64, 128)
+    for causal, shared in ((True, True), (True, False), (False, False)))
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -359,6 +377,12 @@ def print_dynamic_smem() -> None:
         print(f"  dynamic smem per block, dh {dh}: bf16 flash (wgmma + TMA) "
               f"forward {fwd_tc(dh)} B, dq {bwd_tc(dh, 0)} B, dk/dv "
               f"{bwd_tc(dh, 1)} B")
+    # the bf16 gathered backward runs the flash backward's bodies: the same
+    # dynamic tiles; its static shared memory (the staged positions) is in
+    # its ptxas line
+    for dh in (64, 128):
+        print(f"  dynamic smem per block, dh {dh}: bf16 gathered backward "
+              f"(wgmma + TMA) dq {bwd_tc(dh, 0)} B, dk/dv {bwd_tc(dh, 1)} B")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -374,6 +398,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """The time of one call of ``fn`` without the host between launches:
+    ``iters`` calls captured in a CUDA graph, replayed. A kernel whose
+    wrapper takes longer on the host than the kernel on the card reads
+    the host's time in `time_ms`; context, never a limit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, iters=5) / iters
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -865,13 +907,15 @@ def check_flash_edges(torch, gen) -> list:
 
 
 def gathered_inputs(torch, B, H, kc, w, dh, dtype, gen, causal=True,
-                    shared=True):
+                    shared=True, empty_cluster=False):
     """Gathered cluster blocks (n = B*H*kc, w, dh) and int32 positions for
     the gathered kernels. Causal shared-QK, as the routing layers make
     them: routing vectors of random q over N = kc*w tokens, their balanced
     top-w membership, the member rows and positions gathered. Otherwise
     random blocks with sorted positions, separate keys, and (non-causal)
-    about one padded key in seven at SENTINEL."""
+    about one padded key in seven at SENTINEL. With ``empty_cluster``,
+    cluster 0 keeps no key: its keys all come after its queries (causal) or
+    are all padding (non-causal)."""
     from repro_torch.core import routing as ref
     from repro_torch.core.kmeans import cluster_scores, normalize_routing
     from repro_torch.kernels import routing_gathered as KG
@@ -892,10 +936,141 @@ def gathered_inputs(torch, B, H, kc, w, dh, dtype, gen, causal=True,
     pos = lambda: torch.randint(0, 4 * w, (n, w), generator=gen,  # noqa
                                 device=DEVICE).sort(-1).values
     pqf, pkf = pos(), pos()
+    if empty_cluster and causal:
+        pkf[0] += 4 * w
     if not causal:
         pad = torch.rand((n, w), generator=gen, device=DEVICE) < 1 / 7
+        if empty_cluster:
+            pad[0] = True
         pkf = torch.where(pad, KG.SENTINEL, pkf)
     return qf, kf, vf, pqf.to(torch.int32), pkf.to(torch.int32)
+
+
+def gathered_keep(pqf, pkf, causal):
+    """The (n, w, w) bool mask of the gathered kernels (`_keep_mask`), as
+    their plain versions build it."""
+    from repro_torch.core.routing import block_keep
+    from repro_torch.kernels import routing_gathered as K
+    return block_keep(pqf, pkf, causal, pkf < K.SENTINEL)
+
+
+def gathered_zero_rows(keep):
+    """The rows whose gradient is zero in exact arithmetic: dq of a query
+    row that keeps at most one key (a softmax over one key has no
+    gradient), dk of a key row whose every keeping query keeps only it;
+    each (n, w) bool. dv has none (a row no query keeps is zero in both
+    the kernel and the plain version)."""
+    count = keep.sum(-1)
+    return count <= 1, ~(keep & (count[..., None] > 1)).any(-2)
+
+
+def gathered_grad_scales(refs, keep) -> list:
+    """The largest |value| of each of dq, dk, dv; dq or dk whose every row
+    is zero in exact arithmetic (`gathered_zero_rows`: at w 1, say) reads
+    fp32 rounding, so dv's largest value is taken for it, as
+    `grad_scales` does for one key."""
+    scales = [float(r.abs().max()) for r in refs]
+    for i, zero in enumerate(gathered_zero_rows(keep)):
+        if bool(zero.all()):
+            scales[i] = scales[2]
+    return scales
+
+
+def gathered_row_floors(torch, qf, kf, vf, do, lse, keep):
+    """The rounding floor of each query row of dq and each key row of dk
+    ((n, w) each): what fp32 sums of dh products move dP = dO V^T by
+    (|err| <~ sqrt(dh) u sum_d |do_d| |v_d|, u = 2^-24: Higham and Mary's
+    probabilistic bound of a dot product, with lambda = 1; the worst-case
+    bound has dh u in place of sqrt(dh) u and lets a row be off by as much
+    as a bf16 rounding of dS), carried through dS = P (dP - D) scale into
+    dq = dS K and dk = dS^T Q (2-norms over the head dim). Where a query
+    keeps little besides itself (shared-QK: a routing vector's score with
+    itself dominates its softmax), dP - D cancels, and dS and its rows of
+    dq and dk sit near this floor in exact arithmetic, so no fp32
+    computation, the plain version's included, resolves them."""
+    dh = qf.shape[-1]
+    q, k, v, g = (t.float() for t in (qf, kf, vf, do))
+    s = q @ k.transpose(-1, -2) / dh ** 0.5
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    # sqrt(dh) u for the dot product, times the softmax scale 1 / sqrt(dh)
+    a = p * (g.abs() @ v.abs().transpose(-1, -2)) * 2.0 ** -24
+    return ((a @ k.abs()).norm(dim=-1),
+            (a.transpose(-1, -2) @ q.abs()).norm(dim=-1))
+
+
+def gathered_grad_row_errs(got, refs, keep, floors=None) -> list:
+    """`grad_row_errs` under the gathered kernels' position mask ``keep``
+    (n, w, w): the largest |g - ref| / |ref| over each query row of dq and
+    each key row of dk and dv (2-norms over the head dim). A row whose
+    gradient is zero in exact arithmetic (`gathered_zero_rows`) reads fp32
+    rounding over itself, so it is scaled by dv's largest row instead; a
+    key row that no query keeps is zero in both and reads 0. With
+    ``floors`` (`gathered_row_floors`), a row of dq or dk is scaled by no
+    less than twice its rounding floor over BWD_ROW_REL_TOL: a row below
+    that is held to twice its floor (the kernel and the plain version each
+    within the floor of the exact value), since fp32 does not resolve it
+    (`gathered_fp64_grad_errs` reads the plain version against fp64 row by
+    row without floors)."""
+    dv_row = float(refs[2].float().norm(dim=-1).max())
+    zero = (*gathered_zero_rows(keep), None)
+    errs = []
+    for g, r, z, f in zip(got, refs, zero, (*(floors or (None,) * 2),
+                                            None)):
+        r = r.float()
+        den = r.norm(dim=-1)
+        if z is not None:
+            den = den.masked_fill(z, dv_row)
+        if f is not None:
+            den = den.maximum(2 * f / BWD_ROW_REL_TOL)
+        errs.append(float(((g.float() - r).norm(dim=-1)
+                           / den.clamp_min(1e-30)).max()))
+    return errs
+
+
+def gathered_sdpa_grad_errs(torch, qf, kf, vf, do, refs, keep,
+                            floors) -> dict:
+    """SDPA's own dq, dk and dv over the blocks with the bool ``keep`` mask,
+    on the same bf16 inputs, against the fp32 plain gradients ``refs``,
+    relative to their largest values (`gathered_grad_scales`) and row by
+    row (`gathered_grad_row_errs`): context for a bf16 backward row, never
+    a limit. Only clusters whose every query keeps a key (SDPA's softmax
+    over no key is not zero); with shared-QK dk and dv as the kernels
+    return them (dk of the blocks taken as keys)."""
+    full = keep.any(-1).all(-1)
+    if not bool(full.any()):
+        return {}
+    sel = [t[full] for t in (qf, kf, vf, do)]
+    leaves = [t.detach()[:, None].requires_grad_(True) for t in sel[:3]]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=keep[full][:, None])
+    grads = [g[:, 0] for g in torch.autograd.grad(out, leaves,
+                                                  sel[3][:, None])]
+    refs = [r[full] for r in refs]
+    k = keep[full]
+    return dict(
+        sdpa_grad_rel_err=[max_err(g, r) / sc for g, r, sc in zip(
+            grads, refs, gathered_grad_scales(refs, k))],
+        sdpa_grad_row_rel_err=gathered_grad_row_errs(
+            grads, refs, k, [f[full] for f in floors]))
+
+
+def gathered_fp64_grad_errs(K, args, got, refs, keep) -> dict:
+    """The kernel's dq, dk and dv (``got``) and the fp32 plain version's
+    (``refs``) against the plain version run in fp64 on the same inputs,
+    lse and D, each over the largest fp64 value and row by row without
+    rounding floors (`gathered_grad_row_errs`): whether the kernel's
+    distance from the fp32 plain version is its own or fp32's, and which
+    rows fp32 does not resolve at all; context, never a limit."""
+    a64 = [t.double() if t.is_floating_point() else t for t in args[:-1]]
+    r64 = (K.routed_attention_blocks_bwd_dq_plain(*a64, args[-1]),
+           *K.routed_attention_blocks_bwd_dkv_plain(*a64, args[-1]))
+
+    def errs(xs):
+        return [float((x.double() - r).abs().max() / r.abs().max())
+                for x, r in zip(xs, r64)]
+    return dict(kernel_vs_fp64=errs(got), plain_vs_fp64=errs(refs),
+                kernel_vs_fp64_rows=gathered_grad_row_errs(got, r64, keep),
+                plain_vs_fp64_rows=gathered_grad_row_errs(refs, r64, keep))
 
 
 def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
@@ -903,7 +1078,10 @@ def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
     """The three gathered kernels at one shape: each against its plain
     version in fp32 on the same inputs, timed beside the plain version (in
     ``dtype``) and SDPA over the blocks with the boolean keep mask
-    (forward; backward for all of dq, dk/dv)."""
+    (forward; backward for all of dq, dk/dv); dq, dk and dv also row by
+    row under the position mask (`gathered_grad_row_errs`) within
+    BWD_ROW_REL_TOL. A bf16 row also reports SDPA's own backward errors
+    and the kernel's and the plain version's against fp64."""
     from repro_torch.core import row_dot
     from repro_torch.kernels import routing_gathered as K
     qf, kf, vf, pqf, pkf = gathered_inputs(torch, B, H, kc, w, dh, dtype,
@@ -929,9 +1107,21 @@ def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
     ref_dk, ref_dv = K.routed_attention_blocks_bwd_dkv_plain(*args32)
     del ref_out, ref_lse
 
-    keep = pkf[:, None, :] < K.SENTINEL
-    if causal:
-        keep = keep & (pqf[:, :, None] >= pkf[:, None, :])
+    keep = gathered_keep(pqf, pkf, causal)
+    grads, refs = (dq, dk, dv), (ref_dq, ref_dk, ref_dv)
+    floors = gathered_row_floors(torch, qf, kf, vf, do, lse, keep)
+    grad_row = gathered_grad_row_errs(grads, refs, keep, floors)
+    if max(grad_row) > BWD_ROW_REL_TOL:
+        raise AssertionError(f"a gathered backward kernel disagrees with "
+                             f"its plain version in a row: {grad_row}")
+    bf16 = dtype == torch.bfloat16
+    report = {}
+    if bf16:
+        report = dict(
+            grad_rel_err=[rel_err(g, r) for g, r in zip(grads, refs)],
+            **gathered_sdpa_grad_errs(torch, qf, kf, vf, do, refs, keep,
+                                      floors),
+            **gathered_fp64_grad_errs(K, args, grads, refs, keep))
     pairs = float(keep.sum())
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = keep[:, None]
@@ -967,6 +1157,69 @@ def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
         lib_bwd, nbytes(*ins, do, lse, dsum),
         ((nbytes(dq), 6 * dh * pairs), (nbytes(dk, dv), 8 * dh * pairs)),
         shape))
+    for name, part, fn in (
+            ("routing_gathered_bwd_dq", slice(0, 1),
+             K.routed_attention_blocks_bwd_dq),
+            ("routing_gathered_bwd_dkv", slice(1, 3),
+             K.routed_attention_blocks_bwd_dkv)):
+        rows[name]["grad_row_rel_err"] = grad_row[part]
+        rows[name].update({key: val[part] for key, val in report.items()})
+        if bf16:
+            rows[name]["graph_ms"] = graph_ms(torch, lambda: fn(*args))
+    return rows
+
+
+def check_gathered_edges(torch, gen) -> list:
+    """The three gathered kernels in bf16 at GATHERED_EDGES, each against
+    its plain version in fp32 on the same inputs: out within OUT_REL_TOL of
+    its largest reference value and lse within LSE_TOL (as the forward is
+    held at every gathered row); dq, dk and dv within BWD_REL_TOL of their
+    largest reference values (`gathered_grad_scales`) and within
+    BWD_ROW_REL_TOL in every row (`gathered_grad_row_errs`). SDPA's own
+    backward errors are reported beside each row."""
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import routing_gathered as K
+    rows = []
+    for B, H, kc, w, dh, causal, shared in GATHERED_EDGES:
+        qf, kf, vf, pqf, pkf = gathered_inputs(
+            torch, B, H, kc, w, dh, torch.bfloat16, gen, causal, shared,
+            empty_cluster=True)
+        out, lse = K.routed_attention_blocks(qf, kf, vf, pqf, pkf, causal)
+        do = torch.randn(out.shape, generator=gen, device=DEVICE,
+                         dtype=torch.bfloat16)
+        args = (qf, kf, vf, pqf, pkf, do, lse, row_dot(do, out), causal)
+        got = (K.routed_attention_blocks_bwd_dq(*args),
+               *K.routed_attention_blocks_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (qf, kf, vf)]
+        if shared:
+            f32[1] = f32[0]
+        ref_out, ref_lse = K.routed_attention_blocks_plain(*f32, pqf, pkf,
+                                                           causal)
+        args32 = (*f32, pqf, pkf, do.float(), *args[6:])
+        refs = (K.routed_attention_blocks_bwd_dq_plain(*args32),
+                *K.routed_attention_blocks_bwd_dkv_plain(*args32))
+        keep = gathered_keep(pqf, pkf, causal)
+        scales = gathered_grad_scales(refs, keep)
+        floors = gathered_row_floors(torch, qf, kf, vf, do, lse, keep)
+        row = dict(shape=(f"B{B} H{H} k{kc} w{w} dh{dh} "
+                          f"{'causal' if causal else 'non-causal'} "
+                          f"{'shared-QK' if shared else 'separate-QK'}"),
+                   out_rel_err=rel_err(out, ref_out),
+                   lse_err=max_err(lse, ref_lse),
+                   grad_rel_err=[max_err(a, r) / sc
+                                 for a, r, sc in zip(got, refs, scales)],
+                   grad_row_rel_err=gathered_grad_row_errs(got, refs, keep,
+                                                           floors),
+                   **gathered_sdpa_grad_errs(torch, qf, kf, vf, do, refs,
+                                             keep, floors))
+        rows.append(row)
+        if not (row["out_rel_err"] <= OUT_REL_TOL
+                and row["lse_err"] <= LSE_TOL
+                and all(e <= BWD_REL_TOL for e in row["grad_rel_err"])
+                and max(row["grad_row_rel_err"]) <= BWD_ROW_REL_TOL):
+            raise AssertionError(f"a gathered kernel disagrees with its "
+                                 f"plain version at a ragged shape: {row}")
     return rows
 
 
@@ -1713,11 +1966,13 @@ def main(argv=None) -> int:
     t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
     t = phase("build", t)
-    # the bf16 flash kernels on the tensor cores keep their accumulators
-    # in registers
+    # the bf16 flash and gathered backward kernels on the tensor cores keep
+    # their accumulators in registers
     no_spill = {"flash_attention": ("flash_fwd_wgmma",),
                 "flash_attention_bwd": ("flash_bwd_dq_wgmma",
-                                        "flash_bwd_dkv_wgmma")}
+                                        "flash_bwd_dkv_wgmma"),
+                "routing_gathered_bwd": ("routing_gathered_dq_wgmma",
+                                         "routing_gathered_dkv_wgmma")}
     seen = set()
     for name, log in common.BUILD_LOGS.items():
         entry = ""
@@ -1773,6 +2028,8 @@ def main(argv=None) -> int:
         "fp32 ragged": check_gathered(torch, *GATHERED_RAGGED,
                                       torch.float32, gen, causal=False,
                                       shared=False)}
+    gathered_edges = check_gathered_edges(torch, gen)
+    print(f"gathered edges {json.dumps(gathered_edges)}", flush=True)
     for shape_rows in (kern_rows, long_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
@@ -1924,6 +2181,7 @@ def main(argv=None) -> int:
             card=card, kernels=kernels, long_prompt_kernels=long_rows,
             wide_head_kernels=wide_rows, gathered_kernels=gathered_rows,
             wide_head_bf16_kernels=wide_bf16_rows, flash_edges=flash_edges,
+            gathered_edges=gathered_edges,
             train_full_gate_bf16=full_gate_bf16,
             serving=serving_rows, train_gate=gate,
             train_gathered_gate=gathered_gate, train=train_row,
