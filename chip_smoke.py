@@ -32,8 +32,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    with queries that see no key, non-causal with a cluster all padding),
    SDPA's backward errors beside each bf16 row, the bf16 gathered
    backward also against fp64 and timed in a CUDA graph (`graph_ms`); the
-   ptxas lines of the bf16 kernels on the tensor cores (flash forward,
-   dq, dk/dv; gathered dq, dk/dv) must show no spills;
+   local and gathered forwards also row by row within ROW_REL_TOL, the
+   local forward also at rt-cifar10's local layers (B 8 x 3072, 8 heads,
+   w 512) and in bf16 at the N and w its tiles and window make ragged
+   (`LOCAL_EDGES`, with a pad mask whose last rows keep no key), each bf16
+   forward row with SDPA's and fp64 readings and `graph_ms`; a digest of
+   the flash forward's outputs (`flash_forward_digest`); the ptxas lines
+   of the bf16 kernels on the tensor cores (flash forward, dq, dk/dv;
+   local forward; gathered forward, dq, dk/dv) must show no spills;
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -165,14 +171,32 @@ GATHERED_EDGES = tuple(
     (1, 2, 3, w, dh, causal, shared) for w in (1, 63, 129, 200)
     for dh in (64, 128)
     for causal, shared in ((True, True), (True, False), (False, False)))
+# the local forward in bf16 at the shapes its 128-row tiles and its window
+# make ragged, (B, H, Hkv, N, w, dh, causal, padded): N of 1, 127, 129, 200
+# and 3072, w of 63, 128, 200, 256 and 512 (w > N at N 1, 127 and 200),
+# causal and not, GQA 2:1, dh 64 and 128. A padded case (`local_pad_mask`)
+# ends in a run of padding longer than two windows, so its last rows keep
+# no key (out 0, lse NEG + log(1e-30))
+LOCAL_EDGES = tuple(
+    (1, H, Hkv, N, w, dh, causal, padded) for dh in (64, 128)
+    for H, Hkv, N, w, causal, padded in ((2, 1, 1, 63, True, False),
+                                         (2, 1, 127, 128, False, False),
+                                         (2, 2, 129, 63, True, False),
+                                         (4, 2, 200, 256, True, False),
+                                         (2, 1, 200, 128, False, False),
+                                         (2, 1, 3072, 512, True, False),
+                                         (2, 1, 3072, 200, False, False),
+                                         (2, 1, 3072, 200, True, True)))
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
 # bf16 ulps at the top of the range); the fp32 lse by 1e-4 absolute
 OUT_REL_TOL = 2.0 ** -7
 LSE_TOL = 1e-4
-# the flash forward also row by row: |out - ref| / |ref| over each query
-# row's head dim (2-norms) in every row. OUT_REL_TOL is set by the largest
+# the flash, local and gathered forwards also row by row: |out - ref| /
+# |ref| over each query row's head dim (2-norms) in every row (a row that
+# keeps no key is zero in the reference, so it must be zero in the kernel:
+# the denominator is clamped at 1e-30). OUT_REL_TOL is set by the largest
 # output, which an early row (few keys) holds; a late row averages
 # thousands of keys, its values are far smaller, and a fault in its P V (a
 # value tile left out or misplaced) can stay under that limit while it
@@ -377,6 +401,12 @@ def print_dynamic_smem() -> None:
         print(f"  dynamic smem per block, dh {dh}: bf16 flash (wgmma + TMA) "
               f"forward {fwd_tc(dh)} B, dq {bwd_tc(dh, 0)} B, dk/dv "
               f"{bwd_tc(dh, 1)} B")
+    # the bf16 local and gathered forwards run the flash forward's body: the
+    # same dynamic tiles; their static shared memory (the staged pad mask or
+    # positions) is in their ptxas lines
+    for dh in (64, 128):
+        print(f"  dynamic smem per block, dh {dh}: bf16 local and gathered "
+              f"forward (wgmma + TMA) {fwd_tc(dh)} B")
     # the bf16 gathered backward runs the flash backward's bodies: the same
     # dynamic tiles; its static shared memory (the staged positions) is in
     # its ptxas line
@@ -456,17 +486,58 @@ def routing_pairs(torch, pos, idx) -> float:
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version at the serving shapes
 # ---------------------------------------------------------------------------
-def local_mask(torch, N, w):
-    """The dense (N, N) bool mask of causal local attention."""
+def local_mask(torch, N, w, causal=True, pad=None):
+    """The dense bool mask of local attention, (N, N), or (B, 1, N, N) with
+    a (B, N) key pad mask: key j of query i's block or the one before (also
+    the one after when not causal; w cut to N, as the wrapper cuts it),
+    j <= i when causal, j not padding."""
+    w = min(w, N)
     i = torch.arange(N, device=DEVICE)
     lo = ((i // w - 1) * w).clamp_min(0)
-    return (i[None, :] <= i[:, None]) & (i[None, :] >= lo[:, None])
+    hi = i if causal else ((i // w + 2) * w).clamp_max(N) - 1
+    mask = (i[None, :] <= hi[:, None]) & (i[None, :] >= lo[:, None])
+    return mask if pad is None else mask & pad[:, None, None, :]
 
 
-def check_local(torch, cfg, B, N, gen):
+def local_pad_mask(torch, B, N, gen):
+    """A (B, N) key pad mask: about one key in seven padding, and the last
+    sixth of the sequence all padding (at N 3072 and w 200 the rows from
+    2800 on keep no key)."""
+    pad = torch.rand((B, N), generator=gen, device=DEVICE) >= 1 / 7
+    pad[:, N - N // 6:] = False
+    return pad
+
+
+def err64(a, ref64) -> dict:
+    """|a - ref64| over the largest |ref64|, and row by row (2-norms over
+    the last dim; a reference row of zeros must be zeros), in fp64."""
+    d = a.double() - ref64
+    return dict(rel=float(d.abs().max() / ref64.abs().max()),
+                rows=float((d.norm(dim=-1)
+                            / ref64.norm(dim=-1).clamp_min(1e-30)).max()))
+
+
+def fwd_fp64_errs(out, ref_out, ref64) -> dict:
+    """The kernel's output and the fp32 plain version's against the plain
+    version run in fp64 on the same inputs, over the largest fp64 value and
+    row by row: whether the kernel's distance from the fp32 plain version
+    is its own; context, never a limit."""
+    k, p = err64(out, ref64), err64(ref_out, ref64)
+    return dict(kernel_vs_fp64=k["rel"], kernel_vs_fp64_rows=k["rows"],
+                plain_vs_fp64=p["rel"], plain_vs_fp64_rows=p["rows"])
+
+
+def check_local(torch, cfg, B, N, gen, heads=None):
+    """The local forward at one causal shape (``heads``, default half the
+    model's heads, as rt-enwik8's local+routing layers run it): against
+    its plain version in fp32 on the same inputs, the largest value
+    (OUT_REL_TOL), every row (ROW_REL_TOL) and lse (LSE_TOL); timed beside
+    the plain version, SDPA with the dense bool mask and, in a CUDA graph,
+    itself (`graph_ms`). Batch 0 is also read against fp64, and SDPA's own
+    errors against the fp32 reference (bf16; context)."""
     from repro_torch.kernels import local_attention as K
     dh, w = cfg.head_dim_, cfg.routing.local_window
-    H = cfg.num_heads // 2
+    H = heads or cfg.num_heads // 2
     q, k, v = (torch.randn((B, H, N, dh), generator=gen, device=DEVICE,
                            dtype=torch.bfloat16) for _ in range(3))
     out, lse = K.local_attention(q, k, v, w)
@@ -474,19 +545,68 @@ def check_local(torch, cfg, B, N, gen):
     ref_out, ref_lse = K.local_attention_plain(q.float(), k.float(),
                                                v.float(), w)
     err, lerr = max_err(out, ref_out), max_err(lse, ref_lse)
-    if not (out_ok(out, ref_out) and lerr <= LSE_TOL):
+    row_err = row_rel_err(out, ref_out)
+    if not (out_ok(out, ref_out) and lerr <= LSE_TOL
+            and row_err <= ROW_REL_TOL):
         raise AssertionError(f"local_attention disagrees with its plain "
-                             f"version: out {err}, lse {lerr}")
-    pairs = local_pairs(torch, B, H, N, w)
+                             f"version: out {err}, lse {lerr}, row "
+                             f"{row_err}")
     mask = local_mask(torch, N, w)
+    ref64, _ = K.local_attention_plain(q[:1].double(), k[:1].double(),
+                                       v[:1].double(), w)
+    readings = dict(out_rel_err=rel_err(out, ref_out), row_rel_err=row_err,
+                    **fwd_fp64_errs(out[:1], ref_out[:1], ref64),
+                    **sdpa_out_errs(torch, q, k, v, ref_out, mask=mask))
+    del ref_out, ref_lse, ref64
+    pairs = local_pairs(torch, B, H, N, w)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b_ms, b_by = bound_ms(nbytes(q, k, v, out, lse), 4 * dh * pairs)
+    ms = time_ms(lambda: K.local_attention(q, k, v, w))
     return dict(
-        max_abs_err=err, lse_err=lerr,
-        ms=time_ms(lambda: K.local_attention(q, k, v, w)),
+        max_abs_err=err, lse_err=lerr, ms=ms,
         plain_ms=time_ms(lambda: K.local_attention_plain(q, k, v, w)),
         library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
-        bound_ms=b_ms, bound_by=b_by, shape=f"B{B} H{H} N{N} dh{dh} w{w}")
+        bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+        graph_ms=graph_ms(torch, lambda: K.local_attention(q, k, v, w)),
+        shape=f"B{B} H{H} N{N} dh{dh} w{w}", **readings)
+
+
+def check_local_edges(torch, gen) -> list:
+    """The local forward in bf16 at LOCAL_EDGES, each against its plain
+    version in fp32 on the same inputs: out within OUT_REL_TOL of its
+    largest reference value and within ROW_REL_TOL in every row (rows that
+    keep no key zero), lse within LSE_TOL. SDPA's own errors and the fp64
+    readings are reported beside each row."""
+    from repro_torch.kernels import local_attention as K
+    rows = []
+    for B, H, Hkv, N, w, dh, causal, padded in LOCAL_EDGES:
+        mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+        q = torch.randn((B, H, N, dh), **mk)
+        k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+        pad = local_pad_mask(torch, B, N, gen) if padded else None
+        out, lse = K.local_attention(q, k, v, w, causal, pad)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = K.local_attention_plain(
+            q.float(), k.float(), v.float(), w, causal, pad)
+        ref64, _ = K.local_attention_plain(q.double(), k.double(),
+                                           v.double(), w, causal, pad)
+        mask = local_mask(torch, N, w, causal, pad)
+        row = dict(shape=(f"B{B} H{H} Hkv{Hkv} N{N} w{w} dh{dh} "
+                          f"{'causal' if causal else 'full'}"
+                          f"{' padded' if padded else ''}"),
+                   out_rel_err=rel_err(out, ref_out),
+                   row_rel_err=row_rel_err(out, ref_out),
+                   lse_err=max_err(lse, ref_lse),
+                   no_key_rows=int((~mask.any(-1)).sum()) * H,
+                   **fwd_fp64_errs(out, ref_out, ref64),
+                   **sdpa_out_errs(torch, q, k, v, ref_out, mask=mask))
+        rows.append(row)
+        if not (row["out_rel_err"] <= OUT_REL_TOL
+                and row["row_rel_err"] <= ROW_REL_TOL
+                and row["lse_err"] <= LSE_TOL):
+            raise AssertionError(f"local_attention disagrees with its plain "
+                                 f"version at a ragged shape: {row}")
+    return rows
 
 
 def check_routing(torch, cfg, B, N, gen):
@@ -800,12 +920,16 @@ def grad_row_errs(got, refs, causal) -> list:
     return errs
 
 
-def sdpa_out_errs(torch, q, k, v, ref_out, causal) -> dict:
-    """SDPA's own error on the same bf16 inputs (causal on row indices,
-    GQA) against the fp32 plain output ``ref_out``, relative to its largest
-    value and row by row: context for a bf16 forward row, never a limit."""
+def sdpa_out_errs(torch, q, k, v, ref_out, causal=False, mask=None) -> dict:
+    """SDPA's own error on the same bf16 inputs (causal on row indices, or
+    with the bool ``mask``; GQA) against the fp32 plain output ``ref_out``,
+    relative to its largest value and row by row: context for a bf16
+    forward row, never a limit. With a mask, the rows that keep no key are
+    taken as zeros (SDPA's softmax over no key is not zero)."""
     out = torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True)
+        q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)
+    if mask is not None:
+        out = torch.where(mask.any(-1, keepdim=True), out, 0.0)
     return dict(sdpa_out_rel_err=rel_err(out, ref_out),
                 sdpa_row_rel_err=row_rel_err(out, ref_out))
 
@@ -904,6 +1028,27 @@ def check_flash_edges(torch, gen) -> list:
             raise AssertionError(f"a flash kernel disagrees with its plain "
                                  f"version at a ragged shape: {row}")
     return rows
+
+
+def flash_forward_digest(torch) -> str:
+    """A sha256 of the flash forward's bf16 outputs and lse at qwen2's train
+    shape, WIDE_FLASH and every FLASH_EDGES shape, on inputs from a
+    generator of its own (seed 1): two builds of the kernel that compute
+    the same bits give the same digest."""
+    import hashlib
+    from repro_torch.kernels import flash_attention as K
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    shapes = [(FULL_BATCH, 14, 2, FULL_SEQ, FULL_SEQ, 64, True),
+              (*WIDE_FLASH[:4], WIDE_FLASH[3], WIDE_FLASH[4], True),
+              *FLASH_EDGES]
+    h = hashlib.sha256()
+    for B, H, Hkv, N, M, dh, causal in shapes:
+        q = torch.randn((B, H, N, dh), **mk)
+        k, v = (torch.randn((B, Hkv, M, dh), **mk) for _ in range(2))
+        for t in K.flash_attention(q, k, v, causal):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def gathered_inputs(torch, B, H, kc, w, dh, dtype, gen, causal=True,
@@ -1078,10 +1223,11 @@ def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
     """The three gathered kernels at one shape: each against its plain
     version in fp32 on the same inputs, timed beside the plain version (in
     ``dtype``) and SDPA over the blocks with the boolean keep mask
-    (forward; backward for all of dq, dk/dv); dq, dk and dv also row by
-    row under the position mask (`gathered_grad_row_errs`) within
-    BWD_ROW_REL_TOL. A bf16 row also reports SDPA's own backward errors
-    and the kernel's and the plain version's against fp64."""
+    (forward; backward for all of dq, dk/dv); the output also row by row
+    within ROW_REL_TOL, dq, dk and dv row by row under the position mask
+    (`gathered_grad_row_errs`) within BWD_ROW_REL_TOL. A bf16 row also
+    reports SDPA's own forward and backward errors, the kernel's and the
+    plain version's against fp64, and CUDA-graph times (`graph_ms`)."""
     from repro_torch.core import row_dot
     from repro_torch.kernels import routing_gathered as K
     qf, kf, vf, pqf, pkf = gathered_inputs(torch, B, H, kc, w, dh, dtype,
@@ -1099,15 +1245,28 @@ def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
     ref_out, ref_lse = K.routed_attention_blocks_plain(*f32, pqf, pkf,
                                                        causal)
     err, lerr = max_err(out, ref_out), max_err(lse, ref_lse)
-    if not (out_ok(out, ref_out) and lerr <= LSE_TOL):
+    row_err = row_rel_err(out, ref_out)
+    if not (out_ok(out, ref_out) and lerr <= LSE_TOL
+            and row_err <= ROW_REL_TOL):
         raise AssertionError(f"routing_gathered disagrees with its plain "
-                             f"version: out {err}, lse {lerr}")
+                             f"version: out {err}, lse {lerr}, row "
+                             f"{row_err}")
     args32 = (*f32, pqf, pkf, do.float(), lse, dsum, causal)
     ref_dq = K.routed_attention_blocks_bwd_dq_plain(*args32)
     ref_dk, ref_dv = K.routed_attention_blocks_bwd_dkv_plain(*args32)
+    keep = gathered_keep(pqf, pkf, causal)
+    fwd_report = dict(out_rel_err=rel_err(out, ref_out), row_rel_err=row_err)
+    if dtype == torch.bfloat16:
+        f64 = [t.double() for t in (qf, kf, vf)]
+        ref64, _ = K.routed_attention_blocks_plain(
+            f64[0], f64[0] if shared else f64[1], f64[2], pqf, pkf, causal)
+        fwd_report.update(**fwd_fp64_errs(out, ref_out, ref64),
+                          **sdpa_out_errs(
+                              torch, qf[:, None], kf[:, None], vf[:, None],
+                              ref_out[:, None], mask=keep[:, None]))
+        del ref64
     del ref_out, ref_lse
 
-    keep = gathered_keep(pqf, pkf, causal)
     grads, refs = (dq, dk, dv), (ref_dq, ref_dk, ref_dv)
     floors = gathered_row_floors(torch, qf, kf, vf, do, lse, keep)
     grad_row = gathered_grad_row_errs(grads, refs, keep, floors)
@@ -1138,15 +1297,19 @@ def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
              f"{'shared-QK' if shared else 'separate-QK'}")
     ins = (qf, vf, pqf, pkf) if shared else (qf, kf, vf, pqf, pkf)
     b_ms, b_by = bound_ms(nbytes(*ins, out, lse), 4 * dh * pairs)
+    fwd = lambda: K.routed_attention_blocks(qf, kf, vf, pqf, pkf,  # noqa
+                                            causal)
+    ms = time_ms(fwd)
     rows = {"routing_gathered": dict(
-        max_abs_err=err, lse_err=lerr,
-        ms=time_ms(lambda: K.routed_attention_blocks(qf, kf, vf, pqf, pkf,
-                                                     causal)),
+        max_abs_err=err, lse_err=lerr, ms=ms,
         plain_ms=time_ms(lambda: K.routed_attention_blocks_plain(
             qf, kf, vf, pqf, pkf, causal)),
         library_ms=time_ms(lambda: sdpa(qf[:, None], kf[:, None],
                                         vf[:, None], attn_mask=mask)),
-        bound_ms=b_ms, bound_by=b_by, shape=shape, pairs=pairs)}
+        bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms, shape=shape,
+        pairs=pairs, **fwd_report)}
+    if bf16:
+        rows["routing_gathered"]["graph_ms"] = graph_ms(torch, fwd)
     rows.update(_bwd_rows(
         ("routing_gathered_bwd_dq", "routing_gathered_bwd_dkv"),
         ((dq,), (dk, dv)), ((ref_dq,), (ref_dk, ref_dv)),
@@ -1172,8 +1335,9 @@ def check_gathered(torch, B, H, kc, w, dh, dtype, gen, causal=True,
 def check_gathered_edges(torch, gen) -> list:
     """The three gathered kernels in bf16 at GATHERED_EDGES, each against
     its plain version in fp32 on the same inputs: out within OUT_REL_TOL of
-    its largest reference value and lse within LSE_TOL (as the forward is
-    held at every gathered row); dq, dk and dv within BWD_REL_TOL of their
+    its largest reference value and within ROW_REL_TOL in every row (rows
+    that keep no key zero), lse within LSE_TOL (as the forward is held at
+    every gathered row); dq, dk and dv within BWD_REL_TOL of their
     largest reference values (`gathered_grad_scales`) and within
     BWD_ROW_REL_TOL in every row (`gathered_grad_row_errs`). SDPA's own
     backward errors are reported beside each row."""
@@ -1206,7 +1370,9 @@ def check_gathered_edges(torch, gen) -> list:
                           f"{'causal' if causal else 'non-causal'} "
                           f"{'shared-QK' if shared else 'separate-QK'}"),
                    out_rel_err=rel_err(out, ref_out),
+                   row_rel_err=row_rel_err(out, ref_out),
                    lse_err=max_err(lse, ref_lse),
+                   no_key_rows=int((~keep.any(-1)).sum()),
                    grad_rel_err=[max_err(a, r) / sc
                                  for a, r, sc in zip(got, refs, scales)],
                    grad_row_rel_err=gathered_grad_row_errs(got, refs, keep,
@@ -1215,6 +1381,7 @@ def check_gathered_edges(torch, gen) -> list:
                                              keep, floors))
         rows.append(row)
         if not (row["out_rel_err"] <= OUT_REL_TOL
+                and row["row_rel_err"] <= ROW_REL_TOL
                 and row["lse_err"] <= LSE_TOL
                 and all(e <= BWD_REL_TOL for e in row["grad_rel_err"])
                 and max(row["grad_row_rel_err"]) <= BWD_ROW_REL_TOL):
@@ -1966,11 +2133,14 @@ def main(argv=None) -> int:
     t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
     t = phase("build", t)
-    # the bf16 flash and gathered backward kernels on the tensor cores keep
-    # their accumulators in registers
+    # the bf16 kernels on the tensor cores (flash forward, dq, dk/dv; local
+    # forward; gathered forward, dq, dk/dv) keep their accumulators in
+    # registers
     no_spill = {"flash_attention": ("flash_fwd_wgmma",),
                 "flash_attention_bwd": ("flash_bwd_dq_wgmma",
                                         "flash_bwd_dkv_wgmma"),
+                "local_attention": ("local_fwd_wgmma",),
+                "routing_gathered": ("routing_gathered_wgmma",),
                 "routing_gathered_bwd": ("routing_gathered_dq_wgmma",
                                          "routing_gathered_dkv_wgmma")}
     seen = set()
@@ -2030,7 +2200,15 @@ def main(argv=None) -> int:
                                       shared=False)}
     gathered_edges = check_gathered_edges(torch, gen)
     print(f"gathered edges {json.dumps(gathered_edges)}", flush=True)
-    for shape_rows in (kern_rows, long_rows, wide_rows,
+    # the local forward at rt-cifar10's local layers (B 8 x 3072, all 8
+    # heads, w 512), then at its ragged shapes
+    cifar_local_rows = {"local_attention": check_local(
+        torch, ccfg, CIFAR_BATCH, CIFAR_SEQ, gen, heads=ccfg.num_heads)}
+    local_edges = check_local_edges(torch, gen)
+    print(f"local edges {json.dumps(local_edges)}", flush=True)
+    flash_digest = flash_forward_digest(torch)
+    print(f"flash forward digest {flash_digest}", flush=True)
+    for shape_rows in (kern_rows, long_rows, cifar_local_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
     print_rows(wide_bf16_rows)
@@ -2181,7 +2359,8 @@ def main(argv=None) -> int:
             card=card, kernels=kernels, long_prompt_kernels=long_rows,
             wide_head_kernels=wide_rows, gathered_kernels=gathered_rows,
             wide_head_bf16_kernels=wide_bf16_rows, flash_edges=flash_edges,
-            gathered_edges=gathered_edges,
+            gathered_edges=gathered_edges, cifar_local=cifar_local_rows,
+            local_edges=local_edges, flash_forward_digest=flash_digest,
             train_full_gate_bf16=full_gate_bf16,
             serving=serving_rows, train_gate=gate,
             train_gathered_gate=gathered_gate, train=train_row,

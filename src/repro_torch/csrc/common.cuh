@@ -1,7 +1,8 @@
 // Shared device code of the port's attention kernels (sm_90a).
 //
-// `FlashTile` is the online-softmax core that the local-window and the
-// fused routing kernels share: a block of NT = 128 threads owns BQ = 64
+// `FlashTile` is the online-softmax core that the fused routing forward
+// and the fp32 flash, local-window and gathered forwards share (their bf16
+// instances run on the tensor cores, attn_fwd_sm90.cuh): a block of NT = 128 threads owns BQ = 64
 // query rows in shared memory and consumes key tiles of BK = 32 rows.
 // Thread t works on the 4 query rows 4*(t/8) .. 4*(t/8)+3; for the score
 // tile it takes key columns (t%8) + 8j, for the output the head dims
@@ -202,6 +203,12 @@ struct FlashTile {
     }
   }
 };
+
+// The gathered routing kernels' mask on original positions: causal, a key
+// at or before the query; otherwise every key that is not padding.
+__device__ __forceinline__ bool gathered_keep(int pq, int pk, int causal) {
+  return causal ? pq >= pk : pk < SENTINEL;
+}
 
 // Raise the dynamic shared-memory cap of `kernel` to `bytes`.
 template <typename K>

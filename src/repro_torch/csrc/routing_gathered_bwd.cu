@@ -58,18 +58,12 @@
 // queries in tiles of 32 (the TPU's swapped grid: key tile parallel, query
 // sweep sequential). They keep full fp32 products, as PyTorch's fp32
 // matmul does (no TF32).
-#include <climits>
-
 #include "attn_bwd.cuh"
 #include "attn_bwd_sm90.cuh"
 
 namespace {
 
 using namespace rt;
-
-__device__ __forceinline__ bool gathered_keep(int pq, int pk, int causal) {
-  return causal ? pq >= pk : pk < SENTINEL;
-}
 
 template <int DH>
 __global__ void __launch_bounds__(NT) routing_gathered_dq_kernel(
@@ -222,9 +216,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* pos_q,
 // bf16 on the tensor cores (the bodies are attn_bwd_sm90.cuh's)
 // ---------------------------------------------------------------------------
 using sm90::BLOCK_THREADS;
+using sm90::BlockMinMax;
+using sm90::block_min_max;
 using sm90::HB;
 using sm90::HBN;
 using sm90::WG;
+using sm90::walk;
 
 // The gathered mask on positions (see the top of this file). dk/dv: the
 // owned rows are keys (their tag a position, SENTINEL past w), the walked
@@ -290,52 +287,6 @@ struct GatheredDq {
     return !gathered_keep(row, pos[wg][buf][cl], causal);
   }
 };
-
-// The smallest (low) and largest (high) of two per-thread values over the
-// block (warps 0..7), and over the 64 owned rows of the calling thread's
-// warpgroup when warps 0-3 hold one owned row a thread (warpgroup 0's in
-// warps 0-1, 1's in 2-3); `red` holds one value per warp.
-struct BlockMinMax {
-  int low, high, rows_low, rows_high;
-};
-__device__ __forceinline__ BlockMinMax block_min_max(int low, int high,
-                                                     int (&red)[2][8]) {
-  const int warp = threadIdx.x / 32;
-  low = __reduce_min_sync(0xffffffffu, low);
-  high = __reduce_max_sync(0xffffffffu, high);
-  if (threadIdx.x % 32 == 0) {
-    red[0][warp] = low;
-    red[1][warp] = high;
-  }
-  __syncthreads();
-  const int wg = threadIdx.x / WG;
-  BlockMinMax b{low, high, min(red[0][2 * wg], red[0][2 * wg + 1]),
-                max(red[1][2 * wg], red[1][2 * wg + 1])};
-#pragma unroll
-  for (int i = 0; i < BLOCK_THREADS / 32; ++i) {
-    b.low = min(b.low, red[0][i]);
-    b.high = max(b.high, red[1][i]);
-  }
-  __syncthreads();   // red is free again
-  return b;
-}
-
-// The walk over the other side's w rows: the tiles of ``rows`` rows from
-// the first to the last row that ``needed`` keeps.
-template <typename Needed>
-__device__ __forceinline__ void walk(int w, int rows, int (&red)[2][8],
-                                     Needed needed, int& first,
-                                     int& ntiles) {
-  int lo = INT_MAX, hi = -1;
-  for (int i = threadIdx.x; i < w; i += BLOCK_THREADS)
-    if (needed(i)) {
-      lo = min(lo, i);
-      hi = max(hi, i);
-    }
-  const BlockMinMax b = block_min_max(lo, hi, red);
-  first = b.high < 0 ? 0 : b.low / rows * rows;
-  ntiles = b.high < 0 ? 0 : b.high / rows - b.low / rows + 1;
-}
 
 template <int DH>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)

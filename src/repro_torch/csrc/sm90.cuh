@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels (the
-// bf16 flash forward, flash_attention.cu, and backward,
-// flash_attention_bwd.cu): mbarriers, a warpgroup's named barrier, TMA
+// bf16 forward body, attn_fwd_sm90.cuh, and backward bodies,
+// attn_bwd_sm90.cuh, of the flash, local-window and gathered routing
+// kernels): mbarriers, a warpgroup's named barrier, TMA
 // tile loads from a tensor map, a ring of stages that TMA fills and
 // warpgroups consume, the wgmma shared-memory descriptor of the 128-byte
 // swizzle, and the bf16 `wgmma` instructions (fp32 accumulators) in SS form
 // (A and B from shared memory, both K-major, m64n32k16, m64n64k16 and
 // m64n128k16) and RS form (A from registers, B MN-major, m64n64k16 and
-// m64n128k16). Raw PTX, so a source that includes this header builds in
-// seconds.
+// m64n128k16), and the block-wide min/max reductions that the gathered
+// kernels' walks take. Raw PTX, so a source that includes this header
+// builds in seconds.
 //
 // Tiles: a tensor map cuts a (rows, dh) bf16 plane into boxes of 64
 // columns (128 bytes, the widest box the 128-byte swizzle takes) by R
@@ -33,6 +35,7 @@
 // product within ~2^-16 of it.
 #pragma once
 
+#include <climits>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -400,6 +403,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// Block-wide reductions (the gathered kernels' walks)
+// ---------------------------------------------------------------------------
+// The smallest (low) and largest (high) of two per-thread values over the
+// block (warps 0..7), and over the 64 owned rows of the calling thread's
+// warpgroup when warps 0-3 hold one owned row a thread (warpgroup 0's in
+// warps 0-1, 1's in 2-3); `red` holds one value per warp.
+struct BlockMinMax {
+  int low, high, rows_low, rows_high;
+};
+__device__ __forceinline__ BlockMinMax block_min_max(int low, int high,
+                                                     int (&red)[2][8]) {
+  const int warp = threadIdx.x / 32;
+  low = __reduce_min_sync(0xffffffffu, low);
+  high = __reduce_max_sync(0xffffffffu, high);
+  if (threadIdx.x % 32 == 0) {
+    red[0][warp] = low;
+    red[1][warp] = high;
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  BlockMinMax b{low, high, min(red[0][2 * wg], red[0][2 * wg + 1]),
+                max(red[1][2 * wg], red[1][2 * wg + 1])};
+#pragma unroll
+  for (int i = 0; i < BLOCK_THREADS / 32; ++i) {
+    b.low = min(b.low, red[0][i]);
+    b.high = max(b.high, red[1][i]);
+  }
+  __syncthreads();   // red is free again
+  return b;
+}
+
+// The walk over the other side's w rows: the tiles of ``rows`` rows from
+// the first to the last row that ``needed`` keeps.
+template <typename Needed>
+__device__ __forceinline__ void walk(int w, int rows, int (&red)[2][8],
+                                     Needed needed, int& first,
+                                     int& ntiles) {
+  int lo = INT_MAX, hi = -1;
+  for (int i = threadIdx.x; i < w; i += BLOCK_THREADS)
+    if (needed(i)) {
+      lo = min(lo, i);
+      hi = max(hi, i);
+    }
+  const BlockMinMax b = block_min_max(lo, hi, red);
+  first = b.high < 0 ? 0 : b.low / rows * rows;
+  ntiles = b.high < 0 ? 0 : b.high / rows - b.low / rows + 1;
 }
 
 // ---------------------------------------------------------------------------

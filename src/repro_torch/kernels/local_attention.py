@@ -10,6 +10,15 @@ the kernels) and an optional (B,N) key pad mask are taken, forward and
 backward alike. Every wrapper sends a CPU tensor to its plain PyTorch
 version (``core/local.py``) and launches its kernel on a CUDA tensor, or
 raises.
+
+The dtype alone picks the forward's design: in bf16 it runs ``wgmma`` on
+tiles that TMA loads, with the flash forward's body
+(``csrc/attn_fwd_sm90.cuh``) walking only each query tile's window, P
+rounded to bf16 as the operand of P V; in fp32 the FMA tile `FlashTile`.
+The backward kernels run fp32 FMAs in both dtypes. TMA needs 16-byte
+aligned bases and row strides: the wrappers take contiguous, 16-byte
+aligned tensors (checked), and dh 64 or 128 gives rows of 128 or 256
+bytes in bf16.
 """
 from __future__ import annotations
 
@@ -33,9 +42,12 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 def local_attention_plain(q, k, v, window: int, causal: bool = True,
                           pad_mask: Optional[torch.Tensor] = None):
-    """The plain PyTorch version of the forward kernel: (out, lse)."""
-    return ref.local_attention(q, k, v, window, causal, pad_mask,
-                               return_lse=True)
+    """The plain PyTorch version of the forward kernel: (out in q's dtype,
+    lse in at least fp32). It computes in at least fp32 and rounds only
+    the output, as the TPU kernel does (it upcasts q, k and v)."""
+    out, lse = ref.local_attention(upcast(q), upcast(k), upcast(v), window,
+                                   causal, pad_mask, return_lse=True)
+    return out.to(q.dtype), lse
 
 
 def _check(what, q, k, v, pad_mask, **more):

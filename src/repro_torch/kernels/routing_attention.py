@@ -41,10 +41,13 @@ _DKV_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
 def routed_attention_fused_plain(q, k, v, q_idx, k_idx, positions,
                                  causal: bool = True,
                                  kvalid: Optional[torch.Tensor] = None):
-    """The plain PyTorch version of the forward kernel: (out, lse)."""
-    return ref.gathered_block_attention(q, k, v, q_idx.long(), k_idx.long(),
-                                        positions.long(), causal, kvalid,
-                                        return_lse=True)
+    """The plain PyTorch version of the forward kernel: (out in q's dtype,
+    lse in at least fp32). It computes in at least fp32 and rounds only
+    the output, as the TPU kernel does (it upcasts q, k and v)."""
+    out, lse = ref.gathered_block_attention(
+        upcast(q), None if k is None else upcast(k), upcast(v), q_idx.long(),
+        k_idx.long(), positions.long(), causal, kvalid, return_lse=True)
+    return out.to(q.dtype), lse
 
 
 def _check(what, q, k, v, q_idx, k_idx, positions, kvalid, **more):

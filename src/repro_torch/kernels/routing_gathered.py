@@ -17,8 +17,12 @@ flatten, mark padded keys, run the Function.
 
 Every wrapper sends a CPU tensor to its plain PyTorch version (the block
 forms of ``core/routing.py``) and launches its kernel on a CUDA tensor, or
-raises. This path is a forced impl (``"cuda_gathered"``); auto-selection
-takes the fused gather-free kernels (`kernels.routing_attention`).
+raises. In bf16 all three kernels run ``wgmma`` on tiles that TMA loads,
+through the flash kernels' bodies (``csrc/attn_fwd_sm90.cuh``,
+``csrc/attn_bwd_sm90.cuh``) under a mask on the rows' positions; in fp32
+the FMA tiles. This path is a forced impl (``"cuda_gathered"``);
+auto-selection takes the fused gather-free kernels
+(`kernels.routing_attention`).
 """
 from __future__ import annotations
 
@@ -49,10 +53,13 @@ def _plain_args(pqf, pkf):
 
 
 def routed_attention_blocks_plain(qf, kf, vf, pqf, pkf, causal: bool = True):
-    """The plain PyTorch version of the forward kernel: (out, lse)."""
+    """The plain PyTorch version of the forward kernel: (out in q's dtype,
+    lse in at least fp32). It computes in at least fp32 and rounds only
+    the output, as the TPU kernel does (it upcasts q, k and v)."""
     pq, pk, valid = _plain_args(pqf, pkf)
-    return ref.block_attention(qf, kf, vf, pq, pk, causal, valid,
-                               return_lse=True)
+    out, lse = ref.block_attention(upcast(qf), upcast(kf), upcast(vf), pq, pk,
+                                   causal, valid, return_lse=True)
+    return out.to(qf.dtype), lse
 
 
 def _check(what, qf, kf, vf, pqf, pkf, **more):
