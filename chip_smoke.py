@@ -40,6 +40,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the flash forward's outputs (`flash_forward_digest`); the ptxas lines
    of the bf16 kernels on the tensor cores (flash forward, dq, dk/dv;
    local forward; gathered forward, dq, dk/dv) must show no spills;
+   the local dq and dk/dv also row by row under the window mask
+   (`local_grad_row_errs`) with SDPA's and fp64 readings and `graph_ms`,
+   also at rt-cifar10's local layers and in bf16 at every `LOCAL_EDGES`
+   shape (`check_local_bwd_edges`: GQA 2:1 through `group_sum`, dq of a
+   row that keeps no key and dk, dv of a padded key exactly zero); a
+   digest of the flash and gathered backwards' outputs
+   (`backward_digest`); the bf16 local dq and dk/dv on the tensor cores
+   must show no spills either;
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -697,12 +705,20 @@ def _bwd_rows(names, got, ref, run_kernel, run_plain, library_ms, nbytes_in,
     return rows
 
 
-def check_local_bwd(torch, cfg, B, N, gen):
-    """The local dq and dk/dv kernels at the train shapes."""
+def check_local_bwd(torch, cfg, B, N, gen, heads=None):
+    """The local dq and dk/dv kernels at one causal train shape
+    (``heads``, default half the model's heads, as rt-enwik8's
+    local+routing layers run them), each against its plain
+    version in fp32 on the same inputs: the largest value (BWD_REL_TOL) and
+    every row under the window mask (`local_grad_row_errs`,
+    BWD_ROW_REL_TOL); timed beside the plain versions, SDPA's backward with
+    the dense bool mask (dq, dk and dv in one call) and, in a CUDA graph,
+    themselves (`graph_ms`). SDPA's own errors and batch 0's readings
+    against fp64 are reported beside them (context)."""
     from repro_torch.core import local as ref
     from repro_torch.kernels import local_attention as K
     dh, w = cfg.head_dim_, cfg.routing.local_window
-    H = cfg.num_heads // 2
+    H = heads or cfg.num_heads // 2
     q, k, v, do = (torch.randn((B, H, N, dh), generator=gen, device=DEVICE,
                                dtype=torch.bfloat16) for _ in range(4))
     out, lse = K.local_attention(q, k, v, w)
@@ -714,16 +730,30 @@ def check_local_bwd(torch, cfg, B, N, gen):
     torch.cuda.synchronize()
     ref_dq = ref.local_attention_bwd_dq(*args32)
     ref_dk, ref_dv = ref.local_attention_bwd_dkv(*args32)
+    mask = local_mask(torch, N, w)
+    grads, refs = (dq, dk, dv), (ref_dq, ref_dk, ref_dv)
+    grad_row = local_grad_row_errs(grads, refs, mask)
+    if max(grad_row) > BWD_ROW_REL_TOL:
+        raise AssertionError(f"a local backward kernel disagrees with its "
+                             f"plain version in a row: {grad_row}")
+    report = dict(
+        grad_rel_err=[rel_err(g, r) for g, r in zip(grads, refs)],
+        grad_row_rel_err=grad_row,
+        **local_sdpa_grad_errs(torch, q, k, v, do, refs, mask),
+        **local_fp64_grad_errs(
+            lambda *a: (ref.local_attention_bwd_dq(*a),
+                        *ref.local_attention_bwd_dkv(*a)),
+            args, grads, refs, mask))
     # library: the backward of SDPA with the dense bool mask (all of dq,
     # dk, dv), timed only
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(
-        qg, kg, vg, attn_mask=local_mask(torch, N, w))
+        qg, kg, vg, attn_mask=mask)
     lib_ms = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
                                                  retain_graph=True))
     del o
     pairs = local_pairs(torch, B, H, N, w)
-    return _bwd_rows(
+    rows = _bwd_rows(
         ("local_attention_bwd_dq", "local_attention_bwd_dkv"),
         ((dq,), (dk, dv)), ((ref_dq,), (ref_dk, ref_dv)),
         (lambda: K.local_attention_bwd_dq(*args),
@@ -733,6 +763,164 @@ def check_local_bwd(torch, cfg, B, N, gen):
         lib_ms, nbytes(q, k, v, do, lse, dsum),
         ((nbytes(dq), 6 * dh * pairs), (nbytes(dk, dv), 8 * dh * pairs)),
         f"B{B} H{H} N{N} dh{dh} w{w}")
+    for name, part, fn in (
+            ("local_attention_bwd_dq", slice(0, 1),
+             lambda: K.local_attention_bwd_dq(*args)),
+            ("local_attention_bwd_dkv", slice(1, 3),
+             lambda: K.local_attention_bwd_dkv(*args))):
+        rows[name].update({key: val[part] for key, val in report.items()})
+        rows[name]["graph_ms"] = graph_ms(torch, fn)
+        rows[name]["bound_share"] = rows[name]["bound_ms"] / rows[name][
+            "graph_ms"]
+    return rows
+
+
+def local_zero_rows(mask):
+    """The rows of the local backward whose gradient is zero in exact
+    arithmetic but not by construction: dq of a query row that keeps one
+    key (a softmax over one key has no gradient), dk of a key row that some
+    query keeps and whose every keeping query keeps only it; each (N,) or
+    (B, 1, N) bool over the (N, N) or (B, 1, N, N) ``mask`` of
+    `local_mask`. The rows that are zero by construction are not among
+    them: dq of a row that keeps no key, dk and dv of a key that no query
+    keeps (a padded key), which the kernels write as zeros (p is dropped
+    by a select, never multiplied)."""
+    count = mask.sum(-1)
+    return count == 1, mask.any(-2) & ~(mask & (count[..., None] > 1)).any(-2)
+
+
+def local_grad_row_errs(got, refs, mask) -> list:
+    """`grad_row_errs` under the local window ``mask`` (`local_mask`): the
+    largest |g - ref| / |ref| over each query row of dq and each key row of
+    dk and dv (2-norms over the head dim). A row zero in exact arithmetic
+    but not by construction (`local_zero_rows`) reads fp32 rounding over
+    itself, so it is scaled by dv's largest row instead, as `grad_scales`
+    scales one key; a row zero by construction (dq of a query that keeps
+    no key, dk and dv of a padded key) is zero in the plain version and
+    must be exactly zero: any other value reads inf. No rounding floor:
+    the checks' queries and keys are independent random rows, so no
+    query's own score dominates its softmax and cancels dP - D, as a
+    routing vector's score with itself does in shared-QK
+    (`gathered_row_floors`)."""
+    dv_row = float(refs[2].float().norm(dim=-1).max())
+    errs = []
+    for g, r, z in zip(got, refs, (*local_zero_rows(mask), None)):
+        r = r.float()
+        den = r.norm(dim=-1)
+        if z is not None:
+            den = den.masked_fill(z, dv_row)
+        # 0 / 0 (both zero) reads 0, x / 0 reads inf
+        err = ((g.float() - r).norm(dim=-1) / den).nan_to_num(
+            nan=0.0, posinf=math.inf)
+        errs.append(float(err.max()))
+    return errs
+
+
+def local_sdpa_grad_errs(torch, q, k, v, do, refs, mask) -> dict:
+    """SDPA's own dq, dk and dv with the local bool ``mask`` (GQA) on the
+    same bf16 inputs against the fp32 plain gradients ``refs`` (dk and dv
+    per query head, group-summed here), each relative to its largest
+    reference value (`grad_scales`) and row by row (`local_grad_row_errs`):
+    context for a bf16 backward row, never a limit. Only where every query
+    keeps a key (SDPA's softmax over no key is not zero). SDPA rounds P and
+    dS to bf16 as its products' operands."""
+    from repro_torch.kernels import common
+    if not bool(mask.any(-1).all()):
+        return {}
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=mask, enable_gqa=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    Hkv = k.shape[1]
+    refs = (refs[0], *(common.group_sum(r, Hkv) for r in refs[1:]))
+    return dict(
+        sdpa_grad_rel_err=[max_err(g, r) / sc for g, r, sc in zip(
+            grads, refs, grad_scales(refs, k.shape[2]))],
+        sdpa_grad_row_rel_err=local_grad_row_errs(grads, refs, mask))
+
+
+def local_fp64_grad_errs(plain, args, got, refs, mask) -> dict:
+    """The kernels' dq, dk and dv (``got``) and the fp32 plain version's
+    (``refs``) on batch 0 against ``plain`` (returning dq, dk, dv) run in
+    fp64 on the same inputs, each over the largest fp64 value and row by
+    row (`local_grad_row_errs`): whether the kernels' distance from the
+    fp32 plain version is their own or the fp32 plain version's order of
+    sums; context, never a limit."""
+    def first(t):
+        if not hasattr(t, "double"):
+            return t
+        t = t[:1]
+        return t.double() if t.is_floating_point() else t
+    r64 = plain(*(first(t) for t in args))
+    m0 = mask if mask.dim() == 2 else mask[:1]
+
+    def errs(xs):
+        xs = [x[:1].double() for x in xs]
+        return ([float((x - r).abs().max() / r.abs().max())
+                 for x, r in zip(xs, r64)],
+                local_grad_row_errs(xs, r64, m0))
+    (k_rel, k_rows), (p_rel, p_rows) = errs(got), errs(refs)
+    return dict(kernel_vs_fp64=k_rel, kernel_vs_fp64_rows=k_rows,
+                plain_vs_fp64=p_rel, plain_vs_fp64_rows=p_rows)
+
+
+def check_local_bwd_edges(torch, gen) -> list:
+    """The local dq and dk/dv kernels in bf16 at LOCAL_EDGES, through
+    `local_attention_bwd` (dk and dv group-summed onto the kv heads, GQA
+    2:1 among them), each against the plain backward in fp32 on the same
+    inputs, lse and D: within BWD_REL_TOL of their largest reference values
+    (`grad_scales`; at N 1 dq and dk are zero in exact arithmetic) and
+    within BWD_ROW_REL_TOL in every row under the window mask
+    (`local_grad_row_errs`); dq of a row that keeps no key and dk, dv of a
+    padded key exactly zero. q, k, v and the pad mask are drawn from
+    ``gen`` after `check_local_edges` has drawn its own, the output
+    gradients from a generator of their own (seed 2). SDPA's own errors
+    (without no-key rows) and the fp64 readings are reported beside each
+    row."""
+    from repro_torch.kernels import local_attention as K
+    dgen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows = []
+    for B, H, Hkv, N, w, dh, causal, padded in LOCAL_EDGES:
+        mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+        q = torch.randn((B, H, N, dh), **mk)
+        k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+        pad = local_pad_mask(torch, B, N, gen) if padded else None
+        out, lse = K.local_attention(q, k, v, w, causal, pad)
+        do = torch.randn((B, H, N, dh), generator=dgen, device=DEVICE,
+                         dtype=torch.bfloat16)
+        args = (q, k, v, out, lse, do, w, causal, pad)
+        got = K.local_attention_bwd(*args)
+        torch.cuda.synchronize()
+        refs = K.local_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                           out, lse, do.float(), w, causal,
+                                           pad)
+        mask = local_mask(torch, N, w, causal, pad)
+        no_key = ~mask.any(-1)                  # (N,) or (B, 1, N)
+        unseen = ~mask.any(-2)                  # keys no query keeps
+        zero = [float(got[0].abs().amax(-1).masked_select(no_key).max())
+                if bool(no_key.any()) else 0.0]
+        zero += [float(g.abs().amax(-1).masked_select(unseen).max())
+                 if bool(unseen.any()) else 0.0 for g in got[1:]]
+        row = dict(shape=(f"B{B} H{H} Hkv{Hkv} N{N} w{w} dh{dh} "
+                          f"{'causal' if causal else 'full'}"
+                          f"{' padded' if padded else ''}"),
+                   grad_rel_err=[max_err(a, r) / sc for a, r, sc in zip(
+                       got, refs, grad_scales(refs, N))],
+                   grad_row_rel_err=local_grad_row_errs(got, refs, mask),
+                   no_key_rows=int(no_key.sum()) * H,
+                   unseen_keys=int(unseen.sum()) * Hkv,
+                   zero_rows_max=zero,
+                   **local_sdpa_grad_errs(torch, q, k, v, do, refs, mask),
+                   **local_fp64_grad_errs(K.local_attention_bwd_plain,
+                                          args, got, refs, mask))
+        rows.append(row)
+        if not (all(e <= BWD_REL_TOL for e in row["grad_rel_err"])
+                and max(row["grad_row_rel_err"]) <= BWD_ROW_REL_TOL
+                and max(zero) == 0.0):
+            raise AssertionError(f"a local backward kernel disagrees with "
+                                 f"its plain version at a ragged shape: "
+                                 f"{row}")
+    return rows
 
 
 def check_routing_bwd(torch, cfg, B, N, gen):
@@ -1048,6 +1236,47 @@ def flash_forward_digest(torch) -> str:
         k, v = (torch.randn((B, Hkv, M, dh), **mk) for _ in range(2))
         for t in K.flash_attention(q, k, v, causal):
             h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def backward_digest(torch) -> str:
+    """A sha256 of the bf16 flash and gathered backward kernels' dq, dk and
+    dv at qwen2's train shape and every FLASH_EDGES shape (flash), at
+    rt-cifar10's gathered blocks and every GATHERED_EDGES shape (gathered),
+    on inputs from a generator of their own (seed 3): two builds of the
+    backward bodies they share with the local backward
+    (csrc/attn_bwd_sm90.cuh) that compute the same bits for these two
+    kernels give the same digest."""
+    import hashlib
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import routing_gathered as KG
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    h = hashlib.sha256()
+
+    def take(*ts):
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    for B, H, Hkv, N, M, dh, causal in (
+            (FULL_BATCH, 14, 2, FULL_SEQ, FULL_SEQ, 64, True), *FLASH_EDGES):
+        q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, M, dh), **mk) for _ in range(2))
+        out, lse = KF.flash_attention(q, k, v, causal)
+        args = (q, k, v, do, lse, row_dot(do, out), causal)
+        take(KF.flash_attention_bwd_dq(*args),
+             *KF.flash_attention_bwd_dkv(*args))
+    for B, H, kc, w, dh, causal, shared, empty in (
+            (CIFAR_BATCH, 4, 6, 512, 64, True, True, False),
+            *((*e, True) for e in GATHERED_EDGES)):
+        qf, kf, vf, pqf, pkf = gathered_inputs(
+            torch, B, H, kc, w, dh, torch.bfloat16, gen, causal, shared,
+            empty_cluster=empty)
+        out, lse = KG.routed_attention_blocks(qf, kf, vf, pqf, pkf, causal)
+        do = torch.randn(out.shape, **mk)
+        args = (qf, kf, vf, pqf, pkf, do, lse, row_dot(do, out), causal)
+        take(KG.routed_attention_blocks_bwd_dq(*args),
+             *KG.routed_attention_blocks_bwd_dkv(*args))
     return h.hexdigest()
 
 
@@ -2142,7 +2371,10 @@ def main(argv=None) -> int:
                 "local_attention": ("local_fwd_wgmma",),
                 "routing_gathered": ("routing_gathered_wgmma",),
                 "routing_gathered_bwd": ("routing_gathered_dq_wgmma",
-                                         "routing_gathered_dkv_wgmma")}
+                                         "routing_gathered_dkv_wgmma"),
+                # and since slice 9 the local dq (both instances) and dk/dv
+                "local_attention_bwd": ("local_bwd_dq_wgmma",
+                                        "local_bwd_dkv_wgmma")}
     seen = set()
     for name, log in common.BUILD_LOGS.items():
         entry = ""
@@ -2206,12 +2438,21 @@ def main(argv=None) -> int:
         torch, ccfg, CIFAR_BATCH, CIFAR_SEQ, gen, heads=ccfg.num_heads)}
     local_edges = check_local_edges(torch, gen)
     print(f"local edges {json.dumps(local_edges)}", flush=True)
+    # the local backward at its ragged shapes, then at rt-cifar10's local
+    # layers (B 8 x 3072, all 8 heads, w 512)
+    local_bwd_edges = check_local_bwd_edges(torch, gen)
+    print(f"local backward edges {json.dumps(local_bwd_edges)}", flush=True)
+    cifar_local_bwd_rows = check_local_bwd(
+        torch, ccfg, CIFAR_BATCH, CIFAR_SEQ, gen, heads=ccfg.num_heads)
     flash_digest = flash_forward_digest(torch)
     print(f"flash forward digest {flash_digest}", flush=True)
+    bwd_digest = backward_digest(torch)
+    print(f"backward digest {bwd_digest}", flush=True)
     for shape_rows in (kern_rows, long_rows, cifar_local_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
     print_rows(wide_bf16_rows)
+    print_rows(cifar_local_bwd_rows)
     t = phase("kernels", t)
 
     # rt-enwik8: serve, then train
@@ -2361,6 +2602,8 @@ def main(argv=None) -> int:
             wide_head_bf16_kernels=wide_bf16_rows, flash_edges=flash_edges,
             gathered_edges=gathered_edges, cifar_local=cifar_local_rows,
             local_edges=local_edges, flash_forward_digest=flash_digest,
+            local_bwd_edges=local_bwd_edges,
+            cifar_local_bwd=cifar_local_bwd_rows, backward_digest=bwd_digest,
             train_full_gate_bf16=full_gate_bf16,
             serving=serving_rows, train_gate=gate,
             train_gathered_gate=gathered_gate, train=train_row,

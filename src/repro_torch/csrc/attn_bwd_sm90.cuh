@@ -1,6 +1,7 @@
 // The bf16 attention backward on Hopper's tensor cores (sm_90a): the dk/dv
-// and dq bodies that the flash backward (flash_attention_bwd.cu) and the
-// gathered routing backward (routing_gathered_bwd.cu) share. Both recompute
+// and dq bodies that the flash backward (flash_attention_bwd.cu), the
+// local-window backward (local_attention_bwd.cu) and the gathered routing
+// backward (routing_gathered_bwd.cu) share. All recompute
 // p from the forward's lse and mask it explicitly:
 //   p  = keep ? exp(q.k * scale - lse) : 0
 //   ds = p * (do.v - D) * scale,  D = rowsum(do * out) (computed outside)
@@ -40,8 +41,9 @@
 //   P::k0 (dk/dv)       the block's first key row; P::q0 (dq) first query
 //   P::q_first (dk/dv)  first query row of the walk; P::k_first (dq) key
 //   P::ntiles           tiles walked (0: the block writes zeros)
-//   key_tag / row_tag   what an owned row's mask reads (an index or a
-//                       position), taken once into registers
+//   key_tag / row_tag   what an owned row's mask reads (an index, a
+//                       window or a position; any type `drop` takes),
+//                       taken once into registers
 //   stage(wg, buf, t, i)  threads t < tile rows of warpgroup wg: stage
 //                       what the mask reads of the walked tile's row i
 //                       (double-buffered by tile parity, beside lse and D)
@@ -118,7 +120,7 @@ __device__ __forceinline__ void bwd_dkv_body(
   const int r = 64 * wg + 16 * (t / 32) + lane / 4;   // key rows r, r + 8
   const int cq = 2 * (lane % 4);
   const int key0 = pol.k0 + r, key1 = key0 + 8;
-  const int tag0 = pol.key_tag(key0), tag1 = pol.key_tag(key1);
+  const auto tag0 = pol.key_tag(key0), tag1 = pol.key_tag(key1);
   const float sl2 = scale * LOG2E;
   float dka[DH / 2], dva[DH / 2];
 #pragma unroll
@@ -309,7 +311,7 @@ __device__ __forceinline__ void bwd_dq_body(
   const float l1 = row1 < N ? lse[plane + row1] * LOG2E : 0.f;
   const float d0 = row0 < N ? dsum[plane + row0] : 0.f;
   const float d1 = row1 < N ? dsum[plane + row1] : 0.f;
-  const int tag0 = pol.row_tag(row0), tag1 = pol.row_tag(row1);
+  const auto tag0 = pol.row_tag(row0), tag1 = pol.row_tag(row1);
   float acc[DH / 2];
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;

@@ -11,14 +11,16 @@ backward alike. Every wrapper sends a CPU tensor to its plain PyTorch
 version (``core/local.py``) and launches its kernel on a CUDA tensor, or
 raises.
 
-The dtype alone picks the forward's design: in bf16 it runs ``wgmma`` on
-tiles that TMA loads, with the flash forward's body
-(``csrc/attn_fwd_sm90.cuh``) walking only each query tile's window, P
-rounded to bf16 as the operand of P V; in fp32 the FMA tile `FlashTile`.
-The backward kernels run fp32 FMAs in both dtypes. TMA needs 16-byte
-aligned bases and row strides: the wrappers take contiguous, 16-byte
-aligned tensors (checked), and dh 64 or 128 gives rows of 128 or 256
-bytes in bf16.
+The dtype alone picks each kernel's design. In bf16 they run ``wgmma`` on
+tiles that TMA loads, each block walking only its rows' windows: the
+forward with the flash forward's body (``csrc/attn_fwd_sm90.cuh``), P
+rounded to bf16 as the operand of P V; dq and dk/dv with the backward
+bodies the flash and gathered backwards run (``csrc/attn_bwd_sm90.cuh``),
+P and dS fed to their products as hi + lo bf16 pairs. In fp32 they run the
+FMA tiles `FlashTile`, `DqTile` and `DkvTile`. TMA needs 16-byte aligned
+bases and row strides: the wrappers take contiguous, 16-byte aligned
+tensors (checked), and dh 64 or 128 gives rows of 128 or 256 bytes in
+bf16.
 """
 from __future__ import annotations
 
