@@ -47,7 +47,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    row that keeps no key and dk, dv of a padded key exactly zero); a
    digest of the flash and gathered backwards' outputs
    (`backward_digest`); the bf16 local dq and dk/dv on the tensor cores
-   must show no spills either;
+   must show no spills either; the fused routing dq and dk/dv (since
+   slice 10 bf16 on the tensor cores, no spill) also row by row under
+   their position mask (`fused_grad_row_errs`: the gathered row check on
+   the members' blocks, no-key dq rows and unkept keys' dk, dv exactly
+   zero) and run twice, equal bit for bit, with `graph_ms`, at
+   rt-enwik8's train shape, at rt-cifar10's routing heads (B 8 x 3072, 4
+   heads, k 6, w 512) and in bf16 at the 48 `FUSED_EDGES`; a digest of
+   the local backward's outputs (`local_backward_digest`);
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -195,6 +202,19 @@ LOCAL_EDGES = tuple(
                                          (2, 1, 3072, 512, True, False),
                                          (2, 1, 3072, 200, False, False),
                                          (2, 1, 3072, 200, True, True)))
+# the fused routing dq and dk/dv in bf16 at the w their 128-row blocks and
+# 64- (32-) row tiles make ragged, (B, H, k, w, N, dh, mode): w of 1, 63,
+# 129 and 200, with N = k w (every token in one cluster) and N > k w
+# (tokens in no cluster, and in several), dh 64 and 128; "shared": causal
+# shared-QK, the membership from balanced_topk, as the routing layers make
+# it; "separate": causal separate-QK, the keys' own balanced_topk
+# membership; "padded": non-causal separate-QK with kvalid, one key in
+# seven padding and cluster 0's keys the last w tokens, all padding, so
+# its queries keep no key (dq 0) and those keys no query (dk, dv 0)
+FUSED_EDGES = tuple(
+    (1, 2, 3, w, N, dh, mode) for w in (1, 63, 129, 200)
+    for N in (3 * w, 3 * w + w // 2 + 3) for dh in (64, 128)
+    for mode in ("shared", "separate", "padded"))
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -421,6 +441,12 @@ def print_dynamic_smem() -> None:
     for dh in (64, 128):
         print(f"  dynamic smem per block, dh {dh}: bf16 gathered backward "
               f"(wgmma + TMA) dq {bwd_tc(dh, 0)} B, dk/dv {bwd_tc(dh, 1)} B")
+    # the bf16 fused routing backward gathers its rows by cp.async into the
+    # same tiles (its mbarriers unused)
+    for dh in (64, 128):
+        print(f"  dynamic smem per block, dh {dh}: bf16 fused routing "
+              f"backward (wgmma, cp.async) dq {bwd_tc(dh, 0)} B, dk/dv "
+              f"{bwd_tc(dh, 1)} B")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -953,7 +979,7 @@ def check_routing_bwd(torch, cfg, B, N, gen):
     ref_dk, ref_dv = ref.routed_attention_bwd_dkv(*args32)
     plain = (r, None, v, li, li, lp, do, lse, dsum)
     pairs = routing_pairs(torch, pos, idx)
-    return _bwd_rows(
+    rows = _bwd_rows(
         ("routing_fused_bwd_dq", "routing_fused_bwd_dkv"),
         ((dq,), (dk, dv)), ((ref_dq,), (ref_dk, ref_dv)),
         (lambda: K.routed_attention_fused_bwd_dq(*args),
@@ -963,6 +989,165 @@ def check_routing_bwd(torch, cfg, B, N, gen):
         None, nbytes(r, v, idx, pos, do, lse, dsum),
         ((nbytes(dq), 6 * dh * pairs), (nbytes(dk, dv), 8 * dh * pairs)),
         f"B{B} H{H} N{N} dh{dh} k{kc} w{w}")
+    # since slice 10 also row by row under the position mask, and run
+    # again: each kernel writes each output once, with no atomics, so the
+    # second run must equal the first bit for bit
+    grads, refs = (dq, dk, dv), (ref_dq, ref_dk, ref_dv)
+    grad_row = fused_grad_row_errs(torch, r, None, v, idx, idx, pos, do,
+                                   lse, grads, refs)
+    repeat = fused_repeat(K, args, grads)
+    if max(grad_row) > BWD_ROW_REL_TOL or any(repeat):
+        raise AssertionError(f"a fused routing backward kernel disagrees "
+                             f"with its plain version in a row or with "
+                             f"itself: rows {grad_row}, repeat {repeat}")
+    for name, part, fn in (
+            ("routing_fused_bwd_dq", slice(0, 1),
+             lambda: K.routed_attention_fused_bwd_dq(*args)),
+            ("routing_fused_bwd_dkv", slice(1, 3),
+             lambda: K.routed_attention_fused_bwd_dkv(*args))):
+        rows[name]["grad_rel_err"] = [rel_err(g, r) for g, r in zip(
+            grads[part], refs[part])]
+        rows[name]["grad_row_rel_err"] = grad_row[part]
+        rows[name]["repeat"] = repeat[part]
+        rows[name]["graph_ms"] = graph_ms(torch, fn)
+        rows[name]["bound_share"] = rows[name]["bound_ms"] / rows[name][
+            "graph_ms"]
+    return rows
+
+
+def fused_keep(torch, q_idx, k_idx, positions, kvalid=None, causal=True):
+    """The (B, H, k, w, w) bool mask of the fused routing kernels on each
+    cluster's members: `gathered_keep` on the members' positions, a padded
+    key's at SENTINEL, as the kernels read them."""
+    from repro_torch.kernels import routing_attention as K
+    B, N = positions.shape
+    H, kc, w = q_idx.shape[1:]
+
+    def member_pos(idx, pos):
+        return torch.gather(pos[:, None, :].expand(B, H, N).long(), 2,
+                            idx.reshape(B, H, -1).long()).reshape(B, H,
+                                                                 kc, w)
+    pk = positions if kvalid is None else torch.where(kvalid, positions,
+                                                      K.SENTINEL)
+    return gathered_keep(member_pos(q_idx, positions), member_pos(k_idx, pk),
+                         causal)
+
+
+def fused_grad_row_errs(torch, q, k, v, q_idx, k_idx, positions, do, lse,
+                        got, refs, causal=True, kvalid=None) -> list:
+    """The fused routing kernels' per-cluster dq, dk and dv (``got``)
+    against their plain versions' (``refs``), row by row: the blocks'
+    inputs gathered through the membership (`core.routing.gather_blocks`),
+    then `gathered_grad_row_errs` under the position mask (`fused_keep`)
+    with each row's rounding floor (`gathered_row_floors`), as the
+    gathered kernels are held. Rows zero by construction, dq of a query
+    that keeps no key and dk, dv of a key that no query keeps, are held to
+    exact zero (any other value reads inf): the kernels drop their p by a
+    select, and the gathered check scales a no-key dq row by dv's largest
+    row."""
+    from repro_torch.core import routing as ref
+    qg, kg, vg, _, _, _ = ref.gather_blocks(q, k, v, q_idx.long(),
+                                            k_idx.long(), positions.long())
+    keep = fused_keep(torch, q_idx, k_idx, positions, kvalid, causal)
+    floors = gathered_row_floors(torch, qg, kg, vg, do, lse, keep)
+    errs = gathered_grad_row_errs(got, refs, keep, floors)
+    no_key, unkept = ~keep.any(-1), ~keep.any(-2)
+    for i, (g, z) in enumerate(zip(got, (no_key, unkept, unkept))):
+        if bool(z.any()) and float(
+                g.abs().amax(-1).masked_select(z).max()) != 0.0:
+            errs[i] = math.inf
+    return errs
+
+
+def fused_repeat(K, args, got) -> list:
+    """The fused dq, dk and dv kernels run again on ``args``: 0.0 where
+    the second run equals ``got`` bit for bit, else the largest
+    difference."""
+    again = (K.routed_attention_fused_bwd_dq(*args),
+             *K.routed_attention_fused_bwd_dkv(*args))
+    return [0.0 if bool(a.equal(g)) else max(max_err(a, g), 1e-30)
+            for a, g in zip(again, got)]
+
+
+def fused_inputs(torch, B, H, kc, w, N, dh, mode, gen):
+    """bf16 sequence-layout q, k (None with shared-QK), v, int32
+    membership q_idx, k_idx (B, H, k, w), positions (B, N), kvalid and
+    causal for the fused kernels, one `FUSED_EDGES` mode: "shared", the
+    routing vectors of random q and their balanced top-w membership;
+    "separate", random q and k with the keys' own membership; "padded",
+    non-causal, one key in seven padding and cluster 0's keys the last w
+    tokens, all padding."""
+    from repro_torch.core import routing as ref
+    from repro_torch.core.kmeans import cluster_scores, normalize_routing
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    q, k, v = (torch.randn((B, H, N, dh), **mk) for _ in range(3))
+    mu = torch.randn((H, kc, dh), generator=gen, device=DEVICE)
+    r = normalize_routing(q)
+    q_idx = ref.balanced_topk(cluster_scores(r, mu), w)
+    kvalid = None
+    if mode == "shared":
+        q, k, k_idx = r, None, q_idx
+    else:
+        if mode == "padded":
+            kvalid = torch.rand((B, N), generator=gen,
+                                device=DEVICE) >= 1 / 7
+            kvalid[:, N - w:] = False
+        k_idx = ref.balanced_topk(cluster_scores(normalize_routing(k), mu),
+                                  w, kvalid)
+        if mode == "padded":
+            k_idx[:, :, 0] = torch.arange(N - w, N, device=DEVICE)
+    pos = torch.arange(N, device=DEVICE, dtype=torch.int32).expand(
+        B, N).contiguous()
+    return (q, k, v, q_idx.int().contiguous(), k_idx.int().contiguous(),
+            pos, kvalid, mode != "padded")
+
+
+def check_routing_bwd_edges(torch, gen) -> list:
+    """The fused routing dq and dk/dv kernels in bf16 at FUSED_EDGES,
+    each against its plain version in fp32 on the same inputs, lse and D:
+    within BWD_REL_TOL of their largest reference values
+    (`gathered_grad_scales`: at w 1 dq and dk are zero in exact
+    arithmetic), within BWD_ROW_REL_TOL in every row
+    (`fused_grad_row_errs`, no-key dq rows and unkept keys' dk, dv exactly
+    zero), and equal to themselves run again. Inputs from ``gen``."""
+    from repro_torch.core import routing as ref
+    from repro_torch.kernels import routing_attention as K
+    rows = []
+    for B, H, kc, w, N, dh, mode in FUSED_EDGES:
+        q, k, v, q_idx, k_idx, pos, kvalid, causal = fused_inputs(
+            torch, B, H, kc, w, N, dh, mode, gen)
+        out, lse = K.routed_attention_fused(q, k, v, q_idx, k_idx, pos,
+                                            causal, kvalid)
+        do = torch.randn(out.shape, generator=gen, device=DEVICE,
+                         dtype=torch.bfloat16)
+        args = (q, k, v, q_idx, k_idx, pos, do, lse, K.row_dot(do, out),
+                causal, kvalid)
+        got = (K.routed_attention_fused_bwd_dq(*args),
+               *K.routed_attention_fused_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        a32 = (q.float(), None if k is None else k.float(), v.float(),
+               q_idx.long(), k_idx.long(), pos.long(), do.float(),
+               *args[7:])
+        refs = (ref.routed_attention_bwd_dq(*a32),
+                *ref.routed_attention_bwd_dkv(*a32))
+        keep = fused_keep(torch, q_idx, k_idx, pos, kvalid, causal)
+        row = dict(shape=(f"B{B} H{H} k{kc} w{w} N{N} dh{dh} {mode}"),
+                   grad_rel_err=[max_err(a, r) / sc for a, r, sc in zip(
+                       got, refs, gathered_grad_scales(refs, keep))],
+                   grad_row_rel_err=fused_grad_row_errs(
+                       torch, q, k, v, q_idx, k_idx, pos, do, lse, got,
+                       refs, causal, kvalid),
+                   repeat=fused_repeat(K, args, got),
+                   no_key_rows=int((~keep.any(-1)).sum()),
+                   unkept_keys=int((~keep.any(-2)).sum()))
+        rows.append(row)
+        if not (all(e <= BWD_REL_TOL for e in row["grad_rel_err"])
+                and max(row["grad_row_rel_err"]) <= BWD_ROW_REL_TOL
+                and not any(row["repeat"])):
+            raise AssertionError(f"a fused routing backward kernel "
+                                 f"disagrees with its plain version at a "
+                                 f"ragged shape: {row}")
+    return rows
 
 
 def causal_pairs(B, H, N) -> float:
@@ -1277,6 +1462,43 @@ def backward_digest(torch) -> str:
         args = (qf, kf, vf, pqf, pkf, do, lse, row_dot(do, out), causal)
         take(KG.routed_attention_blocks_bwd_dq(*args),
              *KG.routed_attention_blocks_bwd_dkv(*args))
+    return h.hexdigest()
+
+
+def local_backward_digest(torch) -> str:
+    """A sha256 of the bf16 local backward kernels' dq, dk and dv at
+    rt-enwik8's train shape (its local heads: B 2 x 8192, 4 heads, dh 128,
+    w 256), at rt-cifar10's local layers (B 8 x 3072, 8 heads, dh 64, w
+    512) and at every LOCAL_EDGES shape (through `local_attention_bwd`, dk
+    and dv group-summed), on inputs from a generator of their own (seed
+    4): two builds of the backward bodies they share
+    (csrc/attn_bwd_sm90.cuh) that compute the same bits for the local
+    kernels give the same digest."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import local_attention as K
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    h = hashlib.sha256()
+
+    def take(*ts):
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    cfg, ccfg = get_config(ARCH), get_config(CIFAR_ARCH)
+    for B, H, N, c in ((TRAIN_BATCH, cfg.num_heads // 2, TRAIN_SEQ, cfg),
+                       (CIFAR_BATCH, ccfg.num_heads, CIFAR_SEQ, ccfg)):
+        dh, w = c.head_dim_, c.routing.local_window
+        q, k, v, do = (torch.randn((B, H, N, dh), **mk) for _ in range(4))
+        out, lse = K.local_attention(q, k, v, w)
+        args = (q, k, v, do, lse, row_dot(do, out), w)
+        take(K.local_attention_bwd_dq(*args), *K.local_attention_bwd_dkv(*args))
+    for B, H, Hkv, N, w, dh, causal, padded in LOCAL_EDGES:
+        q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+        pad = local_pad_mask(torch, B, N, gen) if padded else None
+        out, lse = K.local_attention(q, k, v, w, causal, pad)
+        take(*K.local_attention_bwd(q, k, v, out, lse, do, w, causal, pad))
     return h.hexdigest()
 
 
@@ -2374,7 +2596,10 @@ def main(argv=None) -> int:
                                          "routing_gathered_dkv_wgmma"),
                 # and since slice 9 the local dq (both instances) and dk/dv
                 "local_attention_bwd": ("local_bwd_dq_wgmma",
-                                        "local_bwd_dkv_wgmma")}
+                                        "local_bwd_dkv_wgmma"),
+                # and since slice 10 the fused routing dq and dk/dv
+                "routing_fused_bwd": ("routing_fused_dq_wgmma",
+                                      "routing_fused_dkv_wgmma")}
     seen = set()
     for name, log in common.BUILD_LOGS.items():
         entry = ""
@@ -2448,11 +2673,23 @@ def main(argv=None) -> int:
     print(f"flash forward digest {flash_digest}", flush=True)
     bwd_digest = backward_digest(torch)
     print(f"backward digest {bwd_digest}", flush=True)
+    # since slice 10: the fused routing backward at rt-cifar10's routing
+    # heads (B 8 x 3072, 4 heads, dh 64, k 6, w 512) and at its ragged
+    # shapes, on a generator of its own, then a digest of the local
+    # backward, which shares the bodies the fused backward now runs
+    fused_gen = torch.Generator(device=DEVICE).manual_seed(5)
+    cifar_fused_bwd_rows = check_routing_bwd(torch, ccfg, CIFAR_BATCH,
+                                             CIFAR_SEQ, fused_gen)
+    fused_bwd_edges = check_routing_bwd_edges(torch, fused_gen)
+    print(f"fused backward edges {json.dumps(fused_bwd_edges)}", flush=True)
+    local_digest = local_backward_digest(torch)
+    print(f"local backward digest {local_digest}", flush=True)
     for shape_rows in (kern_rows, long_rows, cifar_local_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
     print_rows(wide_bf16_rows)
     print_rows(cifar_local_bwd_rows)
+    print_rows(cifar_fused_bwd_rows)
     t = phase("kernels", t)
 
     # rt-enwik8: serve, then train
@@ -2604,6 +2841,9 @@ def main(argv=None) -> int:
             local_edges=local_edges, flash_forward_digest=flash_digest,
             local_bwd_edges=local_bwd_edges,
             cifar_local_bwd=cifar_local_bwd_rows, backward_digest=bwd_digest,
+            cifar_fused_bwd=cifar_fused_bwd_rows,
+            fused_bwd_edges=fused_bwd_edges,
+            local_backward_digest=local_digest,
             train_full_gate_bf16=full_gate_bf16,
             serving=serving_rows, train_gate=gate,
             train_gathered_gate=gathered_gate, train=train_row,

@@ -1,8 +1,9 @@
 // The bf16 attention backward on Hopper's tensor cores (sm_90a): the dk/dv
 // and dq bodies that the flash backward (flash_attention_bwd.cu), the
-// local-window backward (local_attention_bwd.cu) and the gathered routing
-// backward (routing_gathered_bwd.cu) share. All recompute
-// p from the forward's lse and mask it explicitly:
+// local-window backward (local_attention_bwd.cu), the gathered routing
+// backward (routing_gathered_bwd.cu) and the fused routing backward
+// (routing_fused_bwd.cu) share. All recompute p from the forward's lse and
+// mask it explicitly:
 //   p  = keep ? exp(q.k * scale - lse) : 0
 //   ds = p * (do.v - D) * scale,  D = rowsum(do * out) (computed outside)
 //   dq = ds . K,   dk = ds^T . Q,   dv = p^T . dO
@@ -51,6 +52,18 @@
 //   drop(wg, buf, c, i, tag)  element (owned row of ``tag``, tile row c =
 //                       row i of the plane) is masked
 // dq stages per tile only when P::kTileTags (behind a named barrier).
+//
+// A policy with P::kGatherRows true (the fused routing kernels, whose rows
+// are picked by index from sequence-layout planes, which TMA boxes cannot
+// do) loads the tiles itself by cp.async into the same swizzled layout,
+// with all 256 threads, and the tensor maps go unused:
+//   gather_own(a, b)      the block's owned tiles (dk/dv: K, V; dq: Q, dO)
+//   gather_tile(a, b, i0) the walked tile from plane row i0 (dk/dv: Q, dO;
+//                         dq: K, V), rows past the plane as zeros
+// The owned rows and tile 0 go before the walk; at the top of tile j each
+// thread waits for its own copies, fences them into the async proxy, and
+// the block syncs, which also frees tile j - 1's stage: tile j + 1 is
+// gathered into it while tile j computes. No mbarrier, no ring.
 #pragma once
 
 #include "sm90.cuh"
@@ -60,6 +73,24 @@ namespace sm90 {
 constexpr int HB = 128;        // rows a block owns: two warpgroups of 64
 constexpr int HBN = 64;        // key rows per dq tile
 constexpr float LOG2E = 1.4426950408889634f;
+
+// P::kGatherRows where the policy has it, else false.
+template <typename P, typename = void>
+struct GathersRows {
+  static constexpr bool value = false;
+};
+template <typename P>
+struct GathersRows<P, decltype(void(P::kGatherRows))> {
+  static constexpr bool value = P::kGatherRows;
+};
+
+// The gathering policies' wait for the copies of tile j: each thread's own,
+// then the async proxy's view, then the block's.
+__device__ __forceinline__ void gathered_tile_ready() {
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+}
 
 template <int DH>
 struct DkvSmemH {
@@ -90,6 +121,7 @@ __device__ __forceinline__ void bwd_dkv_body(
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
   const int ntiles = pol.ntiles;
   constexpr uint32_t Q_BYTES = 2 * Sm::BOXES * Sm::QBOX;
+  constexpr bool G = GathersRows<P>::value;
 
   auto load_q = [&](int j) {
     const int s = j % RING_STAGES;
@@ -102,18 +134,26 @@ __device__ __forceinline__ void bwd_dkv_body(
                   pol.q_first + j * BQ, pol.qplane);
     }
   };
-  sm.ring.init(&sm.kvbar);
-  // a block that no query sees loads nothing and writes zeros
-  if (tid == 0 && ntiles > 0) {
-    mbar_expect_tx(&sm.kvbar, 2 * Sm::BOXES * Sm::KBOX);
-#pragma unroll
-    for (int x = 0; x < Sm::BOXES; ++x) {
-      tma_load_3d(&sm.k[x][0][0], &tk, &sm.kvbar, x * BOX_COLS, pol.k0,
-                  pol.kplane);
-      tma_load_3d(&sm.v[x][0][0], &tv, &sm.kvbar, x * BOX_COLS, pol.k0,
-                  pol.kplane);
+  if constexpr (G) {
+    if (ntiles > 0) {
+      pol.gather_own(&sm.k[0][0][0], &sm.v[0][0][0]);
+      pol.gather_tile(&sm.q[0][0][0][0], &sm.dO[0][0][0][0], pol.q_first);
+      cp_async_commit();
     }
-    sm.ring.prime(ntiles, load_q);
+  } else {
+    sm.ring.init(&sm.kvbar);
+    // a block that no query sees loads nothing and writes zeros
+    if (tid == 0 && ntiles > 0) {
+      mbar_expect_tx(&sm.kvbar, 2 * Sm::BOXES * Sm::KBOX);
+#pragma unroll
+      for (int x = 0; x < Sm::BOXES; ++x) {
+        tma_load_3d(&sm.k[x][0][0], &tk, &sm.kvbar, x * BOX_COLS, pol.k0,
+                    pol.kplane);
+        tma_load_3d(&sm.v[x][0][0], &tv, &sm.kvbar, x * BOX_COLS, pol.k0,
+                    pol.kplane);
+      }
+      sm.ring.prime(ntiles, load_q);
+    }
   }
 
   const int lane = t % 32;
@@ -129,7 +169,9 @@ __device__ __forceinline__ void bwd_dkv_body(
   const void* vtile = &sm.v[0][64 * wg][0];
   const size_t plane = static_cast<size_t>(pol.qplane) * pol.N;
 
-  if (ntiles > 0) mbar_wait(&sm.kvbar, 0);
+  if constexpr (!G) {
+    if (ntiles > 0) mbar_wait(&sm.kvbar, 0);
+  }
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % RING_STAGES, buf = j % 2;
     const int q0 = pol.q_first + j * BQ;
@@ -146,7 +188,16 @@ __device__ __forceinline__ void bwd_dkv_body(
       pol.stage(wg, buf, t, q0 + t);
     }
     wg_sync(1 + wg);
-    sm.ring.wait(j);
+    if constexpr (G) {
+      gathered_tile_ready();
+      if (j + 1 < ntiles) {
+        pol.gather_tile(&sm.q[(j + 1) % RING_STAGES][0][0][0],
+                        &sm.dO[(j + 1) % RING_STAGES][0][0][0], q0 + BQ);
+        cp_async_commit();
+      }
+    } else {
+      sm.ring.wait(j);
+    }
     const void* qt = &sm.q[s][0][0][0];
     const void* dot = &sm.dO[s][0][0][0];
     float st[BQ / 2], dpt[BQ / 2];
@@ -226,7 +277,7 @@ __device__ __forceinline__ void bwd_dkv_body(
     fence_regs(ahi);
     fence_regs(alo);
     // stage s is free once both warpgroups are done with it
-    sm.ring.advance(j, ntiles, load_q);
+    if constexpr (!G) sm.ring.advance(j, ntiles, load_q);
   }
 
   const size_t kplane = static_cast<size_t>(pol.qplane) * pol.M;
@@ -275,6 +326,7 @@ __device__ __forceinline__ void bwd_dq_body(
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
   const int ntiles = pol.ntiles;
   constexpr uint32_t KV_BYTES = 2 * Sm::BOXES * Sm::KBOX;
+  constexpr bool G = GathersRows<P>::value;
 
   auto load_kv = [&](int j) {
     const int s = j % RING_STAGES;
@@ -287,17 +339,26 @@ __device__ __forceinline__ void bwd_dq_body(
                   pol.k_first + j * HBN, pol.kplane);
     }
   };
-  sm.ring.init(&sm.qbar);
-  if (tid == 0) {
-    mbar_expect_tx(&sm.qbar, 2 * Sm::BOXES * Sm::QBOX);
-#pragma unroll
-    for (int x = 0; x < Sm::BOXES; ++x) {
-      tma_load_3d(&sm.q[x][0][0], &tq, &sm.qbar, x * BOX_COLS, pol.q0,
-                  pol.qplane);
-      tma_load_3d(&sm.dO[x][0][0], &tdo, &sm.qbar, x * BOX_COLS, pol.q0,
-                  pol.qplane);
+  if constexpr (G) {
+    // a block whose rows see no key loads nothing and writes zeros
+    if (ntiles > 0) {
+      pol.gather_own(&sm.q[0][0][0], &sm.dO[0][0][0]);
+      pol.gather_tile(&sm.k[0][0][0][0], &sm.v[0][0][0][0], pol.k_first);
+      cp_async_commit();
     }
-    sm.ring.prime(ntiles, load_kv);
+  } else {
+    sm.ring.init(&sm.qbar);
+    if (tid == 0) {
+      mbar_expect_tx(&sm.qbar, 2 * Sm::BOXES * Sm::QBOX);
+#pragma unroll
+      for (int x = 0; x < Sm::BOXES; ++x) {
+        tma_load_3d(&sm.q[x][0][0], &tq, &sm.qbar, x * BOX_COLS, pol.q0,
+                    pol.qplane);
+        tma_load_3d(&sm.dO[x][0][0], &tdo, &sm.qbar, x * BOX_COLS, pol.q0,
+                    pol.qplane);
+      }
+      sm.ring.prime(ntiles, load_kv);
+    }
   }
 
   const int lane = t % 32;
@@ -318,7 +379,7 @@ __device__ __forceinline__ void bwd_dq_body(
   const void* qtile = &sm.q[0][64 * wg][0];
   const void* dotile = &sm.dO[0][64 * wg][0];
 
-  mbar_wait(&sm.qbar, 0);
+  if constexpr (!G) mbar_wait(&sm.qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % RING_STAGES, buf = j % 2;
     const int k0 = pol.k_first + j * HBN;
@@ -326,7 +387,16 @@ __device__ __forceinline__ void bwd_dq_body(
       if (t < HBN) pol.stage(wg, buf, t, k0 + t);
       wg_sync(1 + wg);
     }
-    sm.ring.wait(j);
+    if constexpr (G) {
+      gathered_tile_ready();
+      if (j + 1 < ntiles) {
+        pol.gather_tile(&sm.k[(j + 1) % RING_STAGES][0][0][0],
+                        &sm.v[(j + 1) % RING_STAGES][0][0][0], k0 + HBN);
+        cp_async_commit();
+      }
+    } else {
+      sm.ring.wait(j);
+    }
     const void* kt = &sm.k[s][0][0][0];
     const void* vt = &sm.v[s][0][0][0];
     float sc[HBN / 2], dp[HBN / 2];
@@ -388,7 +458,7 @@ __device__ __forceinline__ void bwd_dq_body(
     fence_regs(ahi);
     fence_regs(alo);
     // stage s is free once both warpgroups are done with it
-    sm.ring.advance(j, ntiles, load_kv);
+    if constexpr (!G) sm.ring.advance(j, ntiles, load_kv);
   }
 
 #pragma unroll

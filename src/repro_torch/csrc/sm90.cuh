@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels (the
 // bf16 forward body, attn_fwd_sm90.cuh, and backward bodies,
-// attn_bwd_sm90.cuh, of the flash, local-window and gathered routing
-// kernels): mbarriers, a warpgroup's named barrier, TMA
-// tile loads from a tensor map, a ring of stages that TMA fills and
-// warpgroups consume, the wgmma shared-memory descriptor of the 128-byte
+// attn_bwd_sm90.cuh, of the flash, local-window and routing kernels):
+// mbarriers, a warpgroup's named barrier, TMA tile loads from a tensor
+// map, a ring of stages that TMA fills and warpgroups consume, cp.async
+// gathers of rows picked by index into the same swizzled tiles (the fused
+// routing backward), the wgmma shared-memory descriptor of the 128-byte
 // swizzle, and the bf16 `wgmma` instructions (fp32 accumulators) in SS form
 // (A and B from shared memory, both K-major, m64n32k16, m64n64k16 and
 // m64n128k16) and RS form (A from registers, B MN-major, m64n64k16 and
@@ -173,6 +174,63 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: rows picked by index, into the tiles TMA would land
+// ---------------------------------------------------------------------------
+// 16 bytes from global ``src`` to shared ``dst`` (both 16-byte aligned);
+// with ``bytes`` 0, 16 zero bytes, and nothing is read.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most ``PENDING`` of the calling thread's committed groups
+// of copies are still in flight.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+// Makes the calling thread's completed writes to shared memory through the
+// generic proxy (cp.async, st.shared) visible to the async proxy, which
+// wgmma reads through; a barrier then carries them to the other threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ROWS rows of a bf16 (rows, DH) plane into a tile of DH / 64 boxes of
+// ROWS x 128 bytes, laid out as TMA lands a box under
+// CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r at byte
+// r * 128 + ((c ^ (r % 8)) * 16) of its box (box base 1024-byte aligned).
+// Tile row r is plane row ``row(r)``, or zeros where that is negative (as
+// TMA fills rows past a plane). All BLOCK_THREADS threads, one 16-byte
+// copy each at a time, neighbouring threads on neighbouring chunks of a
+// row; each thread keeps one chunk and row % 8, so its swizzled offset is
+// fixed. The copies belong to the calling thread's next committed group.
+template <int DH, int ROWS, typename Row>
+__device__ __forceinline__ void gather_rows(void* tile,
+                                            const __nv_bfloat16* plane,
+                                            Row row) {
+  constexpr int CHUNKS = DH / 8;   // 16-byte chunks of a row
+  constexpr int PER = ROWS * CHUNKS / BLOCK_THREADS;
+  static_assert(PER * BLOCK_THREADS == ROWS * CHUNKS, "whole copies");
+  const int c = threadIdx.x % CHUNKS, r0 = threadIdx.x / CHUNKS;
+  char* dst = static_cast<char*>(tile) + (c / 8) * ROWS * ROW_BYTES +
+              r0 * ROW_BYTES + (((c % 8) ^ (r0 % 8)) * 16);
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int r = r0 + m * (BLOCK_THREADS / CHUNKS);   // r % 8 == r0 % 8
+    const int i = row(r);
+    cp_async_16(dst + m * (BLOCK_THREADS / CHUNKS) * ROW_BYTES,
+                plane + static_cast<size_t>(i < 0 ? 0 : i) * DH + c * 8,
+                i < 0 ? 0u : 16u);
+  }
 }
 
 // ---------------------------------------------------------------------------
