@@ -54,7 +54,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    zero) and run twice, equal bit for bit, with `graph_ms`, at
    rt-enwik8's train shape, at rt-cifar10's routing heads (B 8 x 3072, 4
    heads, k 6, w 512) and in bf16 at the 48 `FUSED_EDGES`; a digest of
-   the local backward's outputs (`local_backward_digest`);
+   the local backward's outputs (`local_backward_digest`); the fused
+   routing forward (since slice 11 bf16 on the tensor cores, no spill)
+   against its plain version in fp32, row by row (`fused_fwd_row_errs`:
+   rows that keep no key exactly zero with the plain lse) and run twice,
+   equal bit for bit, with `graph_ms`, the fp64 and SDPA readings and the
+   gathered forward's `graph_ms` on the same members' blocks beside it,
+   at rt-enwik8's train shape, at rt-cifar10's routing heads and at
+   rt-enwik8's 4 x 2048 prefill (`check_routing_fwd`), and at the 48
+   `FUSED_EDGES` (`check_routing_fwd_edges`); a digest of the local and
+   gathered forwards' outputs (`forward_digest`);
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -1150,6 +1159,147 @@ def check_routing_bwd_edges(torch, gen) -> list:
     return rows
 
 
+def fused_fwd_row_errs(torch, out, lse, ref_out, ref_lse, q_idx, k_idx,
+                       positions, causal=True, kvalid=None) -> float:
+    """The fused routing forward's per-cluster output (``out``, (B, H, k,
+    w, dh)) against its plain version's (``ref_out``), row by row: the
+    largest `row_rel_err` over the members' blocks, as the gathered
+    forward's rows are held. A row that keeps no key (under `fused_keep`)
+    is zero in the plain version, so any other value already reads over
+    the limit; such a row must also be exactly zero with the plain
+    version's lse, else this reads inf."""
+    err = row_rel_err(out, ref_out)
+    no_key = ~fused_keep(torch, q_idx, k_idx, positions, kvalid,
+                         causal).any(-1)
+    if bool(no_key.any()) and not (
+            float(out.float().abs().amax(-1).masked_select(no_key).max())
+            == 0.0 and bool(lse.masked_select(no_key).equal(
+                ref_lse.masked_select(no_key)))):
+        return math.inf
+    return err
+
+
+def fused_fwd_repeat(K, args, got) -> list:
+    """The fused forward run again on ``args``: 0.0 where the second run's
+    out and lse equal ``got`` bit for bit, else the largest difference."""
+    again = K.routed_attention_fused(*args)
+    return [0.0 if bool(a.equal(g)) else max(max_err(a, g), 1e-30)
+            for a, g in zip(again, got)]
+
+
+def _fused_fwd_gates(row):
+    return (row["out_rel_err"] <= OUT_REL_TOL
+            and row["row_rel_err"] <= ROW_REL_TOL
+            and row["lse_err"] <= LSE_TOL and not any(row["repeat"]))
+
+
+def check_routing_fwd(torch, cfg, B, N, gen):
+    """The fused routing forward in bf16 at a train shape (causal
+    shared-QK, as the LM runs it; half the model's heads route, w = N /
+    k), against its plain version in fp32 on the same inputs: the largest
+    value (OUT_REL_TOL), every row (ROW_REL_TOL, `fused_fwd_row_errs`:
+    no-key rows exactly zero with the plain lse), lse (LSE_TOL), and a
+    second run equal to the first bit for bit. Timed by the host clock,
+    in a CUDA graph (`graph_ms`) and beside the plain version; the fp64
+    and SDPA readings over the members' blocks (keep mask), and the
+    gathered forward's `graph_ms` on the same blocks (gathered through
+    `core.routing.gather_blocks`), are yardsticks, never limits."""
+    from repro_torch.core import routing as ref
+    from repro_torch.core.kmeans import cluster_scores, normalize_routing
+    from repro_torch.kernels import routing_attention as K
+    from repro_torch.kernels import routing_gathered as KG
+    dh, kc = cfg.head_dim_, cfg.routing.num_clusters
+    H = cfg.num_heads // 2
+    w = N // kc
+    q, v = (torch.randn((B, H, N, dh), generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mu = torch.randn((H, kc, dh), generator=gen, device=DEVICE)
+    r = normalize_routing(q)
+    idx = ref.balanced_topk(cluster_scores(r, mu), w).int().contiguous()
+    pos = torch.arange(N, device=DEVICE, dtype=torch.int32).expand(
+        B, N).contiguous()
+    args = (r, None, v, idx, idx, pos)
+    out, lse = K.routed_attention_fused(*args)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = K.routed_attention_fused_plain(
+        r.float(), None, v.float(), idx, idx, pos)
+    row = dict(max_abs_err=max_err(out, ref_out),
+               out_rel_err=rel_err(out, ref_out),
+               row_rel_err=fused_fwd_row_errs(torch, out, lse, ref_out,
+                                              ref_lse, idx, idx, pos),
+               lse_err=max_err(lse, ref_lse),
+               repeat=fused_fwd_repeat(K, args, (out, lse)))
+    if not _fused_fwd_gates(row):
+        raise AssertionError(f"the bf16 routing_fused disagrees with its "
+                             f"plain version or with itself: {row}")
+    li, lp = idx.long(), pos.long()
+    qg, _, vg, pq, _, _ = ref.gather_blocks(r, None, v, li, li, lp)
+    n = B * H * kc
+    keep = fused_keep(torch, idx, idx, pos)
+    ref64 = ref.block_attention(qg.double(), qg.double(), vg.double(), pq,
+                                pq, True)
+    row.update(**fwd_fp64_errs(out, ref_out, ref64),
+               **sdpa_out_errs(torch, qg.reshape(n, 1, w, dh),
+                               qg.reshape(n, 1, w, dh),
+                               vg.reshape(n, 1, w, dh),
+                               ref_out.reshape(n, 1, w, dh),
+                               mask=keep.reshape(n, 1, w, w)))
+    del ref_out, ref_lse, ref64
+    pairs = float(keep.sum())
+    b_ms, b_by = bound_ms(nbytes(r, v, idx, pos, out, lse), 4 * dh * pairs)
+    fwd = lambda: K.routed_attention_fused(*args)  # noqa: E731
+    ms = time_ms(fwd)
+    g_ms = graph_ms(torch, fwd)
+    qf, vf = qg.reshape(n, w, dh), vg.reshape(n, w, dh)
+    pqf = pq.reshape(n, w).to(torch.int32).contiguous()
+    row.update(
+        ms=ms, graph_ms=g_ms,
+        plain_ms=time_ms(lambda: K.routed_attention_fused_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / g_ms, pairs=pairs,
+        gathered_graph_ms=graph_ms(torch, lambda: KG.routed_attention_blocks(
+            qf, qf, vf, pqf, pqf, True)),
+        shape=f"B{B} H{H} N{N} dh{dh} k{kc} w{w} bf16 causal shared-QK")
+    return {"routing_fused": row}
+
+
+def check_routing_fwd_edges(torch, gen) -> list:
+    """The fused routing forward in bf16 at FUSED_EDGES, against its plain
+    version in fp32 on the same inputs: the gates of `check_routing_fwd`
+    (out within OUT_REL_TOL of its largest value and within ROW_REL_TOL in
+    every row, rows that keep no key exactly zero with the plain lse, lse
+    within LSE_TOL, a second run equal to the first bit for bit). Inputs
+    from ``gen`` (`fused_inputs`)."""
+    from repro_torch.kernels import routing_attention as K
+    rows = []
+    for B, H, kc, w, N, dh, mode in FUSED_EDGES:
+        q, k, v, q_idx, k_idx, pos, kvalid, causal = fused_inputs(
+            torch, B, H, kc, w, N, dh, mode, gen)
+        args = (q, k, v, q_idx, k_idx, pos, causal, kvalid)
+        out, lse = K.routed_attention_fused(*args)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = K.routed_attention_fused_plain(
+            q.float(), None if k is None else k.float(), v.float(), q_idx,
+            k_idx, pos, causal, kvalid)
+        keep = fused_keep(torch, q_idx, k_idx, pos, kvalid, causal)
+        row = dict(shape=f"B{B} H{H} k{kc} w{w} N{N} dh{dh} {mode}",
+                   out_rel_err=rel_err(out, ref_out),
+                   row_rel_err=fused_fwd_row_errs(
+                       torch, out, lse, ref_out, ref_lse, q_idx, k_idx, pos,
+                       causal, kvalid),
+                   lse_err=max_err(lse, ref_lse),
+                   repeat=fused_fwd_repeat(K, args, (out, lse)),
+                   no_key_rows=int((~keep.any(-1)).sum()))
+        rows.append(row)
+        if not _fused_fwd_gates(row):
+            raise AssertionError(f"the bf16 routing_fused disagrees with "
+                                 f"its plain version at a ragged shape: "
+                                 f"{row}")
+        if mode == "padded" and not row["no_key_rows"]:
+            raise AssertionError(f"no query keeps no key at {row['shape']}: "
+                                 f"the padded cluster is not empty")
+    return rows
+
+
 def causal_pairs(B, H, N) -> float:
     """Attended (query, key) pairs of causal dense attention, N = M."""
     return B * H * N * (N + 1) / 2
@@ -1499,6 +1649,54 @@ def local_backward_digest(torch) -> str:
         pad = local_pad_mask(torch, B, N, gen) if padded else None
         out, lse = K.local_attention(q, k, v, w, causal, pad)
         take(*K.local_attention_bwd(q, k, v, out, lse, do, w, causal, pad))
+    return h.hexdigest()
+
+
+def forward_digest(torch) -> str:
+    """A sha256 of the bf16 local and gathered forwards' outputs and lse:
+    the local forward at rt-enwik8's serving shapes (B 4 x 2048 and B 1 x
+    8192, 4 heads, dh 128, w 256), at rt-cifar10's local layers (B 8 x
+    3072, 8 heads, dh 64, w 512) and at every LOCAL_EDGES shape; the
+    gathered forward at rt-cifar10's blocks (B 8, 4 heads, k 6, w 512, dh
+    64), rt-enwik8's (B 1, 4 heads, k 32, w 256, dh 128) and every
+    GATHERED_EDGES shape; on inputs from a generator of their own (seed
+    7): two builds of the forward body they share with the flash and the
+    fused routing forwards (csrc/attn_fwd_sm90.cuh) that compute the same
+    bits for these two kernels give the same digest."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import local_attention as KL
+    from repro_torch.kernels import routing_gathered as KG
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    h = hashlib.sha256()
+
+    def take(*ts):
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    cfg, ccfg = get_config(ARCH), get_config(CIFAR_ARCH)
+    (B1, N1, _), (B2, N2, _) = REQUESTS
+    for B, H, N, c in ((B1, cfg.num_heads // 2, N1, cfg),
+                       (B2, cfg.num_heads // 2, N2, cfg),
+                       (CIFAR_BATCH, ccfg.num_heads, CIFAR_SEQ, ccfg)):
+        dh, w = c.head_dim_, c.routing.local_window
+        q, k, v = (torch.randn((B, H, N, dh), **mk) for _ in range(3))
+        take(*KL.local_attention(q, k, v, w))
+    for B, H, Hkv, N, w, dh, causal, padded in LOCAL_EDGES:
+        q = torch.randn((B, H, N, dh), **mk)
+        k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+        pad = local_pad_mask(torch, B, N, gen) if padded else None
+        take(*KL.local_attention(q, k, v, w, causal, pad))
+    for B, H, kc, w, dh, causal, shared, empty in (
+            (CIFAR_BATCH, 4, 6, 512, 64, True, True, False),
+            (1, cfg.num_heads // 2, cfg.routing.num_clusters,
+             TRAIN_SEQ // cfg.routing.num_clusters, cfg.head_dim_, True,
+             True, False),
+            *((*e, True) for e in GATHERED_EDGES)):
+        qf, kf, vf, pqf, pkf = gathered_inputs(
+            torch, B, H, kc, w, dh, torch.bfloat16, gen, causal, shared,
+            empty_cluster=empty)
+        take(*KG.routed_attention_blocks(qf, kf, vf, pqf, pkf, causal))
     return h.hexdigest()
 
 
@@ -2599,7 +2797,9 @@ def main(argv=None) -> int:
                                         "local_bwd_dkv_wgmma"),
                 # and since slice 10 the fused routing dq and dk/dv
                 "routing_fused_bwd": ("routing_fused_dq_wgmma",
-                                      "routing_fused_dkv_wgmma")}
+                                      "routing_fused_dkv_wgmma"),
+                # and since slice 11 the fused routing forward
+                "routing_fused": ("routing_fused_wgmma",)}
     seen = set()
     for name, log in common.BUILD_LOGS.items():
         entry = ""
@@ -2684,12 +2884,32 @@ def main(argv=None) -> int:
     print(f"fused backward edges {json.dumps(fused_bwd_edges)}", flush=True)
     local_digest = local_backward_digest(torch)
     print(f"local backward digest {local_digest}", flush=True)
+    # since slice 11: the bf16 fused routing forward at rt-enwik8's train
+    # shape (B 2 x 8192, 4 heads, dh 128, k 32, w 256), at rt-cifar10's
+    # routing heads (B 8 x 3072, 4 heads, dh 64, k 6, w 512), at
+    # rt-enwik8's 4 x 2048 prefill (w 64) and at its ragged shapes, on a
+    # generator of its own, then a digest of the local and gathered
+    # forwards, which share the body the fused forward now runs
+    fused_fwd_gen = torch.Generator(device=DEVICE).manual_seed(6)
+    fused_fwd_rows = {
+        "rt-enwik8": check_routing_fwd(torch, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                       fused_fwd_gen),
+        "rt-cifar10": check_routing_fwd(torch, ccfg, CIFAR_BATCH, CIFAR_SEQ,
+                                        fused_fwd_gen),
+        "rt-enwik8 prefill": check_routing_fwd(torch, cfg, B1, N1,
+                                               fused_fwd_gen)}
+    fused_fwd_edges = check_routing_fwd_edges(torch, fused_fwd_gen)
+    print(f"fused forward edges {json.dumps(fused_fwd_edges)}", flush=True)
+    fwd_digest = forward_digest(torch)
+    print(f"forward digest {fwd_digest}", flush=True)
     for shape_rows in (kern_rows, long_rows, cifar_local_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
     print_rows(wide_bf16_rows)
     print_rows(cifar_local_bwd_rows)
     print_rows(cifar_fused_bwd_rows)
+    for shape_rows in fused_fwd_rows.values():
+        print_rows(shape_rows)
     t = phase("kernels", t)
 
     # rt-enwik8: serve, then train
@@ -2844,6 +3064,8 @@ def main(argv=None) -> int:
             cifar_fused_bwd=cifar_fused_bwd_rows,
             fused_bwd_edges=fused_bwd_edges,
             local_backward_digest=local_digest,
+            fused_fwd=fused_fwd_rows, fused_fwd_edges=fused_fwd_edges,
+            forward_digest=fwd_digest,
             train_full_gate_bf16=full_gate_bf16,
             serving=serving_rows, train_gate=gate,
             train_gathered_gate=gathered_gate, train=train_row,

@@ -74,24 +74,6 @@ constexpr int HB = 128;        // rows a block owns: two warpgroups of 64
 constexpr int HBN = 64;        // key rows per dq tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// P::kGatherRows where the policy has it, else false.
-template <typename P, typename = void>
-struct GathersRows {
-  static constexpr bool value = false;
-};
-template <typename P>
-struct GathersRows<P, decltype(void(P::kGatherRows))> {
-  static constexpr bool value = P::kGatherRows;
-};
-
-// The gathering policies' wait for the copies of tile j: each thread's own,
-// then the async proxy's view, then the block's.
-__device__ __forceinline__ void gathered_tile_ready() {
-  cp_async_wait<0>();
-  fence_proxy_async();
-  __syncthreads();
-}
-
 template <int DH>
 struct DkvSmemH {
   static constexpr int BOXES = DH / BOX_COLS;

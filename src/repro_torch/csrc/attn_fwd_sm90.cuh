@@ -1,7 +1,7 @@
 // The bf16 attention forward on Hopper's tensor cores (sm_90a): the body
 // that the flash forward (flash_attention.cu), the local-window forward
-// (local_attention.cu) and the gathered routing forward
-// (routing_gathered.cu) share.
+// (local_attention.cu), the gathered routing forward (routing_gathered.cu)
+// and the fused routing forward (routing_fused.cu) share.
 //
 // A block of 256 threads owns 128 query rows of one plane, 64 per
 // warpgroup; TMA loads its Q once and walks key tiles of 128 rows through
@@ -39,6 +39,21 @@
 //   edge(wg, buf, k0)   whether this warpgroup masks the tile at all
 //   drop(wg, buf, c, j, tag)  element (owned row of ``tag``, tile column
 //                       c = key row j) is masked
+//
+// A policy with P::kGatherRows true (the fused routing forward, whose rows
+// are a cluster's members picked by index from sequence-layout planes,
+// which TMA boxes cannot pick) loads the tiles itself by cp.async into the
+// same swizzled layout, with all 256 threads, as the backward bodies'
+// gathering policies do (attn_bwd_sm90.cuh), and the tensor maps go
+// unused:
+//   gather_own(q)         the block's 128 query rows
+//   gather_tile(k, v, k0) the walked K and V tile from key row k0, rows
+//                         past the keys as zeros
+// Q and tile 0 go before the walk; at the top of tile j each thread waits
+// for its own copies, fences them into the async proxy, and the block
+// syncs, which also frees tile j - 1's stage: tile j + 1 is gathered into
+// it while tile j computes. No mbarrier, no ring; a block whose walk is
+// empty gathers nothing.
 #pragma once
 
 #include "common.cuh"
@@ -86,14 +101,23 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
                   pol.k_first + j * FWD_KEYS, pol.kplane);
     }
   };
-  sm.ring.init(&sm.qbar);
-  if (tid == 0) {
-    mbar_expect_tx(&sm.qbar, Sm::BOXES * Sm::QBOX);
+  constexpr bool G = GathersRows<P>::value;
+  if constexpr (G) {
+    if (ntiles > 0) {
+      pol.gather_own(&sm.q[0][0][0]);
+      pol.gather_tile(&sm.k[0][0][0][0], &sm.v[0][0][0][0], pol.k_first);
+      cp_async_commit();
+    }
+  } else {
+    sm.ring.init(&sm.qbar);
+    if (tid == 0) {
+      mbar_expect_tx(&sm.qbar, Sm::BOXES * Sm::QBOX);
 #pragma unroll
-    for (int x = 0; x < Sm::BOXES; ++x)
-      tma_load_3d(&sm.q[x][0][0], &tq, &sm.qbar, x * BOX_COLS, pol.q0,
-                  pol.qplane);
-    sm.ring.prime(ntiles, load_kv);
+      for (int x = 0; x < Sm::BOXES; ++x)
+        tma_load_3d(&sm.q[x][0][0], &tq, &sm.qbar, x * BOX_COLS, pol.q0,
+                    pol.qplane);
+      sm.ring.prime(ntiles, load_kv);
+    }
   }
 
   const int lane = t % 32;
@@ -109,7 +133,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   const void* qtile = &sm.q[0][64 * wg][0];
 
-  mbar_wait(&sm.qbar, 0);
+  if constexpr (!G) mbar_wait(&sm.qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % RING_STAGES, buf = j % 2;
     const int k0 = pol.k_first + j * FWD_KEYS;
@@ -117,7 +141,17 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
       pol.stage(wg, buf, t, k0 + t);
       wg_sync(1 + wg);
     }
-    sm.ring.wait(j);
+    if constexpr (G) {
+      gathered_tile_ready();
+      if (j + 1 < ntiles) {
+        pol.gather_tile(&sm.k[(j + 1) % RING_STAGES][0][0][0],
+                        &sm.v[(j + 1) % RING_STAGES][0][0][0],
+                        k0 + FWD_KEYS);
+        cp_async_commit();
+      }
+    } else {
+      sm.ring.wait(j);
+    }
     float sc[FWD_KEYS / 2];
     wgmma_fence();
 #pragma unroll
@@ -191,7 +225,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
     fence_regs(acc);
     fence_regs(pa);
     // stage s is free once both warpgroups are done with it
-    sm.ring.advance(j, ntiles, load_kv);
+    if constexpr (!G) sm.ring.advance(j, ntiles, load_kv);
   }
 
 #pragma unroll

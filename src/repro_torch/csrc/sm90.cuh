@@ -4,7 +4,7 @@
 // mbarriers, a warpgroup's named barrier, TMA tile loads from a tensor
 // map, a ring of stages that TMA fills and warpgroups consume, cp.async
 // gathers of rows picked by index into the same swizzled tiles (the fused
-// routing backward), the wgmma shared-memory descriptor of the 128-byte
+// routing kernels), the wgmma shared-memory descriptor of the 128-byte
 // swizzle, and the bf16 `wgmma` instructions (fp32 accumulators) in SS form
 // (A and B from shared memory, both K-major, m64n32k16, m64n64k16 and
 // m64n128k16) and RS form (A from registers, B MN-major, m64n64k16 and
@@ -231,6 +231,25 @@ __device__ __forceinline__ void gather_rows(void* tile,
                 plane + static_cast<size_t>(i < 0 ? 0 : i) * DH + c * 8,
                 i < 0 ? 0u : 16u);
   }
+}
+
+// P::kGatherRows where the policy has it, else false: whether a body's
+// policy gathers its rows by cp.async (`gather_rows`) instead of TMA.
+template <typename P, typename = void>
+struct GathersRows {
+  static constexpr bool value = false;
+};
+template <typename P>
+struct GathersRows<P, decltype(void(P::kGatherRows))> {
+  static constexpr bool value = P::kGatherRows;
+};
+
+// The gathering policies' wait for the copies of tile j: each thread's own,
+// then the async proxy's view, then the block's.
+__device__ __forceinline__ void gathered_tile_ready() {
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

@@ -15,6 +15,14 @@ blocks; the Function scatter-adds them to sequence layout. Every wrapper
 sends a CPU tensor to its plain PyTorch version (``core/routing.py``:
 gather the blocks, attend) and launches its kernel on a CUDA tensor, or
 raises.
+
+The dtype picks the design, and nothing falls back: bf16 (dh 64 and 128)
+runs on Hopper's tensor cores (`routing_fused_wgmma`, and
+`routing_fused_dq_wgmma` / `routing_fused_dkv_wgmma`: the shared forward
+and backward bodies, each cluster's member rows gathered by cp.async
+straight from the sequence planes, no gathered copy in device memory);
+fp32 runs the FMA kernels (`routing_fused_kernel`, and the backward's),
+which keep full fp32 products.
 """
 from __future__ import annotations
 
