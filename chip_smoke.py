@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out report.json]
+    python3 chip_smoke.py --decode-only [--src OTHER/src] [--out FILE]
 
 Phases, each of which raises on failure (exit code 1, no result line):
 
@@ -63,7 +64,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    at rt-enwik8's train shape, at rt-cifar10's routing heads and at
    rt-enwik8's 4 x 2048 prefill (`check_routing_fwd`), and at the 48
    `FUSED_EDGES` (`check_routing_fwd_edges`); a digest of the local and
-   gathered forwards' outputs (`forward_digest`);
+   gathered forwards' outputs (`forward_digest`); the paged decode (since
+   slice 12 a thread-block cluster per (batch, head), no spill) in bf16
+   and fp32 at the four shapes the serving paths give it and at the 12
+   `DECODE_EDGES` (`check_decode_shapes`): every (b, h) row within
+   ROW_REL_TOL of its own largest value (`decode_row_errs`), a page with
+   no occupied slot giving v_new bit for bit, slots past the occupied
+   ones poisoned and a second run leaving the bits as they were, each
+   with `graph_ms` and an L2-cold reading (`cold_ms`);
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -114,8 +122,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    of serving with exact launches;
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
-   decode step and train step, of one qwen2 train step and of one
-   rt-cifar10 train step on each of its two kernel paths.
+   decode step and train step, of one qwen2 train step, of one
+   rt-cifar10 train step on each of its two kernel paths and of one
+   rt-cifar10 prefill and decode step.
+
+``--decode-only`` builds only the decode kernel and runs only
+`check_decode_shapes`; with ``--src`` it imports repro_torch from another
+checkout, so that tree's decode kernel reads the same inputs.
 
 Exits non-zero without a result when no CUDA device is present, or when
 run outside a checkout of the repository.
@@ -224,6 +237,21 @@ FUSED_EDGES = tuple(
     (1, 2, 3, w, N, dh, mode) for w in (1, 63, 129, 200)
     for N in (3 * w, 3 * w + w // 2 + 3) for dh in (64, 128)
     for mode in ("shared", "separate", "padded"))
+# the paged decode at the shapes the serving paths give it, (name, B, Hr,
+# dh, k, cap): rt-enwik8's 4 x (2048 + 32) and 1 x (8192 + 16) (cap =
+# max_len / k), rt-cifar10's and the all-routing row's 2 x (1536 + 32 or
+# 8) (cap = the window, 512)
+DECODE_SHAPES = (("rt-enwik8 4x2048", 4, 4, 128, 32, 65),
+                 ("rt-enwik8 1x8192", 1, 4, 128, 32, 256),
+                 ("rt-cifar10 2x1536", 2, 4, 64, 6, 512),
+                 ("all-routing 2x1536", 2, 8, 64, 6, 512))
+# and at caps its split over a cluster's CTAs and its chunks make ragged,
+# (B, Hr, dh, k, cap): caps of 1, 31, 33, 65, 512 and 1000, none a
+# multiple of the ranks times the chunk rows, dh 64 and 128; head h reads
+# a page of kind h (`decode_pages`: empty, one slot, partly full, exactly
+# full, wrapped), batch row 0 page 0 and batch row 1 page k - 1
+DECODE_EDGES = tuple((2, 5, dh, 3, cap) for cap in (1, 31, 33, 65, 512, 1000)
+                     for dh in (64, 128))
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -417,8 +445,8 @@ def card_line() -> str:
 def print_dynamic_smem() -> None:
     """Dynamic shared memory per block, which ptxas does not report: the
     forward tile (local, fused routing and flash forward kernels), the dq
-    and dk/dv tiles (their backward kernels); the decode kernel takes
-    (cap + 1) fp32 scores."""
+    and dk/dv tiles (their backward kernels); the decode kernel takes none
+    since slice 12 (its ring of chunks is static: its ptxas line)."""
     import ctypes
     from repro_torch.kernels import common
     fwd = common.load("flash_attention", "forward_tile_smem_bytes",
@@ -428,7 +456,7 @@ def print_dynamic_smem() -> None:
     for dh in (64, 128):
         print(f"  dynamic smem per block, dh {dh}: forward tile {fwd(dh)} "
               f"B, dq tile {bwd(dh, 0)} B, dk/dv tile {bwd(dh, 1)} B; "
-              f"decode (cap + 1) * 4 B")
+              f"decode none")
     # the bf16 flash kernels run on the tensor cores with tiles of their own
     fwd_tc = common.load("flash_attention", "flash_fwd_wgmma_smem_bytes",
                          [ctypes.c_int])
@@ -719,6 +747,147 @@ def check_decode(torch, cfg, B, max_len, gen):
             r, v_new, rk, rv, rlen, cluster)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         shape=f"B{B} Hr{Hr} dh{dh} k{kc} cap{cap}")
+
+
+def decode_pages(cap) -> tuple:
+    """rlen of the page kinds a `DECODE_EDGES` reading's heads read: empty,
+    one slot, partly full, exactly full, wrapped (rlen past cap)."""
+    return (0, 1, max(1, cap // 2), cap, 3 * cap + 2)
+
+
+def decode_inputs(torch, B, Hr, dh, kc, cap, dtype, gen, pages=None):
+    """One decode call's inputs in ``dtype``. r and the page keys are
+    routing vectors (norm sqrt(dh), as `normalize_routing` makes them),
+    each key r's own direction plus noise of a size drawn per slot, so the
+    page's logits spread below the self logit and every slot counts (a
+    cluster's members resemble its token); values N(0, 1). rlen from [0,
+    2 cap) and cluster ids at random; with ``pages`` (`decode_pages`), head
+    h reads a page of kind h, batch row 0 page 0 and the others page
+    k - 1."""
+    from repro_torch.core.kmeans import normalize_routing
+    f = dict(generator=gen, device=DEVICE)
+    r = normalize_routing(torch.randn((B, Hr, dh), **f))
+    spread = torch.rand((B, Hr, kc, cap, 1), **f) * 2.5 + 0.5
+    rk = normalize_routing(r[:, :, None, None] + spread * torch.randn(
+        (B, Hr, kc, cap, dh), **f))
+    v_new = torch.randn((B, Hr, dh), **f)
+    rv = torch.randn((B, Hr, kc, cap, dh), **f)
+    rlen = torch.randint(0, 2 * cap, (B, Hr, kc), dtype=torch.int32, **f)
+    cluster = torch.randint(0, kc, (B, Hr), dtype=torch.int32, **f)
+    if pages is not None:
+        cluster[0], cluster[1:] = 0, kc - 1
+        kinds = torch.tensor(pages, dtype=torch.int32, device=DEVICE)
+        rlen.scatter_(2, cluster.long()[..., None], kinds[
+            torch.arange(Hr, device=DEVICE) % len(pages)].expand(B, Hr)[
+                ..., None])
+    return (*(t.to(dtype) for t in (r, v_new, rk, rv)), rlen, cluster)
+
+
+def decode_row_errs(out, ref) -> list:
+    """The decode's output (B, Hr, dh) against its plain version's, each
+    (b, h) row held to its own largest value: max |out - ref| / max |ref|
+    over the row's dh values, row by row. The largest value of the whole
+    output (`out_ok`) lets a row whose values are small go wrong by far
+    more than its own size."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    return (err / ref.abs().amax(-1).clamp_min(1e-30)).flatten().tolist()
+
+
+def cold_ms(torch, fn, iters: int = 20) -> float:
+    """The median time of one call of ``fn`` after a 64 MB write has
+    flushed the 50 MB L2, as a serving step may find its page cold: CUDA
+    events around each call, the card held busy (`torch.cuda._sleep`)
+    while the host enqueues it, so the events bracket the kernel and not
+    the wrapper's host time."""
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+    events = []
+    for _ in range(iters + 2):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events[2:])
+
+
+def _decode_reading(torch, K, shape, B, Hr, dh, kc, cap, dtype, gen,
+                    pages=None):
+    """One `check_decode_shapes` reading: the kernel against its plain
+    version in fp32 on the same inputs, row by row, and its exact cases."""
+    args = decode_inputs(torch, B, Hr, dh, kc, cap, dtype, gen, pages)
+    r, v_new, rk, rv, rlen, cluster = args
+    out = K.paged_routing_decode(*args)
+    torch.cuda.synchronize()
+    ref = K.paged_routing_decode_plain(*(t.float() for t in args[:4]), rlen,
+                                       cluster)
+    nvalid = torch.gather(rlen, 2, cluster.long()[..., None])[..., 0].clamp(
+        0, cap)
+    empty = nvalid == 0
+    # the selected pages' slots at or past nvalid, poisoned
+    past = (torch.arange(kc, device=DEVICE) == cluster[..., None])[..., None] \
+        & (torch.arange(cap, device=DEVICE) >= nvalid[..., None, None])
+    poisoned = K.paged_routing_decode(
+        r, v_new, rk.masked_fill(past[..., None], 1e4),
+        rv.masked_fill(past[..., None], 1e4), rlen, cluster)
+    again = K.paged_routing_decode(*args)
+    slots = float(nvalid.sum())
+    b_ms, b_by = bound_ms(
+        nbytes(r, v_new, out, cluster) + 2 * slots * dh * r.element_size()
+        + 4 * B * Hr, 4 * dh * (slots + B * Hr))
+    call = lambda: K.paged_routing_decode(*args)  # noqa: E731
+    g_ms = graph_ms(torch, call)
+    spare = torch.empty_like(v_new)
+    return dict(
+        shape=f"{shape} B{B} Hr{Hr} dh{dh} k{kc} cap{cap} "
+              f"{str(dtype).split('.')[-1]}",
+        max_abs_err=max_err(out, ref), out_rel_err=rel_err(out, ref),
+        row_err=max(decode_row_errs(out, ref)), slots=slots,
+        empty_rows=int(empty.sum()),
+        empty_exact=bool(out[empty].equal(v_new[empty])),
+        poison_exact=bool(poisoned.equal(out)),
+        repeat_exact=bool(again.equal(out)),
+        graph_ms=g_ms, cold_ms=cold_ms(torch, call), bound_ms=b_ms,
+        bound_by=b_by, bound_share=b_ms / g_ms,
+        copy_graph_ms=graph_ms(torch, lambda: spare.copy_(v_new)))
+
+
+def check_decode_shapes(torch, gen) -> dict:
+    """The paged decode in bf16 and fp32 at `DECODE_SHAPES` and
+    `DECODE_EDGES` (inputs from ``gen``, `decode_inputs`), against its
+    plain version in fp32 on the same inputs: every (b, h) row within
+    ROW_REL_TOL of its own largest value (`decode_row_errs`), a page with
+    no occupied slot giving v_new bit for bit, the same bits with the
+    selected pages' slots at or past nvalid poisoned (1e4) and in a second
+    run. Each reading's `graph_ms` (L2 warm) and `cold_ms` (L2 flushed
+    before each call) beside its bound (each input byte that the call
+    needs read once, the output written once) and, as the floor a launch
+    sets in a graph, the `graph_ms` of one copy of v_new (`copy_graph_ms`;
+    a yardstick, never a limit). Prints the readings."""
+    from repro_torch.kernels import routing_decode as K
+    res = dict(shapes=[], edges=[])
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, Hr, dh, kc, cap in DECODE_SHAPES:
+            res["shapes"].append(_decode_reading(torch, K, name, B, Hr, dh,
+                                                 kc, cap, dtype, gen))
+        for B, Hr, dh, kc, cap in DECODE_EDGES:
+            res["edges"].append(_decode_reading(
+                torch, K, "edge", B, Hr, dh, kc, cap, dtype, gen,
+                decode_pages(cap)))
+    for row in res["shapes"] + res["edges"]:
+        if not (row["row_err"] <= ROW_REL_TOL and row["empty_exact"]
+                and row["poison_exact"] and row["repeat_exact"]):
+            raise AssertionError(f"routing_decode disagrees with its plain "
+                                 f"version or with itself: {row}")
+    if not all(row["empty_rows"] for row in res["edges"]):
+        raise AssertionError("a DECODE_EDGES reading has no empty page")
+    for key in ("shapes", "edges"):
+        print(f"decode {key} {json.dumps(res[key])}", flush=True)
+    return res
 
 
 def _bwd_rows(names, got, ref, run_kernel, run_plain, library_ms, nbytes_in,
@@ -2760,10 +2929,42 @@ def print_rows(rows):
             f"{k}={v}" for k, v in row.items() if k != "shape"), flush=True)
 
 
+def decode_only(torch, card, out=None) -> int:
+    """``--decode-only``: build the decode kernel of the repro_torch that
+    is imported (``--src`` picks another tree's), print its ptxas lines and
+    run `check_decode_shapes` on the generator the full run gives it, so
+    two trees' kernels read the same inputs; with ``out`` write the
+    readings there too."""
+    import repro_torch
+    from repro_torch.kernels import common
+    where = str(Path(repro_torch.__file__).parent)
+    print(f"repro_torch from {where}", flush=True)
+    common.build(["routing_decode"])
+    for line in common.BUILD_LOGS["routing_decode"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  routing_decode: {line.strip()}")
+    rows = check_decode_shapes(torch,
+                               torch.Generator(device=DEVICE).manual_seed(8))
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(dict(
+            card=card, repro_torch=where, decode_shapes=rows), indent=1))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report here (JSON)")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="build the decode kernel and run only its readings "
+                         "at DECODE_SHAPES and DECODE_EDGES "
+                         "(check_decode_shapes); prints no result line")
+    ap.add_argument("--src", help="import repro_torch from this directory "
+                    "(another checkout's src), so that an earlier tree's "
+                    "kernels run through this script's checks")
     args = ap.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
 
     import torch
     if not torch.cuda.is_available():
@@ -2778,6 +2979,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
+    if args.decode_only:
+        return decode_only(torch, card, args.out)
 
     t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
@@ -2799,7 +3002,10 @@ def main(argv=None) -> int:
                 "routing_fused_bwd": ("routing_fused_dq_wgmma",
                                       "routing_fused_dkv_wgmma"),
                 # and since slice 11 the fused routing forward
-                "routing_fused": ("routing_fused_wgmma",)}
+                "routing_fused": ("routing_fused_wgmma",),
+                # and since slice 12 the paged decode (its partials in
+                # registers)
+                "routing_decode": ("routing_decode_cluster",)}
     seen = set()
     for name, log in common.BUILD_LOGS.items():
         entry = ""
@@ -2902,6 +3108,11 @@ def main(argv=None) -> int:
     print(f"fused forward edges {json.dumps(fused_fwd_edges)}", flush=True)
     fwd_digest = forward_digest(torch)
     print(f"forward digest {fwd_digest}", flush=True)
+    # since slice 12: the paged decode in bf16 and fp32 at the four shapes
+    # the serving paths give it and at its ragged caps and pages, on a
+    # generator of its own
+    decode_rows = check_decode_shapes(
+        torch, torch.Generator(device=DEVICE).manual_seed(8))
     for shape_rows in (kern_rows, long_rows, cifar_local_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
@@ -3011,8 +3222,11 @@ def main(argv=None) -> int:
     launches["fit_gathered"] = common.counters()
     print(f"fit_gathered {json.dumps(fit_row)}", flush=True)
     t = phase("train_cifar", t)
-    cserve_rows, launches["serve_cifar"], _ = serve_and_compare(
+    cserve_rows, launches["serve_cifar"], cprompts = serve_and_compare(
         torch, ccfg, cparams, ckstate, CIFAR_REQUESTS, "serve_cifar")
+    if args.out:
+        prof["serve_cifar"] = profile(torch, ccfg, cparams, ckstate,
+                                      cprompts[0])
     del cparams, ckstate, cbatches
     torch.cuda.empty_cache()
     t = phase("serve_cifar", t)
@@ -3065,7 +3279,7 @@ def main(argv=None) -> int:
             fused_bwd_edges=fused_bwd_edges,
             local_backward_digest=local_digest,
             fused_fwd=fused_fwd_rows, fused_fwd_edges=fused_fwd_edges,
-            forward_digest=fwd_digest,
+            forward_digest=fwd_digest, decode_shapes=decode_rows,
             train_full_gate_bf16=full_gate_bf16,
             serving=serving_rows, train_gate=gate,
             train_gathered_gate=gathered_gate, train=train_row,

@@ -11,7 +11,11 @@ path, so both paths walk the same cache trajectory.
 
 A CPU tensor goes to the plain PyTorch version
 (`paged_routing_decode_plain`: gather the page, attend); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. The kernel spreads a page's occupied slots
+over a thread-block cluster of up to 8 CTAs per (batch, head), copies them
+by bulk async copies and combines the CTAs' partial softmaxes in
+distributed shared memory: one launch per call, nothing written to device
+memory but the output.
 """
 from __future__ import annotations
 
@@ -63,6 +67,9 @@ def paged_routing_decode(r: torch.Tensor, v_new: torch.Tensor,
               f"{what}: rlen and cluster must be int32")
     C.require(r.dtype == v_new.dtype == rk.dtype == rv.dtype,
               f"{what}: mixed dtypes")
+    C.require(kc >= 1 and cap >= 1, f"{what}: an empty page cache")
+    # on CUDA tensors this also holds every pointer to 16-byte alignment,
+    # which the kernel's bulk copies and vector reads need
     C.check_tensors(what, r=r, v_new=v_new, rk=rk, rv=rv, rlen=rlen,
                     cluster=cluster)
     if r.device.type == "cpu":
