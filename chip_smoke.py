@@ -71,7 +71,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ROW_REL_TOL of its own largest value (`decode_row_errs`), a page with
    no occupied slot giving v_new bit for bit, slots past the occupied
    ones poisoned and a second run leaving the bits as they were, each
-   with `graph_ms` and an L2-cold reading (`cold_ms`);
+   with `graph_ms` and an L2-cold reading (`cold_ms`); since slice 13 the
+   local and fused routing kernels (forward, dq, dk/dv) at the paper's
+   other models' train shapes through the same checks
+   (`check_paper_kernels`, seed 9): rt-pg19's head dim 129, which the
+   wrappers run zero-padded to the kernels' dh-192 instances (local B 1 x
+   8192, 8 heads, w 512; fused Hr 2, k 16, w 512; bound counted at dh
+   129), in bf16 and in fp32, and rt-imagenet64's windows of 2048 (local B
+   1 x 12288, 8 heads, dh 64; fused Hr 8, k 8, w 2048) in bf16; then the
+   four edge checks at dh-129 ragged shapes (`PG19_LOCAL_EDGES`,
+   `PG19_FUSED_EDGES`); the dh-192 instances on `wgmma` are under the
+   spill check too;
 4. serve the paper's rt-enwik8 at full width (12 layers, d_model 1024,
    bf16, random weights from seed 0) through the port's entry points:
    4 requests with 2048-token prompts + 32 greedy tokens, then 1 request
@@ -119,7 +129,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
    serving 2 x 1536-token prompts + 32 tokens, gated as in 4;
 8. the all-routing row (`cifar10(routing_heads=8, routing_layers=12)`, the
    routing variant on every layer): an fp32 gate and 2 x 1536 + 8 tokens
-   of serving with exact launches;
+   of serving with exact launches; then (slice 13) the paper's other three
+   models at full width and depth, random weights from seed 0, each with
+   exact launches per path (`train_paper`), its busy ms per step (one
+   more step under the profiler), tokens/s and peak memory:
+   ``train_pg19``: rt-pg19 (22 layers, d_model 1032, 8 heads of dh 129,
+   2 routing heads in layers 20-21), its fp32 gate at B 1 x 8192 as in 5
+   (`PG19_LIMITS`: rt-enwik8's, the median's at 2.5e-4, so that the
+   dropped key side, which touches 2 of 22 layers, is refused), then 3
+   bf16 steps of B 1 x 8192 on Adafactor (lr 0.01, the default schedule)
+   with local 44 / 22 / 22 and fused 4 / 2 / 2 launches per step;
+   ``train_imagenet64``: rt-imagenet64 (24 layers, windows 2048), its fp32
+   gate at B 1 x 12288 (rt-enwik8's limits), then 3 bf16 steps of B 1 x
+   12288 on Adam (lr 2e-4, linear warm-up then constant), 48 / 24 / 24
+   each;
+   ``train_wikitext103``: rt-wikitext103 (10 layers, vocab 267735), 3
+   bf16 steps of B 2 x 4096 on Adam, 20 / 10 / 10 each;
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -194,6 +219,34 @@ ROUTING_ROW = dict(routing_heads=8, routing_layers=12)
 ROUTING_REQUESTS = ((2, 1536, 8),)
 # rt-enwik8's gathered path against its fused path: one sequence of 8192
 ENWIK8_GATHERED_GATE_BATCH = 1
+# the paper's other three models (slice 13), each at full width and depth
+# on one sequence or two: rt-pg19 (22 layers, d_model 1032 over 8 heads of
+# dh 129, which the local and fused kernels run zero-padded to their dh-192
+# instances; 2 routing heads in layers 20-21, k 16, windows 512; Adafactor
+# at TrainConfig's "PG19: adafactor 0.01", the other settings at their
+# defaults, whose vaswani schedule reads no lr), rt-imagenet64 (24 layers,
+# 16 heads of dh 64, windows 2048 over N 12288, k 8, so each routing
+# cluster takes 2048 of 12288 tokens: they overlap; Adam at TrainConfig's
+# "paper: 2e-4" under the schedule that reads it, linear warm-up then
+# constant: at vaswani's peak, 9.9e-4, the first steps from fresh Adam
+# moments move every weight by the rate, and its loss only falls from the
+# fourth step, PERF.md) and rt-wikitext103 (10 layers, vocab 267735, fp32
+# logits of ~4.4 GB a sequence; the defaults); markov batches over min(V,
+# 512) tokens, as qwen2's
+PG19_ARCH, PG19_BATCH, PG19_SEQ = "rt-pg19", 1, 8192
+PG19_TRAIN = dict(optimizer="adafactor", lr=0.01)
+IMAGENET_ARCH, IMAGENET_BATCH, IMAGENET_SEQ = "rt-imagenet64", 1, 12288
+IMAGENET_TRAIN = dict(schedule="const", lr=2e-4)
+WIKITEXT_ARCH, WIKITEXT_BATCH, WIKITEXT_SEQ = "rt-wikitext103", 2, 4096
+PAPER_STEPS = 3
+# the local and fused kernels in bf16 at the ragged shapes of LOCAL_EDGES
+# and FUSED_EDGES, at rt-pg19's head dim (129, run as 192)
+PG19_LOCAL_EDGES = ((1, 2, 1, 200, 128, 129, False, False),
+                    (1, 2, 2, 129, 63, 129, True, False),
+                    (1, 2, 1, 3072, 200, 129, True, True))
+PG19_FUSED_EDGES = tuple(
+    (1, 2, 3, w, 3 * w + w // 2 + 3, 129, mode) for w in (63, 200)
+    for mode in ("shared", "separate", "padded"))
 # the gathered kernels in fp32, non-causal, separate keys, padded keys, w
 # not a multiple of the tiles: (B, H, k, w, dh)
 GATHERED_RAGGED = (1, 2, 8, 200, 64)
@@ -337,6 +390,12 @@ ROUTING_ROW_LIMITS = dict(ENWIK8_LIMITS)
 # paths, so the pinned median reads 2.5e-7 and the loss 0.0; the key side
 # dropped 1.4e-2
 ENWIK8_GATHERED_LIMITS = dict(ENWIK8_LIMITS, loss=1e-4, grad_median=1e-4)
+# rt-pg19's gate (B 1 x 8192, fp32, dh 129 through the dh-192 kernels): its
+# pinned median reads 5.0e-5, the key side dropped 1.24e-3 (only layers
+# 20-21 route, 2 heads of 8), under rt-enwik8's 2.5e-3; so the median's
+# limit sits at their geometric mean, ~5x from each, as rt-cifar10's does;
+# the others as rt-enwik8's (readings in PERF.md; H100 80GB HBM3, 700 W)
+PG19_LIMITS = dict(ENWIK8_LIMITS, grad_median=2.5e-4)
 # a causal flash call does half the pairs of a non-causal one; with the
 # tiles above the diagonal skipped it takes ~0.5 of the time, masked ~1
 MAX_CAUSAL_OVER_DENSE = 0.85
@@ -370,9 +429,13 @@ BF16_GATE_FACTOR = 1.25
 # forced gathered kernels through make_train_step and Trainer.fit
 # ("train_gathered", "fit_gathered"), and serving the all-routing row
 # ("serve_routing")
+# since slice 13 the local and fused kernels also train the paper's other
+# three models ("train_pg19", "train_imagenet64", "train_wikitext103")
+_PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
-              "train_gathered", "fit_gathered")
-_LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered")
+              "train_gathered", "fit_gathered", *_PAPER)
+_LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
+              *_PAPER)
 _FLASH = ("train_full", "launch")
 _GATHERED = ("train_gathered", "fit_gathered")
 KERNELS = {
@@ -385,7 +448,7 @@ KERNELS = {
         replaces="src/repro/kernels/routing_attention.py:325",
         kind="forward", layers="routing",
         paths=("serve", "train", "serve_cifar", "train_cifar",
-               "serve_routing")),
+               "serve_routing", *_PAPER)),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
@@ -402,11 +465,13 @@ KERNELS = {
     "routing_fused_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:372",
-        kind="backward", layers="routing", paths=("train", "train_cifar")),
+        kind="backward", layers="routing",
+        paths=("train", "train_cifar", *_PAPER)),
     "routing_fused_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:411",
-        kind="backward", layers="routing", paths=("train", "train_cifar")),
+        kind="backward", layers="routing",
+        paths=("train", "train_cifar", *_PAPER)),
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:47",
@@ -598,19 +663,20 @@ def fwd_fp64_errs(out, ref_out, ref64) -> dict:
                 plain_vs_fp64=p["rel"], plain_vs_fp64_rows=p["rows"])
 
 
-def check_local(torch, cfg, B, N, gen, heads=None):
+def check_local(torch, cfg, B, N, gen, heads=None, dtype=None):
     """The local forward at one causal shape (``heads``, default half the
     model's heads, as rt-enwik8's local+routing layers run it): against
     its plain version in fp32 on the same inputs, the largest value
     (OUT_REL_TOL), every row (ROW_REL_TOL) and lse (LSE_TOL); timed beside
     the plain version, SDPA with the dense bool mask and, in a CUDA graph,
     itself (`graph_ms`). Batch 0 is also read against fp64, and SDPA's own
-    errors against the fp32 reference (bf16; context)."""
+    errors against the fp32 reference (bf16; context). ``dtype`` of the
+    inputs: bf16 unless given."""
     from repro_torch.kernels import local_attention as K
     dh, w = cfg.head_dim_, cfg.routing.local_window
     H = heads or cfg.num_heads // 2
     q, k, v = (torch.randn((B, H, N, dh), generator=gen, device=DEVICE,
-                           dtype=torch.bfloat16) for _ in range(3))
+                           dtype=dtype or torch.bfloat16) for _ in range(3))
     out, lse = K.local_attention(q, k, v, w)
     torch.cuda.synchronize()
     ref_out, ref_lse = K.local_attention_plain(q.float(), k.float(),
@@ -642,7 +708,7 @@ def check_local(torch, cfg, B, N, gen, heads=None):
         shape=f"B{B} H{H} N{N} dh{dh} w{w}", **readings)
 
 
-def check_local_edges(torch, gen) -> list:
+def check_local_edges(torch, gen, edges=None) -> list:
     """The local forward in bf16 at LOCAL_EDGES, each against its plain
     version in fp32 on the same inputs: out within OUT_REL_TOL of its
     largest reference value and within ROW_REL_TOL in every row (rows that
@@ -650,7 +716,7 @@ def check_local_edges(torch, gen) -> list:
     readings are reported beside each row."""
     from repro_torch.kernels import local_attention as K
     rows = []
-    for B, H, Hkv, N, w, dh, causal, padded in LOCAL_EDGES:
+    for B, H, Hkv, N, w, dh, causal, padded in edges or LOCAL_EDGES:
         mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
         q = torch.randn((B, H, N, dh), **mk)
         k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
@@ -909,7 +975,7 @@ def _bwd_rows(names, got, ref, run_kernel, run_plain, library_ms, nbytes_in,
     return rows
 
 
-def check_local_bwd(torch, cfg, B, N, gen, heads=None):
+def check_local_bwd(torch, cfg, B, N, gen, heads=None, dtype=None):
     """The local dq and dk/dv kernels at one causal train shape
     (``heads``, default half the model's heads, as rt-enwik8's
     local+routing layers run them), each against its plain
@@ -918,13 +984,15 @@ def check_local_bwd(torch, cfg, B, N, gen, heads=None):
     BWD_ROW_REL_TOL); timed beside the plain versions, SDPA's backward with
     the dense bool mask (dq, dk and dv in one call) and, in a CUDA graph,
     themselves (`graph_ms`). SDPA's own errors and batch 0's readings
-    against fp64 are reported beside them (context)."""
+    against fp64 are reported beside them (context). ``dtype`` of the
+    inputs: bf16 unless given."""
     from repro_torch.core import local as ref
     from repro_torch.kernels import local_attention as K
     dh, w = cfg.head_dim_, cfg.routing.local_window
     H = heads or cfg.num_heads // 2
     q, k, v, do = (torch.randn((B, H, N, dh), generator=gen, device=DEVICE,
-                               dtype=torch.bfloat16) for _ in range(4))
+                               dtype=dtype or torch.bfloat16)
+                   for _ in range(4))
     out, lse = K.local_attention(q, k, v, w)
     dsum = K.row_dot(do, out)
     args = (q, k, v, do, lse, dsum, w)
@@ -1068,7 +1136,7 @@ def local_fp64_grad_errs(plain, args, got, refs, mask) -> dict:
                 plain_vs_fp64=p_rel, plain_vs_fp64_rows=p_rows)
 
 
-def check_local_bwd_edges(torch, gen) -> list:
+def check_local_bwd_edges(torch, gen, edges=None) -> list:
     """The local dq and dk/dv kernels in bf16 at LOCAL_EDGES, through
     `local_attention_bwd` (dk and dv group-summed onto the kv heads, GQA
     2:1 among them), each against the plain backward in fp32 on the same
@@ -1084,7 +1152,7 @@ def check_local_bwd_edges(torch, gen) -> list:
     from repro_torch.kernels import local_attention as K
     dgen = torch.Generator(device=DEVICE).manual_seed(2)
     rows = []
-    for B, H, Hkv, N, w, dh, causal, padded in LOCAL_EDGES:
+    for B, H, Hkv, N, w, dh, causal, padded in edges or LOCAL_EDGES:
         mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
         q = torch.randn((B, H, N, dh), **mk)
         k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
@@ -1127,17 +1195,19 @@ def check_local_bwd_edges(torch, gen) -> list:
     return rows
 
 
-def check_routing_bwd(torch, cfg, B, N, gen):
+def check_routing_bwd(torch, cfg, B, N, gen, heads=None, window=None,
+                      dtype=None):
     """The fused routing dq and dk/dv kernels at the train shapes
-    (causal shared-QK, as the LM runs them)."""
+    (causal shared-QK, as the LM runs them; ``heads`` default half the
+    model's heads, ``window`` default N / k, ``dtype`` bf16)."""
     from repro_torch.core import routing as ref
     from repro_torch.core.kmeans import cluster_scores, normalize_routing
     from repro_torch.kernels import routing_attention as K
     dh, kc = cfg.head_dim_, cfg.routing.num_clusters
-    H = cfg.num_heads // 2
-    w = N // kc
+    H = heads or cfg.num_heads // 2
+    w = window or N // kc
     q, v = (torch.randn((B, H, N, dh), generator=gen, device=DEVICE,
-                        dtype=torch.bfloat16) for _ in range(2))
+                        dtype=dtype or torch.bfloat16) for _ in range(2))
     mu = torch.randn((H, kc, dh), generator=gen, device=DEVICE)
     r = normalize_routing(q)
     idx = ref.balanced_topk(cluster_scores(r, mu), w).int().contiguous()
@@ -1145,7 +1215,7 @@ def check_routing_bwd(torch, cfg, B, N, gen):
         B, N).contiguous()
     out, lse = K.routed_attention_fused(r, None, v, idx, idx, pos)
     do = torch.randn(out.shape, generator=gen, device=DEVICE,
-                     dtype=torch.bfloat16)
+                     dtype=dtype or torch.bfloat16)
     dsum = K.row_dot(do, out)
     args = (r, None, v, idx, idx, pos, do, lse, dsum)
     li, lp = idx.long(), pos.long()
@@ -1280,7 +1350,7 @@ def fused_inputs(torch, B, H, kc, w, N, dh, mode, gen):
             pos, kvalid, mode != "padded")
 
 
-def check_routing_bwd_edges(torch, gen) -> list:
+def check_routing_bwd_edges(torch, gen, edges=None) -> list:
     """The fused routing dq and dk/dv kernels in bf16 at FUSED_EDGES,
     each against its plain version in fp32 on the same inputs, lse and D:
     within BWD_REL_TOL of their largest reference values
@@ -1291,7 +1361,7 @@ def check_routing_bwd_edges(torch, gen) -> list:
     from repro_torch.core import routing as ref
     from repro_torch.kernels import routing_attention as K
     rows = []
-    for B, H, kc, w, N, dh, mode in FUSED_EDGES:
+    for B, H, kc, w, N, dh, mode in edges or FUSED_EDGES:
         q, k, v, q_idx, k_idx, pos, kvalid, causal = fused_inputs(
             torch, B, H, kc, w, N, dh, mode, gen)
         out, lse = K.routed_attention_fused(q, k, v, q_idx, k_idx, pos,
@@ -1362,12 +1432,14 @@ def _fused_fwd_gates(row):
             and row["lse_err"] <= LSE_TOL and not any(row["repeat"]))
 
 
-def check_routing_fwd(torch, cfg, B, N, gen):
+def check_routing_fwd(torch, cfg, B, N, gen, heads=None, window=None,
+                      dtype=None):
     """The fused routing forward in bf16 at a train shape (causal
-    shared-QK, as the LM runs it; half the model's heads route, w = N /
-    k), against its plain version in fp32 on the same inputs: the largest
-    value (OUT_REL_TOL), every row (ROW_REL_TOL, `fused_fwd_row_errs`:
-    no-key rows exactly zero with the plain lse), lse (LSE_TOL), and a
+    shared-QK, as the LM runs it; ``heads`` default half the model's
+    heads, ``window`` default w = N / k), against its plain version in
+    fp32 on the same inputs: the largest value (OUT_REL_TOL), every row
+    (ROW_REL_TOL, `fused_fwd_row_errs`: no-key rows exactly zero with the
+    plain lse), lse (LSE_TOL), and a
     second run equal to the first bit for bit. Timed by the host clock,
     in a CUDA graph (`graph_ms`) and beside the plain version; the fp64
     and SDPA readings over the members' blocks (keep mask), and the
@@ -1378,10 +1450,11 @@ def check_routing_fwd(torch, cfg, B, N, gen):
     from repro_torch.kernels import routing_attention as K
     from repro_torch.kernels import routing_gathered as KG
     dh, kc = cfg.head_dim_, cfg.routing.num_clusters
-    H = cfg.num_heads // 2
-    w = N // kc
+    H = heads or cfg.num_heads // 2
+    w = window or N // kc
+    dt = dtype or torch.bfloat16
     q, v = (torch.randn((B, H, N, dh), generator=gen, device=DEVICE,
-                        dtype=torch.bfloat16) for _ in range(2))
+                        dtype=dt) for _ in range(2))
     mu = torch.randn((H, kc, dh), generator=gen, device=DEVICE)
     r = normalize_routing(q)
     idx = ref.balanced_topk(cluster_scores(r, mu), w).int().contiguous()
@@ -1425,13 +1498,17 @@ def check_routing_fwd(torch, cfg, B, N, gen):
         ms=ms, graph_ms=g_ms,
         plain_ms=time_ms(lambda: K.routed_attention_fused_plain(*args)),
         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / g_ms, pairs=pairs,
+        # (the gathered kernels take dh 64 and 128 only)
         gathered_graph_ms=graph_ms(torch, lambda: KG.routed_attention_blocks(
-            qf, qf, vf, pqf, pqf, True)),
-        shape=f"B{B} H{H} N{N} dh{dh} k{kc} w{w} bf16 causal shared-QK")
+            qf, qf, vf, pqf, pqf, True))
+        if dh in KG.C.SUPPORTED_HEAD_DIMS else None,
+        shape=f"B{B} H{H} N{N} dh{dh} k{kc} w{w} "
+              f"{'bf16' if dt == torch.bfloat16 else 'fp32'} causal "
+              f"shared-QK")
     return {"routing_fused": row}
 
 
-def check_routing_fwd_edges(torch, gen) -> list:
+def check_routing_fwd_edges(torch, gen, edges=None) -> list:
     """The fused routing forward in bf16 at FUSED_EDGES, against its plain
     version in fp32 on the same inputs: the gates of `check_routing_fwd`
     (out within OUT_REL_TOL of its largest value and within ROW_REL_TOL in
@@ -1440,7 +1517,7 @@ def check_routing_fwd_edges(torch, gen) -> list:
     from ``gen`` (`fused_inputs`)."""
     from repro_torch.kernels import routing_attention as K
     rows = []
-    for B, H, kc, w, N, dh, mode in FUSED_EDGES:
+    for B, H, kc, w, N, dh, mode in edges or FUSED_EDGES:
         q, k, v, q_idx, k_idx, pos, kvalid, causal = fused_inputs(
             torch, B, H, kc, w, N, dh, mode, gen)
         args = (q, k, v, q_idx, k_idx, pos, causal, kvalid)
@@ -1466,6 +1543,38 @@ def check_routing_fwd_edges(torch, gen) -> list:
         if mode == "padded" and not row["no_key_rows"]:
             raise AssertionError(f"no query keeps no key at {row['shape']}: "
                                  f"the padded cluster is not empty")
+    return rows
+
+
+def check_paper_kernels(torch, gen) -> dict:
+    """The local and fused routing kernels (forward, dq, dk/dv) at the
+    paper's other models' train shapes, each through the check of its
+    main shape (row by row, fused no-key rows exactly zero and a second
+    run bit for bit, `graph_ms`): rt-pg19's (B 1 x 8192, 8 local heads,
+    2 routing heads, k 16, w 512) at head dim 129, which the wrappers run
+    zero-padded to the kernels' dh-192 instances (the bound counts the
+    work of dh 129, so its share shows what the padding costs), in bf16
+    and in fp32; rt-imagenet64's (B 1 x 12288, 8 local and 8 routing
+    heads of dh 64, k 8, windows 2048) in bf16. Inputs from ``gen``."""
+    from repro_torch.attn.spec import head_split, spec_for_layer
+    from repro_torch.configs import get_config
+    rows = {}
+    for tag, arch, N, dtype in (
+            ("rt-pg19", PG19_ARCH, PG19_SEQ, torch.bfloat16),
+            ("rt-imagenet64", IMAGENET_ARCH, IMAGENET_SEQ, torch.bfloat16),
+            ("rt-pg19 fp32", PG19_ARCH, PG19_SEQ, torch.float32)):
+        cfg = get_config(arch)
+        # local heads: all of a layer without routing (rt-pg19's 0-19),
+        # else the local half of the head split
+        Hr = head_split(spec_for_layer(cfg, "local+routing"))[1]
+        Hl = (cfg.num_heads if cfg.routing.routing_layers
+              else cfg.num_heads - Hr)
+        w = cfg.routing.window or N // cfg.routing.num_clusters
+        rows[tag] = {
+            "local_attention": check_local(torch, cfg, 1, N, gen, Hl, dtype),
+            **check_local_bwd(torch, cfg, 1, N, gen, Hl, dtype),
+            **check_routing_fwd(torch, cfg, 1, N, gen, Hr, w, dtype),
+            **check_routing_bwd(torch, cfg, 1, N, gen, Hr, w, dtype)}
     return rows
 
 
@@ -2923,6 +3032,65 @@ def fit(torch, run, impl, steps, counts):
     return dict(wall_s=wall, launches=got, **out)
 
 
+def train_losses(torch, run, params, kstate, batches) -> list:
+    """The losses of ``batches`` through `make_train_step(run)` from the
+    state `train` starts at (the end of warm-up); no launch is held."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.train_step import TrainState, make_train_step
+    step_fn = make_train_step(run)
+    ts = TrainState(params, kstate, make_optimizer(run.train)[0](params),
+                    run.train.warmup_steps)
+    losses = []
+    for batch in batches:
+        ts, metrics = step_fn(ts, batch)
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def train_paper(torch, run, path, counts, gate_limits=None):
+    """One of the paper's other models at full width and depth (random
+    weights from seed 0, `PAPER_STEPS` markov batches over min(V, 512)
+    tokens): with ``gate_limits`` first its fp32 `routing_gate` on one
+    sequence; then bf16 steps through `make_train_step` (`train`: launch
+    counts set to 0 just before and read just after, exact for ``path``,
+    the loss finite and falling), and one more step under the profiler for
+    its busy time. Where ``run`` leaves the default schedule, the same
+    steps under the default one are reported beside it (not gated).
+    Returns (row, launches)."""
+    from dataclasses import replace
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.model import init_model
+    cfg = run.model
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    batches = train_batches(torch, min(cfg.vocab_size, FULL_VOCAB),
+                            run.train.global_batch, run.train.seq_len,
+                            PAPER_STEPS + 1)
+    gate = None
+    if gate_limits is not None:
+        gate = routing_gate(torch, cfg, params, kstate,
+                            {"tokens": batches[0]["tokens"][:1]},
+                            gate_limits)
+        print(f"{path} fp32 gate {json.dumps(gate)}", flush=True)
+    from repro_torch.kernels import common
+    common.reset_counters()
+    row, trained = train(torch, run, path, params, kstate,
+                         batches[:PAPER_STEPS], counts)
+    launches = common.counters()
+    prof = profile_train(torch, run, trained, batches[-1])
+    del trained
+    default = TrainConfig().schedule
+    if run.train.schedule != default:
+        drun = replace(run, train=replace(run.train, schedule=default))
+        row["default_schedule_losses"] = train_losses(
+            torch, drun, params, kstate, batches[:PAPER_STEPS])
+    row.update(shape=f"B{run.train.global_batch} x {run.train.seq_len}",
+               busy_ms=prof["device_busy_ms"],
+               busy_launches=prof["device_launches"],
+               busy_top_ops=prof["device_ops"][:5], fp32_gate=gate)
+    print(f"{path} {json.dumps(row)}", flush=True)
+    return row, launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -3113,6 +3281,26 @@ def main(argv=None) -> int:
     # generator of its own
     decode_rows = check_decode_shapes(
         torch, torch.Generator(device=DEVICE).manual_seed(8))
+    # since slice 13: the local and fused kernels at the paper's other
+    # models' shapes (rt-pg19's head dim 129 through the dh-192 instances,
+    # bf16 and fp32; rt-imagenet64's windows of 2048), then at
+    # LOCAL_EDGES- and FUSED_EDGES-like ragged shapes at dh 129, on
+    # generators of their own
+    t = phase("kernels", t)
+    paper_gen = torch.Generator(device=DEVICE).manual_seed(9)
+    paper_kernel_rows = check_paper_kernels(torch, paper_gen)
+    pg19_edges = dict(
+        local=check_local_edges(torch, paper_gen, PG19_LOCAL_EDGES),
+        local_bwd=check_local_bwd_edges(torch, paper_gen, PG19_LOCAL_EDGES),
+        fused_fwd=check_routing_fwd_edges(torch, paper_gen,
+                                          PG19_FUSED_EDGES),
+        fused_bwd=check_routing_bwd_edges(torch, paper_gen,
+                                          PG19_FUSED_EDGES))
+    print(f"pg19 edges {json.dumps(pg19_edges)}", flush=True)
+    for tag, shape_rows in paper_kernel_rows.items():
+        print(f"paper kernels: {tag}", flush=True)
+        print_rows(shape_rows)
+    t = phase("paper kernels", t)
     for shape_rows in (kern_rows, long_rows, cifar_local_rows, wide_rows,
                        *gathered_rows.values()):
         print_rows(shape_rows)
@@ -3121,7 +3309,6 @@ def main(argv=None) -> int:
     print_rows(cifar_fused_bwd_rows)
     for shape_rows in fused_fwd_rows.values():
         print_rows(shape_rows)
-    t = phase("kernels", t)
 
     # rt-enwik8: serve, then train
     params, kstate = init_model(cfg, seed=0, device=DEVICE)
@@ -3247,6 +3434,25 @@ def main(argv=None) -> int:
     del rparams, rkstate
     t = phase("routing row", t)
 
+    # since slice 13: the paper's other three models, each at full width
+    # and depth with exact launches per path; rt-pg19's and rt-imagenet64's
+    # fp32 gates first
+    from repro_torch.configs.base import RunConfig, TrainConfig
+    paper_rows = {}
+    for path, arch, B, N, train_kw, limits in (
+            ("train_pg19", PG19_ARCH, PG19_BATCH, PG19_SEQ, PG19_TRAIN,
+             PG19_LIMITS),
+            ("train_imagenet64", IMAGENET_ARCH, IMAGENET_BATCH,
+             IMAGENET_SEQ, IMAGENET_TRAIN, ENWIK8_LIMITS),
+            ("train_wikitext103", WIKITEXT_ARCH, WIKITEXT_BATCH,
+             WIKITEXT_SEQ, {}, None)):
+        prun = RunConfig(model=get_config(arch), train=TrainConfig(
+            global_batch=B, seq_len=N, **train_kw))
+        paper_rows[path], launches[path] = train_paper(
+            torch, prun, path, common.counters, limits)
+        torch.cuda.empty_cache()
+        t = phase(path, t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -3287,7 +3493,8 @@ def main(argv=None) -> int:
             launch=launch_row, cifar_gates=cifar_gates, cifar=cifar_rows,
             fit_gathered=fit_row, serve_cifar=cserve_rows,
             routing_row_gate=routing_row_gate, serve_routing=rserve_rows,
-            profile=prof), indent=1))
+            paper_kernels=paper_kernel_rows, pg19_edges=pg19_edges,
+            paper=paper_rows, profile=prof), indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -384,14 +384,18 @@ _CAPS = dict(supports_pad_mask=True, supports_positions=True,
              supports_grad=True)
 
 
-def _register(variant, impl, apply, priority=0, decode=None, layout=None):
+def _register(variant, impl, apply, priority=0, decode=None, layout=None,
+              decode_kernel_dims=None):
     """A backend of the paper's variants: every impl but ``torch`` runs
-    kernels (needs_cuda); a backend with a decode path owns ``layout``."""
+    kernels (needs_cuda); a backend with a decode path owns ``layout``;
+    one whose decode runs the paged decode kernel takes its head dims
+    (``decode_kernel_dims``)."""
     registry.register(Backend(
         variant=variant, impl=impl, apply=apply, decode=decode,
         layout=layout, priority=priority,
         caps=Capabilities(supports_decode=decode is not None,
-                          needs_cuda=impl != "torch", **_CAPS)))
+                          needs_cuda=impl != "torch",
+                          decode_head_dims=decode_kernel_dims, **_CAPS)))
 
 
 _local_torch = _make_local_apply(kernel=False)
@@ -410,7 +414,7 @@ _register("local", "cuda_gathered", _local_cuda)
 
 _register("routing", "torch", _routing_torch, 0, _decode_plain, PAGES_LAYOUT)
 _register("routing", "cuda", _routing_fused, 20, _decode_kernel,
-          PAGES_LAYOUT)
+          PAGES_LAYOUT, decode_kernel.HEAD_DIMS)
 _register("routing", "cuda_gathered", _routing_gathered)
 
 _register("local+routing", "torch",
@@ -418,6 +422,7 @@ _register("local+routing", "torch",
           _make_mixed_decode(_decode_plain), MIXED_LAYOUT)
 _register("local+routing", "cuda",
           _make_mixed_apply(_local_cuda, _routing_fused), 20,
-          _make_mixed_decode(_decode_kernel), MIXED_LAYOUT)
+          _make_mixed_decode(_decode_kernel), MIXED_LAYOUT,
+          decode_kernel.HEAD_DIMS)
 _register("local+routing", "cuda_gathered",
           _make_mixed_apply(_local_cuda, _routing_gathered))

@@ -10,6 +10,10 @@ them for CUDA tensors and never elsewhere, while an explicit ``impl=``
 runs anywhere (on CPU tensors every kernel wrapper takes its plain
 version). Every other gap of a forced ``impl=`` raises
 `BackendResolutionError`, naming the backend auto-selection would use.
+A backend's decode kernel may take only some head dims
+(``decode_head_dims``): a decode cache on the card at another head dim
+raises `NotImplementedError` (`attn.init_decode_cache`), and never falls
+back to a plain backend.
 """
 from __future__ import annotations
 
@@ -49,6 +53,8 @@ class Capabilities:
     with positions goes to (or, forced, refuses into) the reference.
     ``supports_grad``: the apply path is differentiable (autograd of
     PyTorch ops, or a kernel with a backward Function).
+    ``decode_head_dims``: the head dims the decode path's kernel takes on
+    the card (None: any).
     """
 
     supports_decode: bool = False
@@ -56,6 +62,7 @@ class Capabilities:
     supports_positions: bool = True
     supports_grad: bool = False
     needs_cuda: bool = False
+    decode_head_dims: Optional[Tuple[int, ...]] = None
 
 
 @dataclass(frozen=True)

@@ -87,15 +87,19 @@ def _blocks(q, k, v, window: int, causal: bool,
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int, causal: bool = True,
                     pad_mask: Optional[torch.Tensor] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False,
+                    scale: Optional[float] = None):
     """q: (B,H,N,dh); k,v: (B,Hkv,N,dh) -> out (B,H,N,dh), and with
     ``return_lse`` also the per-row log-sum-exp (B,H,N) fp32 the kernel
-    emits. Rows with no attendable key output 0."""
+    emits. Rows with no attendable key output 0. ``scale`` (default
+    1 / sqrt(dh)) multiplies the scores: the kernel wrappers pass the true
+    head dim's when they pad the head dim with zero columns."""
     B, H, N, dh = q.shape
     bl = _blocks(q, k, v, window, causal, pad_mask)
     keep = bl.keep
     logits = upcast(torch.einsum("bhgnwd,bhnud->bhgnwu", bl.qb, bl.kc))
-    logits = logits / float(dh) ** 0.5
+    logits = (logits / float(dh) ** 0.5 if scale is None
+              else logits * scale)
     logits = logits.masked_fill(~keep, _BIG_NEG)
     attn = torch.softmax(logits, dim=-1)
     any_keep = keep.any(-1, keepdim=True)
@@ -113,11 +117,12 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Backward (the plain version of the two backward kernels)
 # ---------------------------------------------------------------------------
-def _bwd_blocks(q, k, v, do, lse, dsum, window, causal, pad_mask):
+def _bwd_blocks(q, k, v, do, lse, dsum, window, causal, pad_mask, scale):
     """The recurrence both backward kernels run, in the blocked layout:
     p = keep ? exp(s - lse) : 0 (masked explicitly: a row with no key has
     lse ~ -1e9, where exp(s - lse) of a masked score would read ~1) and
-    ds = p * (do.v^T - D) * scale, with D = rowsum(do * out)."""
+    ds = p * (do.v^T - D) * scale, with D = rowsum(do * out) and scale
+    1 / sqrt(dh) unless given."""
     B, H, N, dh = q.shape
     bl = _blocks(q, k, v, window, causal, pad_mask)
     Hkv, g, nb, w = bl.qb.shape[1:5]
@@ -125,7 +130,8 @@ def _bwd_blocks(q, k, v, do, lse, dsum, window, causal, pad_mask):
     dob = upcast(F.pad(do, (0, 0, 0, pad))).reshape(B, Hkv, g, nb, w, dh)
     lseb = F.pad(lse, (0, pad)).reshape(B, Hkv, g, nb, w, 1)
     db = F.pad(upcast(dsum), (0, pad)).reshape(B, Hkv, g, nb, w, 1)
-    scale = 1.0 / float(dh) ** 0.5
+    if scale is None:
+        scale = 1.0 / float(dh) ** 0.5
     s = torch.einsum("bhgnwd,bhnud->bhgnwu", upcast(bl.qb),
                      upcast(bl.kc)) * scale
     p = torch.where(bl.keep, torch.exp(s - lseb), 0.0)
@@ -134,11 +140,11 @@ def _bwd_blocks(q, k, v, do, lse, dsum, window, causal, pad_mask):
 
 
 def local_attention_bwd_dq(q, k, v, do, lse, dsum, window: int,
-                           causal: bool = True, pad_mask=None):
+                           causal: bool = True, pad_mask=None, scale=None):
     """dq (B,H,N,dh) in at least fp32 from the saved lse and D (B,H,N)."""
     B, H, N, dh = q.shape
     bl, _, _, ds = _bwd_blocks(q, k, v, do, lse, dsum, window, causal,
-                               pad_mask)
+                               pad_mask, scale)
     dq = torch.einsum("bhgnwu,bhnud->bhgnwd", ds, upcast(bl.kc))
     return dq.reshape(B, H, bl.Np, dh)[:, :, :N]
 
@@ -155,12 +161,12 @@ def _fold_keys(x_cat: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def local_attention_bwd_dkv(q, k, v, do, lse, dsum, window: int,
-                            causal: bool = True, pad_mask=None):
+                            causal: bool = True, pad_mask=None, scale=None):
     """(dk, dv) per *query* head (B,H,N,dh) in at least fp32; the caller
     sums them over each kv head's query group (GQA)."""
     B, H, N, dh = q.shape
     bl, dob, p, ds = _bwd_blocks(q, k, v, do, lse, dsum, window, causal,
-                                 pad_mask)
+                                 pad_mask, scale)
     dk = _fold_keys(torch.einsum("bhgnwu,bhgnwd->bhgnud", ds,
                                  upcast(bl.qb)), bl.w)
     dv = _fold_keys(torch.einsum("bhgnwu,bhgnwd->bhgnud", p, dob), bl.w)

@@ -135,14 +135,18 @@ def block_keep(pos_q, pos_k, causal: bool,
 
 def block_attention(qg, kg, vg, pos_q, pos_k, causal: bool,
                     valid_k: Optional[torch.Tensor] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False,
+                    scale: Optional[float] = None):
     """Intra-cluster attention on gathered blocks (..., w, dh) with their
     (..., w) positions: the plain math of the fused and the gathered
     kernels. Queries whose cluster holds no attendable key output 0. With
-    ``return_lse`` also the per-row log-sum-exp."""
+    ``return_lse`` also the per-row log-sum-exp. ``scale`` (default
+    1 / sqrt(dh)) multiplies the scores: the fused kernels' wrappers pass
+    the true head dim's when they pad the head dim with zero columns."""
     dh = qg.shape[-1]
     logits = upcast(torch.einsum("...wd,...ud->...wu", qg, kg))
-    logits = logits / float(dh) ** 0.5
+    logits = (logits / float(dh) ** 0.5 if scale is None
+              else logits * scale)
     keep = block_keep(pos_q, pos_k, causal, valid_k)
     logits = logits.masked_fill(~keep, _BIG_NEG)
     attn = torch.softmax(logits, dim=-1)
@@ -177,7 +181,7 @@ def gather_blocks(q, k, v, q_idx, k_idx, positions, kvalid=None):
 
 
 def gathered_block_attention(q, k, v, q_idx, k_idx, positions, causal=True,
-                             kvalid=None, return_lse=False):
+                             kvalid=None, return_lse=False, scale=None):
     """Routed attention on sequence-layout q/k/v through gathered blocks.
 
     q/v: (B,H,N,dh); k: like q, or None for shared-QK (keys are q's rows).
@@ -188,16 +192,18 @@ def gathered_block_attention(q, k, v, q_idx, k_idx, positions, causal=True,
     qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
         q, k, v, q_idx, k_idx, positions, kvalid)
     return block_attention(qg, kg, vg, pos_q, pos_k, causal, valid_k,
-                           return_lse)
+                           return_lse, scale)
 
 
-def block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal, valid_k):
+def block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal, valid_k,
+              scale=None):
     """The recurrence the backward kernels run, on gathered blocks
     (..., w, dh): p = keep ? exp(s - lse) : 0 (masked explicitly: a row
     with no key has lse ~ -1e9, where exp(s - lse) of a masked score would
-    read ~1) and ds = p * (do.v^T - D) * scale. do (..., w, dh), lse/D
-    (..., w). Returns (p, ds)."""
-    scale = 1.0 / float(qg.shape[-1]) ** 0.5
+    read ~1) and ds = p * (do.v^T - D) * scale (1 / sqrt(dh) unless
+    given). do (..., w, dh), lse/D (..., w). Returns (p, ds)."""
+    if scale is None:
+        scale = 1.0 / float(qg.shape[-1]) ** 0.5
     s = torch.einsum("...wd,...ud->...wu", upcast(qg), upcast(kg)) * scale
     keep = block_keep(pos_q, pos_k, causal, valid_k)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
@@ -206,40 +212,40 @@ def block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal, valid_k):
 
 
 def block_bwd_dq(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
-                 valid_k=None):
+                 valid_k=None, scale=None):
     """dq blocks (..., w, dh) in at least fp32."""
     _, ds = block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
-                      valid_k)
+                      valid_k, scale)
     return torch.einsum("...wu,...ud->...wd", ds, upcast(kg))
 
 
 def block_bwd_dkv(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
-                  valid_k=None):
+                  valid_k=None, scale=None):
     """(dk, dv) blocks (..., w, dh) in at least fp32."""
     p, ds = block_bwd(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
-                      valid_k)
+                      valid_k, scale)
     return (torch.einsum("...wu,...wd->...ud", ds, upcast(qg)),
             torch.einsum("...wu,...wd->...ud", p, upcast(do)))
 
 
 def routed_attention_bwd_dq(q, k, v, q_idx, k_idx, positions, do, lse, dsum,
-                            causal=True, kvalid=None):
+                            causal=True, kvalid=None, scale=None):
     """Per-cluster dq blocks (B,H,k,w,dh) in at least fp32, from
     sequence-layout q/k/v (the plain version of the fused dq kernel)."""
     qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
         q, k, v, q_idx, k_idx, positions, kvalid)
     return block_bwd_dq(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
-                        valid_k)
+                        valid_k, scale)
 
 
 def routed_attention_bwd_dkv(q, k, v, q_idx, k_idx, positions, do, lse,
-                             dsum, causal=True, kvalid=None):
+                             dsum, causal=True, kvalid=None, scale=None):
     """Per-cluster (dk, dv) blocks (B,H,k,w,dh) in at least fp32, from
     sequence-layout q/k/v (the plain version of the fused dk/dv kernel)."""
     qg, kg, vg, pos_q, pos_k, valid_k = gather_blocks(
         q, k, v, q_idx, k_idx, positions, kvalid)
     return block_bwd_dkv(qg, kg, vg, pos_q, pos_k, do, lse, dsum, causal,
-                         valid_k)
+                         valid_k, scale)
 
 
 def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],

@@ -16,11 +16,13 @@
 // (`sm90::Ring`) from 3-D tensor maps (dh, rows, planes: rows past a
 // plane's end arrive as zeros).
 // - dk/dv: the block owns 128 key rows (K, V) and walks query tiles of BQ
-//   rows (Q, dO; BQ 64 at dh 64, 32 at dh 128 so that dK and dV, 64 x dh
-//   fp32 each per warpgroup, leave room for the tile's products). Per
-//   tile: S^T = K Q^T and dP^T = V dO^T (SS, K-major), P^T = exp(S^T scale
-//   - lse) on the accumulators, dV += P^T dO (RS, dO MN-major), dS^T = P^T
-//   (dP^T - D) scale, dK += dS^T Q (RS, Q MN-major).
+//   rows (Q, dO; BQ 64 at dh 64, 32 at dh 128 and 192 so that dK and dV,
+//   64 x dh fp32 each per warpgroup, leave room for the tile's products).
+//   Per tile: S^T = K Q^T and dP^T = V dO^T (SS, K-major), P^T = exp(S^T
+//   scale - lse) on the accumulators, dV += P^T dO (RS, dO MN-major),
+//   dS^T = P^T (dP^T - D) scale, dK += dS^T Q (RS, Q MN-major). At dh 192
+//   dK and dV do not both fit in registers: the walk runs twice
+//   (`dkv_sweeps`), dV in the first, dK in the second.
 // - dq: the block owns 128 query rows (Q, dO, their lse and D) and walks
 //   key tiles of 64 rows (K, V). Per tile: S = Q K^T and dP = dO V^T (SS),
 //   P, dS, dQ += dS K (RS, K MN-major).
@@ -74,6 +76,18 @@ constexpr int HB = 128;        // rows a block owns: two warpgroups of 64
 constexpr int HBN = 64;        // key rows per dq tile
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Sweeps of the dk/dv body over its query tiles: one, with dK and dV side
+// by side in registers (64 x DH fp32 each per warpgroup); two at dh 192,
+// where the two would take 192 registers a thread before S, dP and the
+// hi + lo fragments (at dh 128 the body reads 210-214 of the 255 a thread
+// may hold): the first computes S^T, P^T and dV, which it stores; the
+// second recomputes S^T and P^T and computes dP^T, dS^T and dK, in the
+// same registers. The price: S^T = K Q^T twice, and Q and dO read twice.
+template <int DH>
+__host__ __device__ constexpr int dkv_sweeps() {
+  return DH > 128 ? 2 : 1;
+}
+
 template <int DH>
 struct DkvSmemH {
   static constexpr int BOXES = DH / BOX_COLS;
@@ -98,22 +112,29 @@ __device__ __forceinline__ void bwd_dkv_body(
     float* __restrict__ dv, const P& pol, float scale) {
   using Sm = DkvSmemH<DH>;
   constexpr int BQ = Sm::BQ;
+  constexpr int SWEEPS = dkv_sweeps<DH>();
   extern __shared__ unsigned char smem_raw[];
   Sm& sm = aligned_smem<Sm>(smem_raw);
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
   const int ntiles = pol.ntiles;
+  // the walk: the query tiles once per sweep, tile j of it query tile
+  // j % ntiles
+  const int nwalk = SWEEPS * ntiles;
   constexpr uint32_t Q_BYTES = 2 * Sm::BOXES * Sm::QBOX;
   constexpr bool G = GathersRows<P>::value;
+  auto tile_row = [&](int j) {
+    return pol.q_first + (SWEEPS == 1 ? j : j % ntiles) * BQ;
+  };
 
   auto load_q = [&](int j) {
     const int s = j % RING_STAGES;
     uint64_t* bar = sm.ring.produce(j, Q_BYTES);
 #pragma unroll
     for (int x = 0; x < Sm::BOXES; ++x) {
-      tma_load_3d(&sm.q[s][x][0][0], &tq, bar, x * BOX_COLS,
-                  pol.q_first + j * BQ, pol.qplane);
-      tma_load_3d(&sm.dO[s][x][0][0], &tdo, bar, x * BOX_COLS,
-                  pol.q_first + j * BQ, pol.qplane);
+      tma_load_3d(&sm.q[s][x][0][0], &tq, bar, x * BOX_COLS, tile_row(j),
+                  pol.qplane);
+      tma_load_3d(&sm.dO[s][x][0][0], &tdo, bar, x * BOX_COLS, tile_row(j),
+                  pol.qplane);
     }
   };
   if constexpr (G) {
@@ -134,7 +155,7 @@ __device__ __forceinline__ void bwd_dkv_body(
         tma_load_3d(&sm.v[x][0][0], &tv, &sm.kvbar, x * BOX_COLS, pol.k0,
                     pol.kplane);
       }
-      sm.ring.prime(ntiles, load_q);
+      sm.ring.prime(nwalk, load_q);
     }
   }
 
@@ -144,19 +165,44 @@ __device__ __forceinline__ void bwd_dkv_body(
   const int key0 = pol.k0 + r, key1 = key0 + 8;
   const auto tag0 = pol.key_tag(key0), tag1 = pol.key_tag(key1);
   const float sl2 = scale * LOG2E;
-  float dka[DH / 2], dva[DH / 2];
+  // one sweep: dK and dV side by side; two (dh 192): dV in the first
+  // sweep, then dK in the second, in the same registers
+  float dva[DH / 2], dka[SWEEPS == 1 ? DH / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (SWEEPS == 1 ? DH / 2 : 1); ++i) dka[i] = 0.f;
   const void* ktile = &sm.k[0][64 * wg][0];
   const void* vtile = &sm.v[0][64 * wg][0];
   const size_t plane = static_cast<size_t>(pol.qplane) * pol.N;
+  const size_t kplane = static_cast<size_t>(pol.qplane) * pol.M;
+  // an accumulator's 64 x DH block to its key rows of ``out``
+  auto store = [&](const float (&a)[DH / 2], float* out) {
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      const int col = 8 * c + cq;
+      if (key0 < pol.M)
+        *reinterpret_cast<float2*>(out + (kplane + key0) * DH + col) =
+            make_float2(a[4 * c], a[4 * c + 1]);
+      if (key1 < pol.M)
+        *reinterpret_cast<float2*>(out + (kplane + key1) * DH + col) =
+            make_float2(a[4 * c + 2], a[4 * c + 3]);
+    }
+  };
 
   if constexpr (!G) {
     if (ntiles > 0) mbar_wait(&sm.kvbar, 0);
   }
-  for (int j = 0; j < ntiles; ++j) {
+  for (int j = 0; j < nwalk; ++j) {
     const int s = j % RING_STAGES, buf = j % 2;
-    const int q0 = pol.q_first + j * BQ;
+    const int q0 = tile_row(j);
+    // the first sweep of two computes dV alone, the second dK alone
+    const bool dv_sweep = SWEEPS == 2 && j < ntiles;
+    if (SWEEPS == 2 && j == ntiles) {
+      store(dva, dv);
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) dva[i] = 0.f;
+    }
     // this tile's lse and D, staged per warpgroup, double-buffered behind a
     // named barrier: TMA cannot load them (a plane's fp32 row need not be
     // 16-byte aligned), and with each thread reading its 2 * BQ / 4 values
@@ -172,9 +218,10 @@ __device__ __forceinline__ void bwd_dkv_body(
     wg_sync(1 + wg);
     if constexpr (G) {
       gathered_tile_ready();
-      if (j + 1 < ntiles) {
+      if (j + 1 < nwalk) {
         pol.gather_tile(&sm.q[(j + 1) % RING_STAGES][0][0][0],
-                        &sm.dO[(j + 1) % RING_STAGES][0][0][0], q0 + BQ);
+                        &sm.dO[(j + 1) % RING_STAGES][0][0][0],
+                        tile_row(j + 1));
         cp_async_commit();
       }
     } else {
@@ -182,19 +229,35 @@ __device__ __forceinline__ void bwd_dkv_body(
     }
     const void* qt = &sm.q[s][0][0][0];
     const void* dot = &sm.dO[s][0][0][0];
+    // at dh 192 the owned tiles' addresses are taken anew in each tile, so
+    // that the compiler computes their 24 k16-slice descriptors where the
+    // products read them instead of holding them (48 registers) across
+    // the walk beside the 96 of the accumulator
+    uint64_t kaddr = reinterpret_cast<uint64_t>(ktile);
+    uint64_t vaddr = reinterpret_cast<uint64_t>(vtile);
+    if constexpr (SWEEPS == 2) {
+      asm volatile("" : "+l"(kaddr));
+      asm volatile("" : "+l"(vaddr));
+    }
+    const void* kt = reinterpret_cast<const void*>(kaddr);
+    const void* vt = reinterpret_cast<const void*>(vaddr);
     float st[BQ / 2], dpt[BQ / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss(st, desc_k(ktile, kk, Sm::KBOX), desc_k(qt, kk, Sm::QBOX),
+      wgmma_ss(st, desc_k(kt, kk, Sm::KBOX), desc_k(qt, kk, Sm::QBOX),
                kk > 0);
     wgmma_commit();
+    if (!dv_sweep) {
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss(dpt, desc_k(vtile, kk, Sm::KBOX), desc_k(dot, kk, Sm::QBOX),
-               kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();   // S^T is in; dP^T may still run
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss(dpt, desc_k(vt, kk, Sm::KBOX), desc_k(dot, kk, Sm::QBOX),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();   // S^T is in; dP^T may still run
+    } else {
+      wgmma_wait<0>();
+    }
     fence_regs(st);
 
     // P^T, zero where masked: only a tile the policy marks for this
@@ -217,69 +280,75 @@ __device__ __forceinline__ void bwd_dkv_body(
         st[4 * c + 2 + e] = p1;
       }
     uint32_t ahi[BQ / 16][4], alo[BQ / 16][4];
-    pack_a_split(st, ahi, alo);
-    fence_regs(dva);
-    fence_regs(ahi);
-    fence_regs(alo);
-    wgmma_fence();
+    if (SWEEPS == 1 || dv_sweep) {
+      pack_a_split(st, ahi, alo);
+      fence_regs(dva);
+      fence_regs(ahi);
+      fence_regs(alo);
+      wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < BQ / 16; ++c) {
-      wgmma_rs(dva, ahi[c], desc_mn(dot, c, Sm::QBOX), 1);
-      wgmma_rs(dva, alo[c], desc_mn(dot, c, Sm::QBOX), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();   // dP^T is in; dV += P^T dO may still run
-    fence_regs(dpt);
-#pragma unroll
-    for (int c = 0; c < BQ / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = sm.dsum[wg][buf][8 * c + cq + e];
-        dpt[4 * c + e] = st[4 * c + e] * (dpt[4 * c + e] - d) * scale;
-        dpt[4 * c + 2 + e] =
-            st[4 * c + 2 + e] * (dpt[4 * c + 2 + e] - d) * scale;
+      for (int c = 0; c < BQ / 16; ++c) {
+        wgmma_rs(dva, ahi[c], desc_mn(dot, c, Sm::QBOX), 1);
+        wgmma_rs(dva, alo[c], desc_mn(dot, c, Sm::QBOX), 1);
       }
+      wgmma_commit();
+    }
+    if (!dv_sweep) {
+      if (SWEEPS == 1) {
+        wgmma_wait<1>();   // dP^T is in; dV += P^T dO may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(dpt);
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = sm.dsum[wg][buf][8 * c + cq + e];
+          dpt[4 * c + e] = st[4 * c + e] * (dpt[4 * c + e] - d) * scale;
+          dpt[4 * c + 2 + e] =
+              st[4 * c + 2 + e] * (dpt[4 * c + 2 + e] - d) * scale;
+        }
+    }
     wgmma_wait<0>();   // the P fragments are free again
     fence_regs(dva);
     fence_regs(ahi);
     fence_regs(alo);
-    pack_a_split(dpt, ahi, alo);
-    fence_regs(dka);
-    fence_regs(ahi);
-    fence_regs(alo);
-    wgmma_fence();
+    // dK += dS^T Q: into dka beside dva, or (dh 192) into dva, whose dV
+    // the first sweep stored
+    auto dk_update = [&](float (&acc)[DH / 2]) {
+      pack_a_split(dpt, ahi, alo);
+      fence_regs(acc);
+      fence_regs(ahi);
+      fence_regs(alo);
+      wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < BQ / 16; ++c) {
-      wgmma_rs(dka, ahi[c], desc_mn(qt, c, Sm::QBOX), 1);
-      wgmma_rs(dka, alo[c], desc_mn(qt, c, Sm::QBOX), 1);
+      for (int c = 0; c < BQ / 16; ++c) {
+        wgmma_rs(acc, ahi[c], desc_mn(qt, c, Sm::QBOX), 1);
+        wgmma_rs(acc, alo[c], desc_mn(qt, c, Sm::QBOX), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ahi);
+      fence_regs(alo);
+    };
+    if constexpr (SWEEPS == 1) {
+      dk_update(dka);
+    } else {
+      if (!dv_sweep) dk_update(dva);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dka);
-    fence_regs(ahi);
-    fence_regs(alo);
     // stage s is free once both warpgroups are done with it
-    if constexpr (!G) sm.ring.advance(j, ntiles, load_q);
+    if constexpr (!G) sm.ring.advance(j, nwalk, load_q);
   }
 
-  const size_t kplane = static_cast<size_t>(pol.qplane) * pol.M;
-#pragma unroll
-  for (int c = 0; c < DH / 8; ++c) {
-    const int col = 8 * c + cq;
-    if (key0 < pol.M) {
-      const size_t at = (kplane + key0) * DH + col;
-      *reinterpret_cast<float2*>(dk + at) =
-          make_float2(dka[4 * c], dka[4 * c + 1]);
-      *reinterpret_cast<float2*>(dv + at) =
-          make_float2(dva[4 * c], dva[4 * c + 1]);
-    }
-    if (key1 < pol.M) {
-      const size_t at = (kplane + key1) * DH + col;
-      *reinterpret_cast<float2*>(dk + at) =
-          make_float2(dka[4 * c + 2], dka[4 * c + 3]);
-      *reinterpret_cast<float2*>(dv + at) =
-          make_float2(dva[4 * c + 2], dva[4 * c + 3]);
-    }
+  if constexpr (SWEEPS == 1) {
+    store(dka, dk);
+    store(dva, dv);
+  } else {
+    // a block that walks nothing stores its zeros here
+    if (ntiles == 0) store(dva, dv);
+    store(dva, dk);
   }
 }
 

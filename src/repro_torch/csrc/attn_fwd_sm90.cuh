@@ -4,11 +4,12 @@
 // and the fused routing forward (routing_fused.cu) share.
 //
 // A block of 256 threads owns 128 query rows of one plane, 64 per
-// warpgroup; TMA loads its Q once and walks key tiles of 128 rows through
-// a ring of two K/V stages (`sm90::Ring`), from 3-D tensor maps (dh, rows,
-// planes): rows past a plane's end arrive as zeros, never as the next
-// plane's rows. At dh 128 a tile is two boxes of 64 columns. Per tile
-// S = Q K^T is one SS wgmma chain (m64n128k16, K a K-major operand); the
+// warpgroup; TMA loads its Q once and walks key tiles of 128 rows (64 at
+// dh 192: `fwd_keys`) through a ring of two K/V stages (`sm90::Ring`),
+// from 3-D tensor maps (dh, rows, planes): rows past a plane's end arrive
+// as zeros, never as the next plane's rows. At dh 128 a tile is two boxes
+// of 64 columns, at dh 192 three. Per tile S = Q K^T is one SS wgmma chain
+// (m64n128k16, m64n64k16 at dh 192; K a K-major operand); the
 // online softmax runs in fp32 on the accumulator registers (a row's max
 // and sum over the 4 threads of a quad); P, zero where masked and rounded
 // to bf16 in registers (`pack_a`), is the A operand of the RS wgmma chain
@@ -64,14 +65,24 @@ namespace sm90 {
 constexpr int FWD_ROWS = 128;   // query rows per block: two warpgroups of 64
 constexpr int FWD_KEYS = 128;   // key rows per tile
 
+// Key rows per tile at head dim DH: FWD_KEYS, but 64 at dh 192, where the
+// Q tile and two stages of 128-row K and V tiles would take 240 KB of
+// shared memory (the block has 227 KB); 64-row tiles take 144 KB, and the
+// score and P fragments shrink by half beside the 96 registers of O.
+template <int DH>
+__host__ __device__ constexpr int fwd_keys() {
+  return DH > 128 ? 64 : FWD_KEYS;
+}
+
 template <int DH>
 struct FwdSmemH {
   static constexpr int BOXES = DH / BOX_COLS;
+  static constexpr int KEYS = fwd_keys<DH>();
   static constexpr uint32_t QBOX = FWD_ROWS * ROW_BYTES;  // bytes of a box
-  static constexpr uint32_t KBOX = FWD_KEYS * ROW_BYTES;
+  static constexpr uint32_t KBOX = KEYS * ROW_BYTES;
   __nv_bfloat16 q[BOXES][FWD_ROWS][BOX_COLS];
-  __nv_bfloat16 k[RING_STAGES][BOXES][FWD_KEYS][BOX_COLS];
-  __nv_bfloat16 v[RING_STAGES][BOXES][FWD_KEYS][BOX_COLS];
+  __nv_bfloat16 k[RING_STAGES][BOXES][KEYS][BOX_COLS];
+  __nv_bfloat16 v[RING_STAGES][BOXES][KEYS][BOX_COLS];
   uint64_t qbar;
   Ring ring;
 };
@@ -84,6 +95,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
                                          float* __restrict__ lse,
                                          const P& pol, float scale) {
   using Sm = FwdSmemH<DH>;
+  constexpr int KEYS = Sm::KEYS;
   extern __shared__ unsigned char smem_raw[];
   Sm& sm = aligned_smem<Sm>(smem_raw);
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
@@ -96,9 +108,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
 #pragma unroll
     for (int x = 0; x < Sm::BOXES; ++x) {
       tma_load_3d(&sm.k[s][x][0][0], &tk, bar, x * BOX_COLS,
-                  pol.k_first + j * FWD_KEYS, pol.kplane);
+                  pol.k_first + j * KEYS, pol.kplane);
       tma_load_3d(&sm.v[s][x][0][0], &tv, bar, x * BOX_COLS,
-                  pol.k_first + j * FWD_KEYS, pol.kplane);
+                  pol.k_first + j * KEYS, pol.kplane);
     }
   };
   constexpr bool G = GathersRows<P>::value;
@@ -136,9 +148,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
   if constexpr (!G) mbar_wait(&sm.qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % RING_STAGES, buf = j % 2;
-    const int k0 = pol.k_first + j * FWD_KEYS;
+    const int k0 = pol.k_first + j * KEYS;
     if (pol.tile_tags()) {
-      pol.stage(wg, buf, t, k0 + t);
+      if (KEYS == WG || t < KEYS) pol.stage(wg, buf, t, k0 + t);
       wg_sync(1 + wg);
     }
     if constexpr (G) {
@@ -146,13 +158,13 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
       if (j + 1 < ntiles) {
         pol.gather_tile(&sm.k[(j + 1) % RING_STAGES][0][0][0],
                         &sm.v[(j + 1) % RING_STAGES][0][0][0],
-                        k0 + FWD_KEYS);
+                        k0 + KEYS);
         cp_async_commit();
       }
     } else {
       sm.ring.wait(j);
     }
-    float sc[FWD_KEYS / 2];
+    float sc[KEYS / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
@@ -164,7 +176,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
 
     if (pol.edge(wg, buf, k0)) {
 #pragma unroll
-      for (int c = 0; c < FWD_KEYS / 8; ++c)
+      for (int c = 0; c < KEYS / 8; ++c)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int cl = 8 * c + cq + e;
@@ -176,7 +188,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
     }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int c = 0; c < FWD_KEYS / 8; ++c) {
+    for (int c = 0; c < KEYS / 8; ++c) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * c], sc[4 * c + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * c + 2], sc[4 * c + 3]));
     }
@@ -194,7 +206,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
     m1 = mx1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int c = 0; c < FWD_KEYS / 8; ++c) {
+    for (int c = 0; c < KEYS / 8; ++c) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         sc[4 * c + e] = exp2f(fmaf(sc[4 * c + e], sl2, -ms0));
@@ -212,13 +224,13 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
       acc[4 * c + 2] *= alpha1;
       acc[4 * c + 3] *= alpha1;
     }
-    uint32_t pa[FWD_KEYS / 16][4];
+    uint32_t pa[KEYS / 16][4];
     pack_a(sc, pa);
     fence_regs(acc);
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < FWD_KEYS / 16; ++c)
+    for (int c = 0; c < KEYS / 16; ++c)
       wgmma_rs(acc, pa[c], desc_mn(&sm.v[s][0][0][0], c, Sm::KBOX), 1);
     wgmma_commit();
     wgmma_wait<0>();

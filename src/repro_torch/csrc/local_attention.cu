@@ -21,14 +21,18 @@
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64 and 128): `local_fwd_wgmma`, on the tensor cores with the
-// flash forward's body (attn_fwd_sm90.cuh: 128 query rows a block, Q
-// loaded once by TMA, 128-row K/V tiles through a ring, S = Q K^T and
-// O += P V by wgmma, P rounded to bf16 once). The TPU kernel takes one
-// softmax over the whole (w x 2w) score tile in VMEM; here the block walks
-// only its rows' window, from the window start of its first row, rounded
-// down to a tile, to its causal end (non-causal: the end of the next
-// block), with an online softmax, so shared memory does not grow with w.
+// bf16 (dh 64, 128 and 192): `local_fwd_wgmma`, on the tensor cores with
+// the flash forward's body (attn_fwd_sm90.cuh: 128 query rows a block, Q
+// loaded once by TMA, 128-row K/V tiles through a ring (64-row at dh 192,
+// to fit shared memory), S = Q K^T and O += P V by wgmma, P rounded to
+// bf16 once). The dh-192 instance serves any head dim over 128 (rt-pg19's
+// 129): the wrapper pads q, k and v with zero columns and passes the true
+// head dim's scale, which every instance takes from the caller. The TPU
+// kernel takes one softmax over the whole (w x 2w) score tile in VMEM;
+// here the block walks only its rows' window, from the window start of
+// its first row, rounded down to a tile, to its causal end (non-causal:
+// the end of the next block), with an online softmax, so shared memory
+// does not grow with w.
 // The kv plane is the query head's kv head (3-D maps over B * Hkv planes).
 // When 128 divides w, each query tile lies in one window block, so only
 // the diagonal tile and the ragged end are masked; otherwise a tile that
@@ -111,7 +115,8 @@ __global__ void __launch_bounds__(NT) local_fwd_kernel(
 template <int DH>
 int launch_fp32(const void* q, const void* k, const void* v,
                 const uint8_t* kvalid, void* o, float* lse, int B, int H,
-                int Hkv, int N, int w, int causal, cudaStream_t stream) {
+                int Hkv, int N, int w, int causal, float scale,
+                cudaStream_t stream) {
   auto kernel = local_fwd_kernel<DH>;
   const size_t smem = sizeof(FlashSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -120,18 +125,19 @@ int launch_fp32(const void* q, const void* k, const void* v,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), kvalid, static_cast<float*>(o), lse, H,
-      Hkv, N, w, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      Hkv, N, w, causal, scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores (the body is attn_fwd_sm90.cuh's)
 // ---------------------------------------------------------------------------
-using sm90::FWD_KEYS;
 using sm90::FWD_ROWS;
 
 // The window on row indices (see the top of this file). An owned row's tag
-// is its window [lo, hi] of key rows (hi clamped to the last key).
+// is its window [lo, hi] of key rows (hi clamped to the last key); the
+// walked tiles have KEYS rows.
+template <int KEYS>
 struct LocalFwd {
   static constexpr bool kNoKeyRows = true;   // a row whose keys are padding
   struct Window {
@@ -139,7 +145,7 @@ struct LocalFwd {
   };
   int qplane, kplane, q0, N, k_first, ntiles, w, causal;
   const uint8_t* kvalid;           // this batch row's (N,) pad mask, or null
-  uint8_t (*valid)[2][FWD_KEYS];   // [warpgroup][tile % 2][key]
+  uint8_t (*valid)[2][KEYS];       // [warpgroup][tile % 2][key]
   __device__ Window row_tag(int i) const {
     const int b = i / w;
     const int hi = causal ? i : (b + 2) * w - 1;
@@ -155,7 +161,7 @@ struct LocalFwd {
   __device__ bool edge(int wg, int, int k0) const {
     if (kvalid != nullptr) return true;
     const int r = q0 + 64 * wg;
-    return k0 < row_tag(r + 63).lo || k0 + FWD_KEYS - 1 > row_tag(r).hi;
+    return k0 < row_tag(r + 63).lo || k0 + KEYS - 1 > row_tag(r).hi;
   }
   __device__ bool drop(int wg, int buf, int c, int j, Window win) const {
     return j < win.lo || j > win.hi ||
@@ -171,9 +177,10 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1) local_fwd_wgmma(
     const uint8_t* __restrict__ kvalid, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int H, int Hkv, int N, int w, int causal,
     float scale) {
-  __shared__ uint8_t valid[2][2][FWD_KEYS];
+  constexpr int KEYS = sm90::fwd_keys<DH>();
+  __shared__ uint8_t valid[2][2][KEYS];
   const int bh = blockIdx.y, b = bh / H;
-  LocalFwd pol;
+  LocalFwd<KEYS> pol;
   pol.qplane = bh;
   pol.kplane = b * Hkv + (bh % H) / (H / Hkv);
   pol.q0 = blockIdx.x * FWD_ROWS;
@@ -186,22 +193,24 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1) local_fwd_wgmma(
   // from the window start of the first row, rounded down to a tile, to the
   // last row's causal end (non-causal: the end of its next block)
   const int last = min(pol.q0 + FWD_ROWS, N) - 1;
-  pol.k_first = max(0, (pol.q0 / w - 1) * w) / FWD_KEYS * FWD_KEYS;
+  pol.k_first = max(0, (pol.q0 / w - 1) * w) / KEYS * KEYS;
   const int kend = causal ? last + 1 : min(N, (last / w + 2) * w);
-  pol.ntiles = (kend - pol.k_first + FWD_KEYS - 1) / FWD_KEYS;
+  pol.ntiles = (kend - pol.k_first + KEYS - 1) / KEYS;
   sm90::fwd_body<DH>(tq, tk, tv, o, lse, pol, scale);
 }
 
 template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const uint8_t* kvalid, void* o, float* lse, int B, int H,
-                int Hkv, int N, int w, int causal, cudaStream_t stream) {
+                int Hkv, int N, int w, int causal, float scale,
+                cudaStream_t stream) {
+  constexpr int KEYS = sm90::fwd_keys<DH>();
   CUtensorMap tq, tk, tv;
   int err = sm90::map_rows(&tq, q, B * H, N, DH, FWD_ROWS);
   if (err == cudaSuccess)
-    err = sm90::map_rows(&tk, k, B * Hkv, N, DH, FWD_KEYS);
+    err = sm90::map_rows(&tk, k, B * Hkv, N, DH, KEYS);
   if (err == cudaSuccess)
-    err = sm90::map_rows(&tv, v, B * Hkv, N, DH, FWD_KEYS);
+    err = sm90::map_rows(&tv, v, B * Hkv, N, DH, KEYS);
   if (err != cudaSuccess) return err;
   auto kernel = local_fwd_wgmma<DH>;
   const size_t smem = sm90::aligned_smem_bytes<sm90::FwdSmemH<DH>>();
@@ -210,31 +219,32 @@ int launch_bf16(const void* q, const void* k, const void* v,
   dim3 grid((N + FWD_ROWS - 1) / FWD_ROWS, B * H);
   kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(
       tq, tk, tv, kvalid, static_cast<__nv_bfloat16*>(o), lse, H, Hkv, N,
-      w, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      w, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,H,N,dh), k/v (B,Hkv,N,dh), kvalid (B,N) uint8 or null; o like q,
-// lse (B,H,N) fp32. dtype: 0 fp32, 1 bf16. Returns a cudaError_t code.
+// lse (B,H,N) fp32. dtype: 0 fp32, 1 bf16; dh 64, 128 or 192 (any other
+// head dim comes zero-padded to one of them); scale the softmax scale,
+// 1 / sqrt of the true head dim. Returns a cudaError_t code.
 extern "C" int local_attention_fwd(const void* q, const void* k,
                                    const void* v, const uint8_t* kvalid,
                                    void* o, float* lse, int B, int H, int Hkv,
                                    int N, int dh, int w, int causal,
-                                   int dtype, void* stream) {
+                                   int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_bf16<128>(q, k, v, kvalid, o, lse, B, H, Hkv, N, w, causal,
-                            s);
-  if (dtype == 1 && dh == 64)
-    return launch_bf16<64>(q, k, v, kvalid, o, lse, B, H, Hkv, N, w, causal,
-                           s);
-  if (dtype == 0 && dh == 128)
-    return launch_fp32<128>(q, k, v, kvalid, o, lse, B, H, Hkv, N, w, causal,
-                            s);
-  if (dtype == 0 && dh == 64)
-    return launch_fp32<64>(q, k, v, kvalid, o, lse, B, H, Hkv, N, w, causal,
-                           s);
+#define LOCAL_FWD(DH)                                                        \
+  if (dh == DH && dtype == 1)                                                \
+    return launch_bf16<DH>(q, k, v, kvalid, o, lse, B, H, Hkv, N, w, causal, \
+                           scale, s);                                        \
+  if (dh == DH && dtype == 0)                                                \
+    return launch_fp32<DH>(q, k, v, kvalid, o, lse, B, H, Hkv, N, w, causal, \
+                           scale, s);
+  LOCAL_FWD(128)
+  LOCAL_FWD(64)
+  LOCAL_FWD(192)
+#undef LOCAL_FWD
   return cudaErrorInvalidValue;
 }

@@ -25,7 +25,11 @@
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64 and 128): `local_bwd_dq_wgmma` and `local_bwd_dkv_wgmma`, on
+// bf16 (dh 64, 128 and 192; the dh-192 instances serve any head dim over
+// 128, zero-padded by the wrapper, with the true head dim's scale, which
+// every instance takes from the caller; the dk/dv body runs two sweeps
+// there, attn_bwd_sm90.cuh `dkv_sweeps`): `local_bwd_dq_wgmma` and
+// `local_bwd_dkv_wgmma`, on
 // the tensor cores with the backward bodies the flash and gathered
 // backwards run (attn_bwd_sm90.cuh: 128 owned rows a block loaded once by
 // TMA, the other side's tiles through a ring, S and dP by wgmma, P and dS
@@ -39,9 +43,9 @@
 //   `LocalFwd` walks 128-row tiles;
 // - `LocalDkv`: a block owns 128 key rows, each tagged with the window of
 //   queries that attend it (a padded key, or one past the plane, an empty
-//   window), and walks query tiles of 64 rows (dh 64) or 32 (dh 128) from
-//   its first key's window start, rounded down to a tile, to its last
-//   key's window end.
+//   window), and walks query tiles of 64 rows (dh 64) or 32 (dh 128, 192)
+//   from its first key's window start, rounded down to a tile, to its
+//   last key's window end.
 // Windows only move forward, so a warpgroup masks a tile only when it
 // leaves the window of its last row (latest start) or of its first row
 // (earliest end); the ends are clamped to the plane, so a tile that
@@ -204,7 +208,7 @@ template <typename T, int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO,
               const float* lse, const float* dsum, const uint8_t* kvalid,
               float* dq, int B, int H, int Hkv, int N, int w, int causal,
-              cudaStream_t stream) {
+              float scale, cudaStream_t stream) {
   auto kernel = local_bwd_dq_kernel<T, DH>;
   const size_t smem = sizeof(DqSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -213,7 +217,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dO), lse, dsum, kvalid,
-      dq, H, Hkv, N, w, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      dq, H, Hkv, N, w, causal, scale);
   return cudaGetLastError();
 }
 
@@ -221,7 +225,7 @@ template <typename T, int DH>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
                const float* lse, const float* dsum, const uint8_t* kvalid,
                float* dk, float* dv, int B, int H, int Hkv, int N, int w,
-               int causal, cudaStream_t stream) {
+               int causal, float scale, cudaStream_t stream) {
   auto kernel = local_bwd_dkv_kernel<T, DH>;
   const size_t smem = sizeof(DkvSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -230,7 +234,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dO), lse, dsum, kvalid,
-      dk, dv, H, Hkv, N, w, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      dk, dv, H, Hkv, N, w, causal, scale);
   return cudaGetLastError();
 }
 
@@ -398,7 +402,8 @@ template <int DH>
 int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* dO, const float* lse, const float* dsum,
                    const uint8_t* kvalid, float* dq, int B, int H, int Hkv,
-                   int N, int w, int causal, cudaStream_t stream) {
+                   int N, int w, int causal, float scale,
+                   cudaStream_t stream) {
   CUtensorMap m[4];
   int err = map_bwd<DH>(m, q, k, v, dO, B, H, Hkv, N, HB, HBN);
   if (err != cudaSuccess) return err;
@@ -410,7 +415,7 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   dim3 grid((N + HB - 1) / HB, B * H);
   kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dsum, kvalid, dq, H, Hkv, N, w, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      scale);
   return cudaGetLastError();
 }
 
@@ -419,7 +424,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* dO, const float* lse, const float* dsum,
                     const uint8_t* kvalid, float* dk, float* dv, int B,
                     int H, int Hkv, int N, int w, int causal,
-                    cudaStream_t stream) {
+                    float scale, cudaStream_t stream) {
   CUtensorMap m[4];
   int err = map_bwd<DH>(m, q, k, v, dO, B, H, Hkv, N,
                         sm90::DkvSmemH<DH>::BQ, HB);
@@ -431,34 +436,36 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   dim3 grid((N + HB - 1) / HB, B * H);
   kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dsum, kvalid, dk, dv, H, Hkv, N, w,
-      causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q/do (B,H,N,dh), k/v (B,Hkv,N,dh), lse/dsum (B,H,N) fp32, kvalid (B,N)
-// uint8 or null; dq (B,H,N,dh) fp32. dtype: 0 fp32, 1 bf16. Returns a
-// cudaError_t code.
+// uint8 or null; dq (B,H,N,dh) fp32. dtype: 0 fp32, 1 bf16; dh 64, 128 or
+// 192 (any other head dim comes zero-padded to one of them); scale the
+// softmax scale, 1 / sqrt of the true head dim. Returns a cudaError_t
+// code.
 extern "C" int local_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dO,
                                       const float* lse, const float* dsum,
                                       const uint8_t* kvalid, float* dq, int B,
                                       int H, int Hkv, int N, int dh, int w,
-                                      int causal, int dtype, void* stream) {
+                                      int causal, int dtype, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_dq_bf16<128>(q, k, v, dO, lse, dsum, kvalid, dq, B, H, Hkv,
-                               N, w, causal, s);
-  if (dtype == 1 && dh == 64)
-    return launch_dq_bf16<64>(q, k, v, dO, lse, dsum, kvalid, dq, B, H, Hkv,
-                              N, w, causal, s);
-  if (dtype == 0 && dh == 128)
-    return launch_dq<float, 128>(q, k, v, dO, lse, dsum, kvalid, dq, B, H,
-                                 Hkv, N, w, causal, s);
-  if (dtype == 0 && dh == 64)
-    return launch_dq<float, 64>(q, k, v, dO, lse, dsum, kvalid, dq, B, H, Hkv,
-                                N, w, causal, s);
+#define LOCAL_DQ(DH)                                                         \
+  if (dh == DH && dtype == 1)                                                \
+    return launch_dq_bf16<DH>(q, k, v, dO, lse, dsum, kvalid, dq, B, H, Hkv, \
+                              N, w, causal, scale, s);                       \
+  if (dh == DH && dtype == 0)                                                \
+    return launch_dq<float, DH>(q, k, v, dO, lse, dsum, kvalid, dq, B, H,    \
+                                Hkv, N, w, causal, scale, s);
+  LOCAL_DQ(128)
+  LOCAL_DQ(64)
+  LOCAL_DQ(192)
+#undef LOCAL_DQ
   return cudaErrorInvalidValue;
 }
 
@@ -469,19 +476,18 @@ extern "C" int local_attention_bwd_dkv(const void* q, const void* k,
                                        const uint8_t* kvalid, float* dk,
                                        float* dv, int B, int H, int Hkv, int N,
                                        int dh, int w, int causal, int dtype,
-                                       void* stream) {
+                                       float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_dkv_bf16<128>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B, H,
-                                Hkv, N, w, causal, s);
-  if (dtype == 1 && dh == 64)
-    return launch_dkv_bf16<64>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B, H,
-                               Hkv, N, w, causal, s);
-  if (dtype == 0 && dh == 128)
-    return launch_dkv<float, 128>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B,
-                                  H, Hkv, N, w, causal, s);
-  if (dtype == 0 && dh == 64)
-    return launch_dkv<float, 64>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B, H,
-                                 Hkv, N, w, causal, s);
+#define LOCAL_DKV(DH)                                                        \
+  if (dh == DH && dtype == 1)                                                \
+    return launch_dkv_bf16<DH>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B, H, \
+                               Hkv, N, w, causal, scale, s);                 \
+  if (dh == DH && dtype == 0)                                                \
+    return launch_dkv<float, DH>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B,  \
+                                 H, Hkv, N, w, causal, scale, s);
+  LOCAL_DKV(128)
+  LOCAL_DKV(64)
+  LOCAL_DKV(192)
+#undef LOCAL_DKV
   return cudaErrorInvalidValue;
 }

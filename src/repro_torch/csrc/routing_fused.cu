@@ -22,10 +22,13 @@
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64 and 128): `routing_fused_wgmma`, on the tensor cores with the
-// forward body the flash, local and gathered forwards run
-// (attn_fwd_sm90.cuh: 128 query rows a block, 128-row K/V tiles, S = Q K^T
-// and O += P V by wgmma, P rounded to bf16 once). It computes what the
+// bf16 (dh 64, 128 and 192): `routing_fused_wgmma`, on the tensor cores
+// with the forward body the flash, local and gathered forwards run
+// (attn_fwd_sm90.cuh: 128 query rows a block, 128-row K/V tiles (64-row at
+// dh 192), S = Q K^T and O += P V by wgmma, P rounded to bf16 once). The
+// dh-192 instance serves any head dim over 128 (rt-pg19's 129): the
+// wrapper pads q, k and v with zero columns and passes the true head dim's
+// scale, which every instance takes from the caller. It computes what the
 // gathered forward (routing_gathered.cu) computes on the same blocks; what
 // differs is where the rows come from. A block's rows are members of one
 // cluster, picked by index from the sequence planes, and TMA loads boxes,
@@ -125,7 +128,7 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const int* q_idx,
            const int* k_idx, const int* pos_q, const int* pos_k, void* o,
            float* lse, int BH, int H, int N, int kc, int w, int causal,
-           cudaStream_t stream) {
+           float scale, cudaStream_t stream) {
   auto kernel = routing_fused_kernel<T, DH>;
   const size_t smem = sizeof(FlashSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -134,15 +137,13 @@ int launch(const void* q, const void* k, const void* v, const int* q_idx,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_idx, k_idx, pos_q, pos_k,
-      static_cast<T*>(o), lse, H, N, kc, w, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      static_cast<T*>(o), lse, H, N, kc, w, causal, scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores (the body is attn_fwd_sm90.cuh's)
 // ---------------------------------------------------------------------------
-using sm90::FWD_KEYS;
 using sm90::FWD_ROWS;
 using sm90::gather_rows;
 
@@ -150,9 +151,10 @@ using sm90::gather_rows;
 // this file), its rows gathered from the sequence planes: an owned row's
 // tag is its member's position (-1 past w), the walked key tiles' member
 // positions are staged (SENTINEL past w) with their largest value per
-// warp.
+// warp; the walked tiles have KEYS rows.
 template <int DH>
 struct FusedFwd {
+  static constexpr int KEYS = sm90::fwd_keys<DH>();
   static constexpr bool kNoKeyRows = true;
   static constexpr bool kGatherRows = true;
   int qplane, kplane, q0, N, k_first, ntiles, causal;
@@ -166,8 +168,8 @@ struct FusedFwd {
   const __nv_bfloat16* q;         // (nseq, DH) planes of this (batch, head)
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  int (*pos)[2][FWD_KEYS];        // [warpgroup][tile % 2][key]
-  int (*high)[2][FWD_KEYS / 32];  // their largest value per warp
+  int (*pos)[2][KEYS];            // [warpgroup][tile % 2][key]
+  int (*high)[2][KEYS / 32];      // their largest value per warp
   // the plane row of member i, clamped into [0, nseq - 1] as the fp32
   // kernel clamps it
   __device__ int member(const int* idx, int i) const {
@@ -187,7 +189,7 @@ struct FusedFwd {
   __device__ bool edge(int wg, int buf, int) const {
     int m = high[wg][buf][0];
 #pragma unroll
-    for (int i = 1; i < FWD_KEYS / 32; ++i) m = max(m, high[wg][buf][i]);
+    for (int i = 1; i < KEYS / 32; ++i) m = max(m, high[wg][buf][i]);
     return causal ? m > qmin : m >= SENTINEL;
   }
   __device__ bool drop(int wg, int buf, int c, int, int row) const {
@@ -202,8 +204,8 @@ struct FusedFwd {
     auto row = [&](int r) {
       return k0 + r < N ? member(ki, k0 + r) : -1;
     };
-    gather_rows<DH, FWD_KEYS>(kt, k, row);
-    gather_rows<DH, FWD_KEYS>(vt, v, row);
+    gather_rows<DH, KEYS>(kt, k, row);
+    gather_rows<DH, KEYS>(vt, v, row);
   }
 };
 
@@ -221,8 +223,9 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
                         __nv_bfloat16* __restrict__ o,
                         float* __restrict__ lse, int H, int N, int kc,
                         int w, int causal, float scale) {
-  __shared__ int pos[2][2][FWD_KEYS];
-  __shared__ int high[2][2][FWD_KEYS / 32];
+  constexpr int KEYS = FusedFwd<DH>::KEYS;
+  __shared__ int pos[2][2][KEYS];
+  __shared__ int high[2][2][KEYS / 32];
   __shared__ int red[2][8];
   const size_t cl = blockIdx.x;   // cluster slot (b * H + h) * kc + c
   const size_t bh = cl / kc;
@@ -253,7 +256,7 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
       mine ? p : INT_MAX, mine ? p : -1, red);
   const int qmax = rows.high;
   pol.qmin = rows.rows_low;
-  sm90::walk(w, FWD_KEYS, red,
+  sm90::walk(w, KEYS, red,
              [&](int i) {
                const int pk = pol.key_pos(i);
                return causal ? pk <= qmax : pk < SENTINEL;
@@ -267,7 +270,8 @@ template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const int* q_idx, const int* k_idx, const int* pos_q,
                 const int* pos_k, void* o, float* lse, int BH, int H, int N,
-                int kc, int w, int causal, cudaStream_t stream) {
+                int kc, int w, int causal, float scale,
+                cudaStream_t stream) {
   auto kernel = routing_fused_wgmma<DH>;
   const size_t smem = sm90::aligned_smem_bytes<sm90::FwdSmemH<DH>>();
   cudaError_t err = allow_smem(kernel, smem);
@@ -277,8 +281,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), q_idx, k_idx, pos_q, pos_k,
-      static_cast<__nv_bfloat16*>(o), lse, H, N, kc, w, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      static_cast<__nv_bfloat16*>(o), lse, H, N, kc, w, causal, scale);
   return cudaGetLastError();
 }
 
@@ -286,25 +289,26 @@ int launch_bf16(const void* q, const void* k, const void* v,
 
 // q/k/v (B*H, N, dh) (k may be q: shared-QK), q_idx/k_idx (B*H, kc, w)
 // int32, pos_q/pos_k (B, N) int32 (pos_k = SENTINEL for padded keys);
-// o (B*H, kc, w, dh), lse (B*H, kc, w) fp32. dtype: 0 fp32, 1 bf16.
+// o (B*H, kc, w, dh), lse (B*H, kc, w) fp32. dtype: 0 fp32, 1 bf16; dh 64,
+// 128 or 192 (any other head dim comes zero-padded to one of them); scale
+// the softmax scale, 1 / sqrt of the true head dim.
 extern "C" int routing_fused_fwd(const void* q, const void* k, const void* v,
                                  const int* q_idx, const int* k_idx,
                                  const int* pos_q, const int* pos_k, void* o,
                                  float* lse, int BH, int H, int N, int kc,
                                  int w, int dh, int causal, int dtype,
-                                 void* stream) {
+                                 float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_bf16<128>(q, k, v, q_idx, k_idx, pos_q, pos_k, o, lse, BH,
-                            H, N, kc, w, causal, s);
-  if (dtype == 1 && dh == 64)
-    return launch_bf16<64>(q, k, v, q_idx, k_idx, pos_q, pos_k, o, lse, BH,
-                           H, N, kc, w, causal, s);
-  if (dtype == 0 && dh == 128)
-    return launch<float, 128>(q, k, v, q_idx, k_idx, pos_q, pos_k, o, lse, BH,
-                              H, N, kc, w, causal, s);
-  if (dtype == 0 && dh == 64)
-    return launch<float, 64>(q, k, v, q_idx, k_idx, pos_q, pos_k, o, lse, BH,
-                             H, N, kc, w, causal, s);
+#define FUSED_FWD(DH)                                                        \
+  if (dh == DH && dtype == 1)                                                \
+    return launch_bf16<DH>(q, k, v, q_idx, k_idx, pos_q, pos_k, o, lse, BH,  \
+                           H, N, kc, w, causal, scale, s);                   \
+  if (dh == DH && dtype == 0)                                                \
+    return launch<float, DH>(q, k, v, q_idx, k_idx, pos_q, pos_k, o, lse,    \
+                             BH, H, N, kc, w, causal, scale, s);
+  FUSED_FWD(128)
+  FUSED_FWD(64)
+  FUSED_FWD(192)
+#undef FUSED_FWD
   return cudaErrorInvalidValue;
 }

@@ -24,7 +24,10 @@
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64 and 128): `routing_fused_dkv_wgmma` and
+// bf16 (dh 64, 128 and 192; the dh-192 instance serves any head dim over
+// 128, zero-padded by the wrapper, with the true head dim's scale, which
+// every instance takes from the caller; its dk/dv body runs two sweeps,
+// attn_bwd_sm90.cuh `dkv_sweeps`): `routing_fused_dkv_wgmma` and
 // `routing_fused_dq_wgmma`, on the tensor cores with the backward bodies
 // the flash, local and gathered backwards run (attn_bwd_sm90.cuh: 128
 // owned rows a block, the other side walked in tiles, S and dP by wgmma, P
@@ -230,7 +233,7 @@ template <typename T, int DH>
 int launch_dq(const void* q, const void* k, const void* v, const int* q_idx,
               const int* k_idx, const int* pos_q, const int* pos_k,
               const void* dO, const float* lse, const float* dsum, float* dq,
-              int BH, int H, int N, int kc, int w, int causal,
+              int BH, int H, int N, int kc, int w, int causal, float scale,
               cudaStream_t stream) {
   auto kernel = routing_bwd_dq_kernel<T, DH>;
   const size_t smem = sizeof(DqSmem<DH>);
@@ -241,7 +244,7 @@ int launch_dq(const void* q, const void* k, const void* v, const int* q_idx,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_idx, k_idx, pos_q, pos_k,
       static_cast<const T*>(dO), lse, dsum, dq, H, N, kc, w, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      scale);
   return cudaGetLastError();
 }
 
@@ -250,7 +253,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* q_idx,
                const int* k_idx, const int* pos_q, const int* pos_k,
                const void* dO, const float* lse, const float* dsum, float* dk,
                float* dv, int BH, int H, int N, int kc, int w, int causal,
-               cudaStream_t stream) {
+               float scale, cudaStream_t stream) {
   auto kernel = routing_bwd_dkv_kernel<T, DH>;
   const size_t smem = sizeof(DkvSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -260,7 +263,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* q_idx,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_idx, k_idx, pos_q, pos_k,
       static_cast<const T*>(dO), lse, dsum, dk, dv, H, N, kc, w, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      scale);
   return cudaGetLastError();
 }
 
@@ -509,7 +512,8 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const int* q_idx, const int* k_idx, const int* pos_q,
                    const int* pos_k, const void* dO, const float* lse,
                    const float* dsum, float* dq, int BH, int H, int N,
-                   int kc, int w, int causal, cudaStream_t stream) {
+                   int kc, int w, int causal, float scale,
+                   cudaStream_t stream) {
   auto kernel = routing_fused_dq_wgmma<DH>;
   const size_t smem = sm90::aligned_smem_bytes<sm90::DqSmemH<DH>>();
   cudaError_t err = allow_smem(kernel, smem);
@@ -517,7 +521,7 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   dim3 grid(BH * kc, (w + HB - 1) / HB);
   kernel<<<grid, BLOCK_THREADS, smem, stream>>>(
       q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse, dsum, dq, H, N, kc, w,
-      causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -526,7 +530,8 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const int* q_idx, const int* k_idx, const int* pos_q,
                     const int* pos_k, const void* dO, const float* lse,
                     const float* dsum, float* dk, float* dv, int BH, int H,
-                    int N, int kc, int w, int causal, cudaStream_t stream) {
+                    int N, int kc, int w, int causal, float scale,
+                    cudaStream_t stream) {
   auto kernel = routing_fused_dkv_wgmma<DH>;
   const size_t smem = sm90::aligned_smem_bytes<sm90::DkvSmemH<DH>>();
   cudaError_t err = allow_smem(kernel, smem);
@@ -534,7 +539,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   dim3 grid(BH * kc, (w + HB - 1) / HB);
   kernel<<<grid, BLOCK_THREADS, smem, stream>>>(
       q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse, dsum, dk, dv, H, N, kc,
-      w, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      w, causal, scale);
   return cudaGetLastError();
 }
 
@@ -543,7 +548,9 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 // q/k/v (B*H, N, dh) (k may be q: shared-QK), q_idx/k_idx (B*H, kc, w)
 // int32, pos_q/pos_k (B, N) int32 (pos_k = SENTINEL for padded keys),
 // dO (B*H, kc, w, dh), lse/dsum (B*H, kc, w) fp32; dq (B*H, kc, w, dh)
-// fp32. dtype: 0 fp32, 1 bf16. Returns a cudaError_t code.
+// fp32. dtype: 0 fp32, 1 bf16; dh 64, 128 or 192 (any other head dim comes
+// zero-padded to one of them); scale the softmax scale, 1 / sqrt of the
+// true head dim. Returns a cudaError_t code.
 extern "C" int routing_fused_bwd_dq(const void* q, const void* k,
                                     const void* v, const int* q_idx,
                                     const int* k_idx, const int* pos_q,
@@ -551,20 +558,20 @@ extern "C" int routing_fused_bwd_dq(const void* q, const void* k,
                                     const float* lse, const float* dsum,
                                     float* dq, int BH, int H, int N, int kc,
                                     int w, int dh, int causal, int dtype,
-                                    void* stream) {
+                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_dq_bf16<128>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse,
-                               dsum, dq, BH, H, N, kc, w, causal, s);
-  if (dtype == 1 && dh == 64)
-    return launch_dq_bf16<64>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse,
-                              dsum, dq, BH, H, N, kc, w, causal, s);
-  if (dtype == 0 && dh == 128)
-    return launch_dq<float, 128>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse,
-                                 dsum, dq, BH, H, N, kc, w, causal, s);
-  if (dtype == 0 && dh == 64)
-    return launch_dq<float, 64>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse,
-                                dsum, dq, BH, H, N, kc, w, causal, s);
+#define FUSED_DQ(DH)                                                         \
+  if (dh == DH && dtype == 1)                                                \
+    return launch_dq_bf16<DH>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse,  \
+                              dsum, dq, BH, H, N, kc, w, causal, scale, s);  \
+  if (dh == DH && dtype == 0)                                                \
+    return launch_dq<float, DH>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO,     \
+                                lse, dsum, dq, BH, H, N, kc, w, causal,      \
+                                scale, s);
+  FUSED_DQ(128)
+  FUSED_DQ(64)
+  FUSED_DQ(192)
+#undef FUSED_DQ
   return cudaErrorInvalidValue;
 }
 
@@ -576,21 +583,20 @@ extern "C" int routing_fused_bwd_dkv(const void* q, const void* k,
                                      const float* lse, const float* dsum,
                                      float* dk, float* dv, int BH, int H,
                                      int N, int kc, int w, int dh, int causal,
-                                     int dtype, void* stream) {
+                                     int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_dkv_bf16<128>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO,
-                                lse, dsum, dk, dv, BH, H, N, kc, w, causal,
-                                s);
-  if (dtype == 1 && dh == 64)
-    return launch_dkv_bf16<64>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse,
-                               dsum, dk, dv, BH, H, N, kc, w, causal, s);
-  if (dtype == 0 && dh == 128)
-    return launch_dkv<float, 128>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO,
-                                  lse, dsum, dk, dv, BH, H, N, kc, w, causal,
-                                  s);
-  if (dtype == 0 && dh == 64)
-    return launch_dkv<float, 64>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse,
-                                 dsum, dk, dv, BH, H, N, kc, w, causal, s);
+#define FUSED_DKV(DH)                                                        \
+  if (dh == DH && dtype == 1)                                                \
+    return launch_dkv_bf16<DH>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO, lse, \
+                               dsum, dk, dv, BH, H, N, kc, w, causal, scale, \
+                               s);                                           \
+  if (dh == DH && dtype == 0)                                                \
+    return launch_dkv<float, DH>(q, k, v, q_idx, k_idx, pos_q, pos_k, dO,    \
+                                 lse, dsum, dk, dv, BH, H, N, kc, w, causal, \
+                                 scale, s);
+  FUSED_DKV(128)
+  FUSED_DKV(64)
+  FUSED_DKV(192)
+#undef FUSED_DKV
   return cudaErrorInvalidValue;
 }

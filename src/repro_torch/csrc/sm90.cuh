@@ -7,9 +7,9 @@
 // routing kernels), the wgmma shared-memory descriptor of the 128-byte
 // swizzle, and the bf16 `wgmma` instructions (fp32 accumulators) in SS form
 // (A and B from shared memory, both K-major, m64n32k16, m64n64k16 and
-// m64n128k16) and RS form (A from registers, B MN-major, m64n64k16 and
-// m64n128k16), and the block-wide min/max reductions that the gathered
-// kernels' walks take. Raw PTX, so a source that includes this header
+// m64n128k16) and RS form (A from registers, B MN-major, m64n64k16,
+// m64n128k16 and m64n192k16), and the block-wide min/max reductions that
+// the gathered kernels' walks take. Raw PTX, so a source that includes this header
 // builds in seconds.
 //
 // Tiles: a tensor map cuts a (rows, dh) bf16 plane into boxes of 64
@@ -213,23 +213,44 @@ __device__ __forceinline__ void fence_proxy_async() {
 // copy each at a time, neighbouring threads on neighbouring chunks of a
 // row; each thread keeps one chunk and row % 8, so its swizzled offset is
 // fixed. The copies belong to the calling thread's next committed group.
+// At dh 192 a row's 24 chunks do not divide the block: each thread then
+// keeps one chunk of a box row (8 a row) and copies it from each of the
+// three boxes of its rows.
 template <int DH, int ROWS, typename Row>
 __device__ __forceinline__ void gather_rows(void* tile,
                                             const __nv_bfloat16* plane,
                                             Row row) {
   constexpr int CHUNKS = DH / 8;   // 16-byte chunks of a row
-  constexpr int PER = ROWS * CHUNKS / BLOCK_THREADS;
-  static_assert(PER * BLOCK_THREADS == ROWS * CHUNKS, "whole copies");
-  const int c = threadIdx.x % CHUNKS, r0 = threadIdx.x / CHUNKS;
-  char* dst = static_cast<char*>(tile) + (c / 8) * ROWS * ROW_BYTES +
-              r0 * ROW_BYTES + (((c % 8) ^ (r0 % 8)) * 16);
+  if constexpr (BLOCK_THREADS % CHUNKS != 0) {
+    constexpr int BOXES = DH / BOX_COLS, STEP = BLOCK_THREADS / 8;
+    static_assert(ROWS % STEP == 0 && STEP % 8 == 0, "whole copies");
+    const int c = threadIdx.x % 8, r0 = threadIdx.x / 8;
+    char* dst = static_cast<char*>(tile) + r0 * ROW_BYTES +
+                ((c ^ (r0 % 8)) * 16);
 #pragma unroll
-  for (int m = 0; m < PER; ++m) {
-    const int r = r0 + m * (BLOCK_THREADS / CHUNKS);   // r % 8 == r0 % 8
-    const int i = row(r);
-    cp_async_16(dst + m * (BLOCK_THREADS / CHUNKS) * ROW_BYTES,
-                plane + static_cast<size_t>(i < 0 ? 0 : i) * DH + c * 8,
-                i < 0 ? 0u : 16u);
+    for (int m = 0; m < ROWS / STEP; ++m) {
+      const int i = row(r0 + m * STEP);   // (r0 + m * STEP) % 8 == r0 % 8
+      const __nv_bfloat16* src =
+          plane + static_cast<size_t>(i < 0 ? 0 : i) * DH + c * 8;
+#pragma unroll
+      for (int x = 0; x < BOXES; ++x)
+        cp_async_16(dst + x * ROWS * ROW_BYTES + m * STEP * ROW_BYTES,
+                    src + x * BOX_COLS, i < 0 ? 0u : 16u);
+    }
+  } else {
+    constexpr int PER = ROWS * CHUNKS / BLOCK_THREADS;
+    static_assert(PER * BLOCK_THREADS == ROWS * CHUNKS, "whole copies");
+    const int c = threadIdx.x % CHUNKS, r0 = threadIdx.x / CHUNKS;
+    char* dst = static_cast<char*>(tile) + (c / 8) * ROWS * ROW_BYTES +
+                r0 * ROW_BYTES + (((c % 8) ^ (r0 % 8)) * 16);
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int r = r0 + m * (BLOCK_THREADS / CHUNKS);   // r % 8 == r0 % 8
+      const int i = row(r);
+      cp_async_16(dst + m * (BLOCK_THREADS / CHUNKS) * ROW_BYTES,
+                  plane + static_cast<size_t>(i < 0 ? 0 : i) * DH + c * 8,
+                  i < 0 ? 0u : 16u);
+    }
   }
 }
 
@@ -478,6 +499,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// D (64 x 192) (+)= A (64 x 16, registers) . B (16 x 192), B from shared
+// memory, MN-major (the transpose bit): the products of the kernels' dh-192
+// instances (three 64-column groups, one box apart).
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
 }

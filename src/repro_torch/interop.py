@@ -8,8 +8,8 @@ included), `kstate_from_jax` the centroid tree (per segment {layer: mu
 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) go
 through a 16-bit integer view. `tree_to_numpy` goes the other way, with
 bfloat16 widened to float32. `opt_state_from_jax` and `train_state_from_jax`
-carry an Adam state and a whole JAX ``TrainState`` across, so the port can
-continue a JAX training run mid-trajectory.
+carry an Adam or an Adafactor state and a whole JAX ``TrainState`` across,
+so the port can continue a JAX training run mid-trajectory.
 """
 from __future__ import annotations
 
@@ -52,11 +52,17 @@ def tree_to_numpy(tree: Any) -> Any:
 
 
 def opt_state_from_jax(opt_state: Any, device="cpu") -> Any:
-    """The JAX package's Adam state ({"m", "v": fp32 trees, "count"}, numpy
-    leaves) -> the port's (``count`` a Python int)."""
+    """The JAX package's Adam state ({"m", "v": fp32 trees, "count"}) or
+    Adafactor state ({"stats": a tree of {"vr", "vc"} or {"v"} fp32
+    leaves, "count"}), numpy leaves -> the port's (``count`` a Python
+    int)."""
+    count = int(np.asarray(opt_state["count"]))
+    if "stats" in opt_state:
+        return {"stats": kstate_from_jax(opt_state["stats"], device),
+                "count": count}
     return {"m": kstate_from_jax(opt_state["m"], device),
             "v": kstate_from_jax(opt_state["v"], device),
-            "count": int(np.asarray(opt_state["count"]))}
+            "count": count}
 
 
 def train_state_from_jax(ts: Any, device="cpu"):

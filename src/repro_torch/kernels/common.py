@@ -20,15 +20,21 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (64, 128)
+# the widths of the local-window and fused routing kernels: a head dim up
+# to one of them runs zero-padded to it (`pad_heads`); the flash, gathered
+# and decode kernels take SUPPORTED_HEAD_DIMS only
+PADDED_HEAD_DIMS = (64, 128, 192)
 # element-type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -168,6 +174,43 @@ def head_dim_ok(what: str, dh: int) -> None:
     require(dh in SUPPORTED_HEAD_DIMS,
             f"{what}: head_dim {dh} unsupported by the CUDA kernel "
             f"(supported: {SUPPORTED_HEAD_DIMS})")
+
+
+def padded_head_dim(what: str, dh: int) -> int:
+    """The kernel width a head dim ``dh`` runs at: the first of
+    PADDED_HEAD_DIMS that holds it."""
+    for width in PADDED_HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"{what}: head_dim {dh} is wider than the kernels' "
+                     f"widest instance ({PADDED_HEAD_DIMS[-1]})")
+
+
+def head_scale(dh: int) -> float:
+    """The softmax scale 1 / sqrt(dh) in fp32, rounded as ``1.0f /
+    sqrtf(dh)`` rounds it (IEEE square root and division), so that the
+    value the kernels are passed is the one they once computed."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+
+
+def pad_heads(what: str, dh: int,
+              *tensors: Optional[torch.Tensor]) -> Tuple:
+    """``tensors`` (..., dh) with zero columns up to `padded_head_dim`
+    (None passes through; at a kernel width they are returned as they
+    are). Zero columns leave every dot product, so every score and every
+    softmax, unchanged, provided the scale stays `head_scale` of the true
+    dh; the outputs' extra columns are zero and `unpad_heads` cuts them."""
+    width = padded_head_dim(what, dh)
+    if width == dh:
+        return tensors
+    return tuple(None if t is None else F.pad(t, (0, width - dh))
+                 for t in tensors)
+
+
+def unpad_heads(dh: int, *tensors: torch.Tensor) -> Tuple:
+    """``tensors`` (..., width) cut back to their first ``dh`` columns."""
+    return tuple(t if t.shape[-1] == dh else t[..., :dh].contiguous()
+                 for t in tensors)
 
 
 def group_sum(x: torch.Tensor, Hkv: int) -> torch.Tensor:

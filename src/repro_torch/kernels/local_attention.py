@@ -19,8 +19,11 @@ bodies the flash and gathered backwards run (``csrc/attn_bwd_sm90.cuh``),
 P and dS fed to their products as hi + lo bf16 pairs. In fp32 they run the
 FMA tiles `FlashTile`, `DqTile` and `DkvTile`. TMA needs 16-byte aligned
 bases and row strides: the wrappers take contiguous, 16-byte aligned
-tensors (checked), and dh 64 or 128 gives rows of 128 or 256 bytes in
-bf16.
+tensors (checked), and the kernels' widths dh 64, 128 or 192 give rows of
+128, 256 or 384 bytes in bf16. Any other head dim up to 192 (rt-pg19's
+129) runs zero-padded to the next width (`common.pad_heads`, on both
+devices), with the scale of the true head dim, and the outputs are cut
+back to it.
 """
 from __future__ import annotations
 
@@ -37,18 +40,23 @@ LAUNCHES = C.counter("local_attention")
 LAUNCHES_BWD_DQ = C.counter("local_attention_bwd_dq")
 LAUNCHES_BWD_DKV = C.counter("local_attention_bwd_dkv")
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# pointers, then the ints (.., dtype), then the scale and the stream
+_TAIL = [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + _TAIL
+_DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + _TAIL
+_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + _TAIL
 
 
 def local_attention_plain(q, k, v, window: int, causal: bool = True,
-                          pad_mask: Optional[torch.Tensor] = None):
+                          pad_mask: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None):
     """The plain PyTorch version of the forward kernel: (out in q's dtype,
     lse in at least fp32). It computes in at least fp32 and rounds only
-    the output, as the TPU kernel does (it upcasts q, k and v)."""
+    the output, as the TPU kernel does (it upcasts q, k and v). ``scale``
+    defaults to 1 / sqrt(dh)."""
     out, lse = ref.local_attention(upcast(q), upcast(k), upcast(v), window,
-                                   causal, pad_mask, return_lse=True)
+                                   causal, pad_mask, return_lse=True,
+                                   scale=scale)
     return out.to(q.dtype), lse
 
 
@@ -82,21 +90,24 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pad_mask: Optional[torch.Tensor] = None):
     what = "local_attention"
     _check(what, q, k, v, pad_mask)
-    if q.device.type == "cpu":
-        return local_attention_plain(q, k, v, window, causal, pad_mask)
     B, H, N, dh = q.shape
-    C.head_dim_ok(what, dh)
+    scale = C.head_scale(dh)
+    q, k, v = C.pad_heads(what, dh, q, k, v)
+    if q.device.type == "cpu":
+        out, lse = local_attention_plain(q, k, v, window, causal, pad_mask,
+                                         scale)
+        return C.unpad_heads(dh, out)[0], lse
     code = C.dtype_code(what, q)
     kvalid = _kvalid(what, q, pad_mask)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     fn = C.load("local_attention", "local_attention_fwd", _ARGTYPES)
     err = fn(C.ptr(q), C.ptr(k), C.ptr(v), _opt_ptr(kvalid), C.ptr(out),
-             C.ptr(lse), B, H, k.shape[1], N, dh, min(window, N),
-             int(causal), code, C.stream())
+             C.ptr(lse), B, H, k.shape[1], N, q.shape[-1], min(window, N),
+             int(causal), code, scale, C.stream())
     C.check(err, what)
     LAUNCHES.bump()
-    return out, lse
+    return C.unpad_heads(dh, out)[0], lse
 
 
 # ---------------------------------------------------------------------------
@@ -119,22 +130,24 @@ def local_attention_bwd_dq(q, k, v, do, lse, dsum, window: int,
     (both (B,H,N) fp32)."""
     what = "local_attention_bwd_dq"
     _check_bwd(what, q, k, v, do, lse, dsum, pad_mask)
-    if q.device.type == "cpu":
-        return ref.local_attention_bwd_dq(q, k, v, do, lse, dsum, window,
-                                          causal, pad_mask)
     B, H, N, dh = q.shape
-    C.head_dim_ok(what, dh)
+    scale = C.head_scale(dh)
+    q, k, v, do = C.pad_heads(what, dh, q, k, v, do)
+    if q.device.type == "cpu":
+        return C.unpad_heads(dh, ref.local_attention_bwd_dq(
+            q, k, v, do, lse, dsum, window, causal, pad_mask, scale))[0]
     code = C.dtype_code(what, q)
     kvalid = _kvalid(what, q, pad_mask)
-    dq = torch.empty((B, H, N, dh), dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = C.load("local_attention_bwd", "local_attention_bwd_dq",
                 _DQ_ARGTYPES)
     err = fn(C.ptr(q), C.ptr(k), C.ptr(v), C.ptr(do), C.ptr(lse),
              C.ptr(dsum), _opt_ptr(kvalid), C.ptr(dq), B, H, k.shape[1], N,
-             dh, min(window, N), int(causal), code, C.stream())
+             q.shape[-1], min(window, N), int(causal), code, scale,
+             C.stream())
     C.check(err, what)
     LAUNCHES_BWD_DQ.bump()
-    return dq
+    return C.unpad_heads(dh, dq)[0]
 
 
 def local_attention_bwd_dkv(q, k, v, do, lse, dsum, window: int,
@@ -143,24 +156,25 @@ def local_attention_bwd_dkv(q, k, v, do, lse, dsum, window: int,
     sums them over each kv head's query group."""
     what = "local_attention_bwd_dkv"
     _check_bwd(what, q, k, v, do, lse, dsum, pad_mask)
-    if q.device.type == "cpu":
-        return ref.local_attention_bwd_dkv(q, k, v, do, lse, dsum, window,
-                                           causal, pad_mask)
     B, H, N, dh = q.shape
-    C.head_dim_ok(what, dh)
+    scale = C.head_scale(dh)
+    q, k, v, do = C.pad_heads(what, dh, q, k, v, do)
+    if q.device.type == "cpu":
+        return C.unpad_heads(dh, *ref.local_attention_bwd_dkv(
+            q, k, v, do, lse, dsum, window, causal, pad_mask, scale))
     code = C.dtype_code(what, q)
     kvalid = _kvalid(what, q, pad_mask)
-    dk = torch.empty((B, H, N, dh), dtype=torch.float32, device=q.device)
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     fn = C.load("local_attention_bwd", "local_attention_bwd_dkv",
                 _DKV_ARGTYPES)
     err = fn(C.ptr(q), C.ptr(k), C.ptr(v), C.ptr(do), C.ptr(lse),
              C.ptr(dsum), _opt_ptr(kvalid), C.ptr(dk), C.ptr(dv), B, H,
-             k.shape[1], N, dh, min(window, N), int(causal), code,
-             C.stream())
+             k.shape[1], N, q.shape[-1], min(window, N), int(causal), code,
+             scale, C.stream())
     C.check(err, what)
     LAUNCHES_BWD_DKV.bump()
-    return dk, dv
+    return C.unpad_heads(dh, dk, dv)
 
 
 def local_attention_bwd(q, k, v, out, lse, do, window: int,

@@ -16,13 +16,16 @@ sends a CPU tensor to its plain PyTorch version (``core/routing.py``:
 gather the blocks, attend) and launches its kernel on a CUDA tensor, or
 raises.
 
-The dtype picks the design, and nothing falls back: bf16 (dh 64 and 128)
-runs on Hopper's tensor cores (`routing_fused_wgmma`, and
+The dtype picks the design, and nothing falls back: bf16 (dh 64, 128 and
+192) runs on Hopper's tensor cores (`routing_fused_wgmma`, and
 `routing_fused_dq_wgmma` / `routing_fused_dkv_wgmma`: the shared forward
 and backward bodies, each cluster's member rows gathered by cp.async
 straight from the sequence planes, no gathered copy in device memory);
 fp32 runs the FMA kernels (`routing_fused_kernel`, and the backward's),
-which keep full fp32 products.
+which keep full fp32 products. Any other head dim up to 192 (rt-pg19's
+129) runs zero-padded to the next width (`common.pad_heads`, on both
+devices), with the scale of the true head dim, and the outputs are cut
+back to it.
 """
 from __future__ import annotations
 
@@ -40,21 +43,25 @@ LAUNCHES_BWD_DQ = C.counter("routing_fused_bwd_dq")
 LAUNCHES_BWD_DKV = C.counter("routing_fused_bwd_dkv")
 SENTINEL = 2 ** 30          # position of a padded key inside the kernels
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DQ_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DKV_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
-                 + [ctypes.c_void_p])
+# pointers, then the ints (.., dtype), then the scale and the stream
+_TAIL = [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + _TAIL
+_DQ_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + _TAIL
+_DKV_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + _TAIL
 
 
 def routed_attention_fused_plain(q, k, v, q_idx, k_idx, positions,
                                  causal: bool = True,
-                                 kvalid: Optional[torch.Tensor] = None):
+                                 kvalid: Optional[torch.Tensor] = None,
+                                 scale: Optional[float] = None):
     """The plain PyTorch version of the forward kernel: (out in q's dtype,
     lse in at least fp32). It computes in at least fp32 and rounds only
-    the output, as the TPU kernel does (it upcasts q, k and v)."""
+    the output, as the TPU kernel does (it upcasts q, k and v). ``scale``
+    defaults to 1 / sqrt(dh)."""
     out, lse = ref.gathered_block_attention(
         upcast(q), None if k is None else upcast(k), upcast(v), q_idx.long(),
-        k_idx.long(), positions.long(), causal, kvalid, return_lse=True)
+        k_idx.long(), positions.long(), causal, kvalid, return_lse=True,
+        scale=scale)
     return out.to(q.dtype), lse
 
 
@@ -91,24 +98,28 @@ def routed_attention_fused(q: torch.Tensor, k: Optional[torch.Tensor],
                            kvalid: Optional[torch.Tensor] = None):
     what = "routed_attention_fused"
     _check(what, q, k, v, q_idx, k_idx, positions, kvalid)
-    if q.device.type == "cpu":
-        return routed_attention_fused_plain(q, k, v, q_idx, k_idx, positions,
-                                            causal, kvalid)
-    kk = q if k is None else k
     B, H, N, dh = q.shape
     kc, w = q_idx.shape[2], q_idx.shape[3]
-    C.head_dim_ok(what, dh)
+    scale = C.head_scale(dh)
+    q, k, v = C.pad_heads(what, dh, q, k, v)
+    if q.device.type == "cpu":
+        out, lse = routed_attention_fused_plain(
+            q, k, v, q_idx, k_idx, positions, causal, kvalid, scale)
+        return C.unpad_heads(dh, out)[0], lse
+    kk = q if k is None else k
     code = C.dtype_code(what, q)
     pos_k = _key_positions(positions, kvalid)
-    out = torch.empty((B, H, kc, w, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, kc, w, q.shape[-1]), dtype=q.dtype,
+                      device=q.device)
     lse = torch.empty((B, H, kc, w), dtype=torch.float32, device=q.device)
     fn = C.load("routing_fused", "routing_fused_fwd", _ARGTYPES)
     err = fn(C.ptr(q), C.ptr(kk), C.ptr(v), C.ptr(q_idx), C.ptr(k_idx),
              C.ptr(positions), C.ptr(pos_k), C.ptr(out), C.ptr(lse),
-             B * H, H, N, kc, w, dh, int(causal), code, C.stream())
+             B * H, H, N, kc, w, q.shape[-1], int(causal), code, scale,
+             C.stream())
     C.check(err, what)
     LAUNCHES.bump()
-    return out, lse
+    return C.unpad_heads(dh, out)[0], lse
 
 
 # ---------------------------------------------------------------------------
@@ -135,25 +146,26 @@ def routed_attention_fused_bwd_dq(q, k, v, q_idx, k_idx, positions, do,
     gradient ``do`` and the forward's lse and D = rowsum(do * out)."""
     what = "routed_attention_fused_bwd_dq"
     _check_bwd(what, q, k, v, q_idx, k_idx, positions, do, lse, dsum, kvalid)
-    if q.device.type == "cpu":
-        return ref.routed_attention_bwd_dq(
-            q, k, v, q_idx.long(), k_idx.long(), positions.long(), do, lse,
-            dsum, causal, kvalid)
-    kk = q if k is None else k
     B, H, N, dh = q.shape
     kc, w = q_idx.shape[2], q_idx.shape[3]
-    C.head_dim_ok(what, dh)
+    scale = C.head_scale(dh)
+    q, k, v, do = C.pad_heads(what, dh, q, k, v, do)
+    if q.device.type == "cpu":
+        return C.unpad_heads(dh, ref.routed_attention_bwd_dq(
+            q, k, v, q_idx.long(), k_idx.long(), positions.long(), do, lse,
+            dsum, causal, kvalid, scale))[0]
+    kk = q if k is None else k
     code = C.dtype_code(what, q)
     pos_k = _key_positions(positions, kvalid)
-    dq = torch.empty((B, H, kc, w, dh), dtype=torch.float32, device=q.device)
+    dq = torch.empty(do.shape, dtype=torch.float32, device=q.device)
     fn = C.load("routing_fused_bwd", "routing_fused_bwd_dq", _DQ_ARGTYPES)
     err = fn(C.ptr(q), C.ptr(kk), C.ptr(v), C.ptr(q_idx), C.ptr(k_idx),
              C.ptr(positions), C.ptr(pos_k), C.ptr(do), C.ptr(lse),
-             C.ptr(dsum), C.ptr(dq), B * H, H, N, kc, w, dh, int(causal),
-             code, C.stream())
+             C.ptr(dsum), C.ptr(dq), B * H, H, N, kc, w, q.shape[-1],
+             int(causal), code, scale, C.stream())
     C.check(err, what)
     LAUNCHES_BWD_DQ.bump()
-    return dq
+    return C.unpad_heads(dh, dq)[0]
 
 
 def routed_attention_fused_bwd_dkv(q, k, v, q_idx, k_idx, positions, do,
@@ -163,26 +175,27 @@ def routed_attention_fused_bwd_dkv(q, k, v, q_idx, k_idx, positions, do,
     (``k=None``) dk is the gradient of q's rows taken as keys."""
     what = "routed_attention_fused_bwd_dkv"
     _check_bwd(what, q, k, v, q_idx, k_idx, positions, do, lse, dsum, kvalid)
-    if q.device.type == "cpu":
-        return ref.routed_attention_bwd_dkv(
-            q, k, v, q_idx.long(), k_idx.long(), positions.long(), do, lse,
-            dsum, causal, kvalid)
-    kk = q if k is None else k
     B, H, N, dh = q.shape
     kc, w = q_idx.shape[2], q_idx.shape[3]
-    C.head_dim_ok(what, dh)
+    scale = C.head_scale(dh)
+    q, k, v, do = C.pad_heads(what, dh, q, k, v, do)
+    if q.device.type == "cpu":
+        return C.unpad_heads(dh, *ref.routed_attention_bwd_dkv(
+            q, k, v, q_idx.long(), k_idx.long(), positions.long(), do, lse,
+            dsum, causal, kvalid, scale))
+    kk = q if k is None else k
     code = C.dtype_code(what, q)
     pos_k = _key_positions(positions, kvalid)
-    dk = torch.empty((B, H, kc, w, dh), dtype=torch.float32, device=q.device)
+    dk = torch.empty(do.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     fn = C.load("routing_fused_bwd", "routing_fused_bwd_dkv", _DKV_ARGTYPES)
     err = fn(C.ptr(q), C.ptr(kk), C.ptr(v), C.ptr(q_idx), C.ptr(k_idx),
              C.ptr(positions), C.ptr(pos_k), C.ptr(do), C.ptr(lse),
-             C.ptr(dsum), C.ptr(dk), C.ptr(dv), B * H, H, N, kc, w, dh,
-             int(causal), code, C.stream())
+             C.ptr(dsum), C.ptr(dk), C.ptr(dv), B * H, H, N, kc, w,
+             q.shape[-1], int(causal), code, scale, C.stream())
     C.check(err, what)
     LAUNCHES_BWD_DKV.bump()
-    return dk, dv
+    return C.unpad_heads(dh, dk, dv)
 
 
 def routed_attention_fused_bwd(q, k, v, q_idx, k_idx, positions, out, lse,

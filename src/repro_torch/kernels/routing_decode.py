@@ -26,6 +26,12 @@ import torch
 from repro_torch.kernels import common as C
 
 LAUNCHES = C.counter("routing_decode")
+# the head dims the kernel is built for; rt-pg19's 129 waits for a padded
+# cache or a ragged-row copy (a 258-byte row is no multiple of the bulk
+# copies' 16 bytes)
+HEAD_DIMS = C.SUPPORTED_HEAD_DIMS
+WAITS_FOR = ("ROADMAP Queue 1: serve rt-pg19: the paged decode at head dim "
+             "129")
 
 _BIG_NEG = -1e9
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -74,7 +80,9 @@ def paged_routing_decode(r: torch.Tensor, v_new: torch.Tensor,
                     cluster=cluster)
     if r.device.type == "cpu":
         return paged_routing_decode_plain(r, v_new, rk, rv, rlen, cluster)
-    C.head_dim_ok(what, dh)
+    if dh not in HEAD_DIMS:
+        raise NotImplementedError(f"{what}: head_dim {dh}: the kernel takes "
+                                  f"{HEAD_DIMS} ({WAITS_FOR})")
     code = C.dtype_code(what, r)
     out = torch.empty_like(r)
     fn = C.load("routing_decode", "routing_decode_fwd", _ARGTYPES)

@@ -52,7 +52,14 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, H, N, dh); positions: (B, N) integer. Rotates interleaved
-    (even, odd) pairs, as the JAX package does."""
+    (even, odd) pairs, as the JAX package does. An odd head dim (rt-pg19's
+    129) has a last column with no partner: the leading dh - 1 columns are
+    rotated as a head of dh - 1, and the last passes through. (The JAX
+    package's `apply_rope` takes even head dims only: its pairs and its
+    frequencies differ in length at an odd one.)"""
+    if x.shape[-1] % 2:
+        return torch.cat([apply_rope(x[..., :-1], positions, theta),
+                          x[..., -1:]], -1)
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[:, None, :, None].float() * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
