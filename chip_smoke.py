@@ -71,7 +71,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ROW_REL_TOL of its own largest value (`decode_row_errs`), a page with
    no occupied slot giving v_new bit for bit, slots past the occupied
    ones poisoned and a second run leaving the bits as they were, each
-   with `graph_ms` and an L2-cold reading (`cold_ms`); since slice 13 the
+   with `graph_ms` and an L2-cold reading (`cold_ms`); since slice 14 the
+   same at rt-pg19's and rt-imagenet64's serving shapes
+   (`PAPER_DECODE_SHAPES`: dh 129 through the dh-192 instance over pages
+   stored 192 wide, the bound also at 192; cap 2048) and at
+   `PG19_DECODE_EDGES` (`check_decode_paper`), and a digest of the dh-64
+   and dh-128 decode (`decode_digest`); since slice 13 the
    local and fused routing kernels (forward, dq, dk/dv) at the paper's
    other models' train shapes through the same checks
    (`check_paper_kernels`, seed 9): rt-pg19's head dim 129, which the
@@ -145,6 +150,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
    each;
    ``train_wikitext103``: rt-wikitext103 (10 layers, vocab 267735), 3
    bf16 steps of B 2 x 4096 on Adam, 20 / 10 / 10 each;
+   then (slice 14) every model the port trains served at full width and
+   depth in bf16 (`serve_model`: exact launches per prefill and per step,
+   prefill ms and tokens/s, decode ms per token, the busy ms of one
+   profiled prefill and decode step), each with an fp32 gate on the same
+   weights: ``serve_pg19`` (1 x 8192 + 16: local 22 and fused 2 launches
+   per prefill, decode 2 per step, through its dh-192 instance),
+   ``serve_imagenet64`` (1 x 6144 + 16, pages of cap 2048: 24, 24, 24),
+   ``serve_wikitext103`` (2 x 2048 + 16: 10, 10, 10), their kernel path
+   against the plain path under the serving gates of 4; ``serve_full``
+   (qwen2-0.5b, 2 x 2048 + 32: no kernel, full/torch prefill and
+   append-cache decode, as the JAX package's full/xla), each decode step
+   against the prefill logits of prompt + tokens
+   (MAX_MEDIAN_DIFF_FULL_FP32);
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -152,7 +170,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    rt-cifar10 prefill and decode step.
 
 ``--decode-only`` builds only the decode kernel and runs only
-`check_decode_shapes`; with ``--src`` it imports repro_torch from another
+`check_decode_shapes`, `decode_digest` and (without ``--src``)
+`check_decode_paper`; with ``--src`` it imports repro_torch from another
 checkout, so that tree's decode kernel reads the same inputs.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -305,6 +324,27 @@ DECODE_SHAPES = (("rt-enwik8 4x2048", 4, 4, 128, 32, 65),
 # full, wrapped), batch row 0 page 0 and batch row 1 page k - 1
 DECODE_EDGES = tuple((2, 5, dh, 3, cap) for cap in (1, 31, 33, 65, 512, 1000)
                      for dh in (64, 128))
+# since slice 14 the paged decode also at the shapes the paper's other
+# models' serving paths give it: rt-pg19's 1 x (8192 + 16) (2 routing heads
+# of dh 129, which the wrapper runs at the dh-192 instance over pages
+# stored 192 wide; cap = max_len / k) and rt-imagenet64's 1 x (6144 + 16)
+# (8 routing heads, cap = the window, 2048); and at the DECODE_EDGES caps
+# at dh 129, with the page kinds of `decode_pages`
+PAPER_DECODE_SHAPES = (("rt-pg19 1x8192", 1, 2, 129, 16, 513),
+                       ("rt-imagenet64 1x6144", 1, 8, 64, 8, 2048))
+PG19_DECODE_EDGES = tuple((2, 5, 129, 3, cap)
+                          for cap in (1, 31, 33, 65, 512, 1000))
+# since slice 14 the paper's other three models and qwen2-0.5b served at
+# full width and depth (random weights from seed 0, bf16; their fp32 gates
+# at the same size), path -> (arch, (batch, prompt, new tokens)): rt-pg19
+# at its 8192-token context, rt-imagenet64 at half an image (6144 of its
+# 12288 bytes), rt-wikitext103 and qwen2 at two 2048-token prompts
+SERVE_PAPER = {
+    "serve_pg19": (PG19_ARCH, (1, 8192, 16)),
+    "serve_imagenet64": (IMAGENET_ARCH, (1, 6144, 16)),
+    "serve_wikitext103": (WIKITEXT_ARCH, (2, 2048, 16)),
+}
+SERVE_FULL = ("serve_full", FULL_ARCH, (2, 2048, 32))
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -337,6 +377,13 @@ ROW_REL_TOL = 2.0 ** -7
 # in decode after such a flip)
 MIN_TOP1_FP32 = 0.99
 MAX_MEDIAN_DIFF_FP32 = 1e-2
+# a full-attention model served in fp32 (qwen2-0.5b, since slice 14): each
+# decode step's logits against the prefill logits of prompt + tokens
+# (teacher forcing), as the JAX package's tests hold decode to the forward.
+# Both run full/torch (no routing to flip); only the order of fp32 sums
+# differs between a one-token query over the cache and the prompt's
+# chunked prefill, so the median's limit is a tenth of the routing paths'
+MAX_MEDIAN_DIFF_FULL_FP32 = 1e-3
 # backward kernels vs their plain versions (fp32 outputs of both, on the
 # same bf16 inputs and the same lse and D): only the order of fp32 sums
 # differs, so a tenth of a percent of the largest reference value
@@ -432,8 +479,12 @@ BF16_GATE_FACTOR = 1.25
 # since slice 13 the local and fused kernels also train the paper's other
 # three models ("train_pg19", "train_imagenet64", "train_wikitext103")
 _PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
+# and since slice 14 the local and fused kernels prefill, and the decode
+# kernel decodes, those three models' serving paths (qwen2-0.5b's,
+# "serve_full", runs no kernel: full/torch, as the JAX package's full/xla)
+_SERVE_PAPER = tuple(SERVE_PAPER)
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
-              "train_gathered", "fit_gathered", *_PAPER)
+              "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER)
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
               *_PAPER)
 _FLASH = ("train_full", "launch")
@@ -448,12 +499,12 @@ KERNELS = {
         replaces="src/repro/kernels/routing_attention.py:325",
         kind="forward", layers="routing",
         paths=("serve", "train", "serve_cifar", "train_cifar",
-               "serve_routing", *_PAPER)),
+               "serve_routing", *_PAPER, *_SERVE_PAPER)),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
         kind="decode", layers="routing",
-        paths=("serve", "serve_cifar", "serve_routing")),
+        paths=("serve", "serve_cifar", "serve_routing", *_SERVE_PAPER)),
     "local_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/local_attention_bwd.cu",
         replaces="src/repro/kernels/local_attention.py:59",
@@ -882,10 +933,19 @@ def cold_ms(torch, fn, iters: int = 20) -> float:
 
 
 def _decode_reading(torch, K, shape, B, Hr, dh, kc, cap, dtype, gen,
-                    pages=None):
+                    pages=None, width=None, plain=False):
     """One `check_decode_shapes` reading: the kernel against its plain
-    version in fp32 on the same inputs, row by row, and its exact cases."""
+    version in fp32 on the same inputs, row by row, and its exact cases.
+    With a ``width`` past dh (rt-pg19's 129 at the kernel's 192,
+    `page_width`) the pages are stored that wide, their pad columns zero,
+    as the cache stores them; the bound is counted at dh, and at the
+    stored width beside it. With ``plain`` also the plain version's time
+    on the same inputs (`time_ms`)."""
     args = decode_inputs(torch, B, Hr, dh, kc, cap, dtype, gen, pages)
+    width = width or dh
+    if width != dh:
+        pad = lambda t: torch.nn.functional.pad(t, (0, width - dh))  # noqa
+        args = (*args[:2], pad(args[2]), pad(args[3]), *args[4:])
     r, v_new, rk, rv, rlen, cluster = args
     out = K.paged_routing_decode(*args)
     torch.cuda.synchronize()
@@ -908,6 +968,16 @@ def _decode_reading(torch, K, shape, B, Hr, dh, kc, cap, dtype, gen,
     call = lambda: K.paged_routing_decode(*args)  # noqa: E731
     g_ms = graph_ms(torch, call)
     spare = torch.empty_like(v_new)
+    stored = {}
+    if width != dh:
+        s_ms, s_by = bound_ms(
+            nbytes(r, v_new, out, cluster) + 2 * slots * width
+            * r.element_size() + 4 * B * Hr, 4 * width * (slots + B * Hr))
+        stored = dict(stored_width=width, stored_bound_ms=s_ms,
+                      stored_bound_by=s_by, stored_bound_share=s_ms / g_ms)
+    if plain:
+        stored["plain_ms"] = time_ms(
+            lambda: K.paged_routing_decode_plain(*args))
     return dict(
         shape=f"{shape} B{B} Hr{Hr} dh{dh} k{kc} cap{cap} "
               f"{str(dtype).split('.')[-1]}",
@@ -919,7 +989,7 @@ def _decode_reading(torch, K, shape, B, Hr, dh, kc, cap, dtype, gen,
         repeat_exact=bool(again.equal(out)),
         graph_ms=g_ms, cold_ms=cold_ms(torch, call), bound_ms=b_ms,
         bound_by=b_by, bound_share=b_ms / g_ms,
-        copy_graph_ms=graph_ms(torch, lambda: spare.copy_(v_new)))
+        copy_graph_ms=graph_ms(torch, lambda: spare.copy_(v_new)), **stored)
 
 
 def check_decode_shapes(torch, gen) -> dict:
@@ -944,6 +1014,15 @@ def check_decode_shapes(torch, gen) -> dict:
             res["edges"].append(_decode_reading(
                 torch, K, "edge", B, Hr, dh, kc, cap, dtype, gen,
                 decode_pages(cap)))
+    _decode_gates(res)
+    for key in ("shapes", "edges"):
+        print(f"decode {key} {json.dumps(res[key])}", flush=True)
+    return res
+
+
+def _decode_gates(res):
+    """`check_decode_shapes`' gates on the readings ``res`` (shapes,
+    edges)."""
     for row in res["shapes"] + res["edges"]:
         if not (row["row_err"] <= ROW_REL_TOL and row["empty_exact"]
                 and row["poison_exact"] and row["repeat_exact"]):
@@ -951,9 +1030,49 @@ def check_decode_shapes(torch, gen) -> dict:
                                  f"version or with itself: {row}")
     if not all(row["empty_rows"] for row in res["edges"]):
         raise AssertionError("a DECODE_EDGES reading has no empty page")
+
+
+def check_decode_paper(torch, gen) -> dict:
+    """The paged decode in bf16 and fp32 at `PAPER_DECODE_SHAPES` (rt-pg19's
+    dh 129 through the dh-192 instance, rt-imagenet64's cap 2048) and
+    `PG19_DECODE_EDGES`, through `check_decode_shapes`' readings and gates
+    (inputs from ``gen``), at the two shapes also the plain version's time.
+    Prints the readings."""
+    from repro_torch.kernels import routing_decode as K
+    res = dict(shapes=[], edges=[])
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, Hr, dh, kc, cap in PAPER_DECODE_SHAPES:
+            res["shapes"].append(_decode_reading(
+                torch, K, name, B, Hr, dh, kc, cap, dtype, gen,
+                width=K.page_width(dh), plain=True))
+        for B, Hr, dh, kc, cap in PG19_DECODE_EDGES:
+            res["edges"].append(_decode_reading(
+                torch, K, "edge", B, Hr, dh, kc, cap, dtype, gen,
+                decode_pages(cap), K.page_width(dh)))
+    _decode_gates(res)
     for key in ("shapes", "edges"):
-        print(f"decode {key} {json.dumps(res[key])}", flush=True)
+        print(f"paper decode {key} {json.dumps(res[key])}", flush=True)
     return res
+
+
+def decode_digest(torch) -> str:
+    """A sha256 of the paged decode's outputs in bf16 and fp32 at
+    `DECODE_SHAPES` and `DECODE_EDGES` (head dims 64 and 128), on inputs
+    from a generator of its own (seed 11, `decode_inputs`): two builds of
+    the kernel that compute the same bits there give the same digest."""
+    import hashlib
+    from repro_torch.kernels import routing_decode as K
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    h = hashlib.sha256()
+    for dtype in (torch.bfloat16, torch.float32):
+        for (_, B, Hr, dh, kc, cap), pages in (
+                *((s, None) for s in DECODE_SHAPES),
+                *((("edge", *e), decode_pages(e[-1])) for e in DECODE_EDGES)):
+            args = decode_inputs(torch, B, Hr, dh, kc, cap, dtype, gen, pages)
+            out = K.paged_routing_decode(*args)
+            h.update(out.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
 
 
 def _bwd_rows(names, got, ref, run_kernel, run_plain, library_ms, nbytes_in,
@@ -3091,18 +3210,96 @@ def train_paper(torch, run, path, counts, gate_limits=None):
     return row, launches
 
 
+def serve_model(torch, path, cfg, request, counts):
+    """Serve ``cfg`` at full width and depth (random weights from seed 0,
+    bf16; a prompt of random tokens from seed 1): `request` through `serve`
+    on the kernel path, launch counts set to 0 just before and read just
+    after, exact per prefill and per step; then one prefill and one decode
+    step under the profiler (`profile`: device busy ms). Then the fp32 gate
+    on the same prompt and weights: a
+    routing model's kernel path against its plain path (impl="torch")
+    teacher-forced with the kernel path's tokens, under the serving gates
+    (MIN_TOP1_FP32, MAX_MEDIAN_DIFF_FP32; each routes on its own, the
+    routing calls whose membership differed are counted); a full model's
+    decode steps against the prefill logits of prompt + tokens
+    (MAX_MEDIAN_DIFF_FULL_FP32). Returns (row, launches)."""
+    from repro_torch.configs import with_overrides
+    from repro_torch.kernels import common
+    from repro_torch.models.model import init_model
+    from repro_torch.serve import serving
+    from repro_torch.tree import tree_map
+    B, N, T = request
+    torch.cuda.reset_peak_memory_stats()
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    gen_tok = torch.Generator(device=DEVICE).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, N), generator=gen_tok,
+                            device=DEVICE)
+    # warm-up outside the counted run: cuBLAS handles, kernel loading
+    serve(torch, cfg, params, kstate, prompts[:1, :512], 2)
+    common.reset_counters()
+    kr = serve(torch, cfg, params, kstate, prompts, T, counts=counts)
+    launches = common.counters()
+    prof = profile(torch, cfg, params, kstate, prompts)
+    row = dict(model=cfg.name, batch=B, prompt=N, new_tokens=T,
+               prefill_ms=kr["prefill_ms"], prefill_tok_s=kr["prefill_tok_s"],
+               decode_ms_per_token=kr["decode_ms_per_token"],
+               decode_tok_s=kr["decode_tok_s"],
+               prefill_busy_ms=prof["prefill"]["device_busy_ms"],
+               decode_busy_ms=prof["decode_step"]["device_busy_ms"],
+               prefill_top_ops=prof["prefill"]["device_ops"][:5],
+               decode_top_ops=prof["decode_step"]["device_ops"][:5],
+               peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del kr, prof
+    cfg32 = with_overrides(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    calls = []
+    with membership_recorded(calls):
+        k32 = serve(torch, cfg32, params32, kstate, prompts, T)
+    if layer_counts(cfg)["full"] == cfg.num_layers:
+        tokens = torch.cat([prompts, k32["tokens"]], 1)
+        cache = serving.init_cache(cfg32, B, N + T, device=DEVICE)
+        logits, _ = serving.prefill(params32, kstate, cache,
+                                    {"tokens": tokens}, cfg32)
+        ref = dict(logits=logits[:, :N], step_logits=logits[:, N:])
+        limit, what = MAX_MEDIAN_DIFF_FULL_FP32, "teacher-forced forward"
+        extra = {}
+    else:
+        own = []
+        with membership_recorded(own):
+            ref = serve(torch, cfg32, params32, kstate, prompts, T,
+                        impl="torch", forced=k32["tokens"])
+        limit, what = MAX_MEDIAN_DIFF_FP32, "plain path"
+        extra = dict(fp32_routing_calls=len(calls),
+                     fp32_membership_differed=sum(
+                         bool((a != b).any()) for a, b in zip(calls, own)))
+    cmp32 = compare_paths(k32, ref, cfg.vocab_size)
+    del k32, ref, params32
+    torch.cuda.empty_cache()
+    row.update(gate=f"fp32 against the {what}", fp32=cmp32, **extra)
+    print(f"{path} {json.dumps(row)}", flush=True)
+    if (min(cmp32["prefill_top1"], cmp32["decode_top1"]) < MIN_TOP1_FP32
+            or max(cmp32["prefill_median_diff"],
+                   cmp32["decode_median_diff"]) > limit):
+        raise AssertionError(f"{path}: the fp32 kernel path disagrees with "
+                             f"the {what}: {cmp32}")
+    return row, launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
             f"{k}={v}" for k, v in row.items() if k != "shape"), flush=True)
 
 
-def decode_only(torch, card, out=None) -> int:
+def decode_only(torch, card, out=None, other=False) -> int:
     """``--decode-only``: build the decode kernel of the repro_torch that
-    is imported (``--src`` picks another tree's), print its ptxas lines and
-    run `check_decode_shapes` on the generator the full run gives it, so
-    two trees' kernels read the same inputs; with ``out`` write the
-    readings there too."""
+    is imported (``--src`` picks another tree's: ``other``), print its
+    ptxas lines and run `check_decode_shapes` on the generator the full run
+    gives it, so two trees' kernels read the same inputs, and
+    `decode_digest`; on this tree also `check_decode_paper`; with ``out``
+    write the readings there too."""
     import repro_torch
     from repro_torch.kernels import common
     where = str(Path(repro_torch.__file__).parent)
@@ -3113,10 +3310,17 @@ def decode_only(torch, card, out=None) -> int:
             print(f"  routing_decode: {line.strip()}")
     rows = check_decode_shapes(torch,
                                torch.Generator(device=DEVICE).manual_seed(8))
+    digest = decode_digest(torch)
+    print(f"decode digest {digest}", flush=True)
+    paper = None
+    if not other:
+        paper = check_decode_paper(
+            torch, torch.Generator(device=DEVICE).manual_seed(10))
     if out:
         Path(out).parent.mkdir(parents=True, exist_ok=True)
         Path(out).write_text(json.dumps(dict(
-            card=card, repro_torch=where, decode_shapes=rows), indent=1))
+            card=card, repro_torch=where, decode_shapes=rows,
+            decode_digest=digest, paper_decode=paper), indent=1))
     return 0
 
 
@@ -3126,7 +3330,8 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-only", action="store_true",
                     help="build the decode kernel and run only its readings "
                          "at DECODE_SHAPES and DECODE_EDGES "
-                         "(check_decode_shapes); prints no result line")
+                         "(check_decode_shapes), decode_digest and, without "
+                         "--src, check_decode_paper; prints no result line")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src), so that an earlier tree's "
                     "kernels run through this script's checks")
@@ -3148,7 +3353,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     if args.decode_only:
-        return decode_only(torch, card, args.out)
+        return decode_only(torch, card, args.out, bool(args.src))
 
     t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
@@ -3172,8 +3377,11 @@ def main(argv=None) -> int:
                 # and since slice 11 the fused routing forward
                 "routing_fused": ("routing_fused_wgmma",),
                 # and since slice 12 the paged decode (its partials in
-                # registers)
-                "routing_decode": ("routing_decode_cluster",)}
+                # registers), since slice 14 its dh-192 instances by name
+                "routing_decode": ("routing_decode_cluster",
+                                   "routing_decode_clusterI13__nv_bfloat16"
+                                   "Li192E",
+                                   "routing_decode_clusterIfLi192E")}
     seen = set()
     for name, log in common.BUILD_LOGS.items():
         entry = ""
@@ -3281,6 +3489,13 @@ def main(argv=None) -> int:
     # generator of its own
     decode_rows = check_decode_shapes(
         torch, torch.Generator(device=DEVICE).manual_seed(8))
+    # since slice 14: the decode at rt-pg19's dh 129 (the dh-192 instance
+    # over pages stored 192 wide) and rt-imagenet64's cap 2048, then a
+    # digest of the dh-64 and dh-128 decode, on generators of their own
+    paper_decode_rows = check_decode_paper(
+        torch, torch.Generator(device=DEVICE).manual_seed(10))
+    dec_digest = decode_digest(torch)
+    print(f"decode digest {dec_digest}", flush=True)
     # since slice 13: the local and fused kernels at the paper's other
     # models' shapes (rt-pg19's head dim 129 through the dh-192 instances,
     # bf16 and fp32; rt-imagenet64's windows of 2048), then at
@@ -3453,6 +3668,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         t = phase(path, t)
 
+    # since slice 14: every model the port trains served, the paper's
+    # other three on the kernels, qwen2-0.5b on full/torch (no counter)
+    serve_rows = {}
+    for path, (arch, request) in (*SERVE_PAPER.items(),
+                                  (SERVE_FULL[0], SERVE_FULL[1:])):
+        serve_rows[path], launches[path] = serve_model(
+            torch, path, get_config(arch), request, common.counters)
+        torch.cuda.empty_cache()
+        t = phase(path, t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -3494,7 +3719,9 @@ def main(argv=None) -> int:
             fit_gathered=fit_row, serve_cifar=cserve_rows,
             routing_row_gate=routing_row_gate, serve_routing=rserve_rows,
             paper_kernels=paper_kernel_rows, pg19_edges=pg19_edges,
-            paper=paper_rows, profile=prof), indent=1))
+            paper=paper_rows, paper_decode=paper_decode_rows,
+            decode_digest=dec_digest, serve_paper=serve_rows,
+            launches=launches, profile=prof), indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

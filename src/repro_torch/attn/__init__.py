@@ -24,7 +24,6 @@ from repro_torch.attn.registry import (Backend,  # noqa: F401
                                        backends_for, resolve)
 from repro_torch.attn.spec import (AttentionSpec, head_split,  # noqa: F401
                                    spec_for_layer, variant_for_layer)
-from repro_torch.kernels import routing_decode as decode_kernel
 
 
 class AttnOutput(NamedTuple):
@@ -73,18 +72,14 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
 def _layout(spec: AttentionSpec, platform: str):
     """The cache layout of the decode backend that resolves on
     ``platform`` (the plain and the kernel backend of a variant share
-    one). On the card, a head dim its decode kernel does not take raises:
-    serving does not fall back to the plain backend."""
-    if not any(b.caps.supports_decode for b in backends_for(spec.variant)):
-        raise NotImplementedError(
-            f"decode caches of the {spec.variant!r} variant are not ported "
-            f"yet (ROADMAP Queue 1: serve the full-attention families)")
+    one). On the card, a head dim wider than its decode kernel takes
+    raises: serving does not fall back to the plain backend."""
     b = resolve(spec, decode=True, platform=platform)
-    dims = b.caps.decode_head_dims
-    if platform == "cuda" and dims is not None and spec.head_dim not in dims:
-        raise NotImplementedError(
+    top = b.caps.decode_max_head_dim
+    if platform == "cuda" and top is not None and spec.head_dim > top:
+        raise ValueError(
             f"{b.name}: decode on the card at head_dim {spec.head_dim}: its "
-            f"kernel takes {dims} ({decode_kernel.WAITS_FOR})")
+            f"kernel's widest instance is {top}")
     return b.layout
 
 

@@ -7,8 +7,11 @@ Registered pairs (variant, impl):
 
   full/torch            plain PyTorch: one-shot or KV-chunked online
                         softmax (`core.attention.full_attention`), causal on
-                        the given positions, pad mask; no decode yet (the
-                        append cache is not ported)
+                        the given positions, pad mask; append-cache decode
+                        (the JAX package's full/xla: it has no decode
+                        kernel, and its flash kernel takes no positions, so
+                        a serving prefill and every decode step of a full
+                        model run here on the card too)
   full/cuda             the hand-written CUDA flash kernels, forward and
                         backward (`kernels.flash_attention.FlashAttention`;
                         priority 10, needs_cuda; the counterpart of the JAX
@@ -43,15 +46,18 @@ differentiable: the plain ones through autograd of their PyTorch ops, the
 kernel ones through the Functions' backward kernels. The centroids they
 return carry no gradient (the EMA update is detached).
 
-Cache layouts: a 2W ring for local heads (`RING_LAYOUT`), cluster pages for
-routing heads (`PAGES_LAYOUT`), both for the head split (`MIXED_LAYOUT`);
-the plain and the kernel backend of a variant share its layout, its decode
-glue (ring-local decode, token routing, page-slot write) and its fill, so
-the two paths walk the same cache trajectory. Every apply returns, beside
-its output and centroids, the `Prefix` its attention computed (the local
-heads' roped keys, the routing heads' routing vectors and centroid
-scores; empty for ``full``): a prefill fills the cache from it instead of
-computing it again.
+Cache layouts: keys and values at their positions for full attention
+(`APPEND_LAYOUT`), a 2W ring for local heads (`RING_LAYOUT`), cluster pages
+for routing heads (`PAGES_LAYOUT`, stored at the paged decode kernel's
+width, `routing_decode.page_width`: rt-pg19's head dim 129 at 192, the pad
+columns zero), both for the head split (`MIXED_LAYOUT`); the plain and the
+kernel backend of a variant share its layout, its decode glue (ring-local
+decode, token routing, page-slot write) and its fill, so the two paths
+walk the same cache trajectory. Every apply returns, beside its output and
+centroids, the `Prefix` its attention computed (the full heads' and the
+local heads' roped keys, the routing heads' routing vectors and centroid
+scores): a prefill fills the cache from it instead of computing it
+again.
 Rope is applied here to local heads only; routing heads are content.
 Decode updates return new cache leaves (clone, then write) rather than
 writing in place, as the JAX functions do: the serve step's ``active`` mask
@@ -79,11 +85,13 @@ from repro_torch.models import layers as L
 
 class Prefix(NamedTuple):
     """What a prefill's attention computed that the cache fill reuses:
-    ``ring`` the local heads' (roped keys, values) (B,Hkv,N,dh); ``pages``
-    the routing heads' (routing vectors (B,Hr,N,dh), centroid scores
-    (B,Hr,N,k) fp32, values expanded to Hr heads)."""
+    ``append`` full attention's (roped keys, values) (B,Hkv,N,dh); ``ring``
+    the local heads' (roped keys, values) (B,Hkv,N,dh); ``pages`` the
+    routing heads' (routing vectors (B,Hr,N,dh), centroid scores (B,Hr,N,k)
+    fp32, values expanded to Hr heads)."""
     ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     pages: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    append: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +145,7 @@ def _full_torch_apply(spec, q, k, v, *, state=None, positions=None,
     qr, kr = _rope_qk(spec, q, k, positions)
     out = full_attention(qr, kr, v, spec.causal, pad_mask, positions,
                          chunk=resolve_chunk(spec, q.shape[2]))
-    return out, state, Prefix()
+    return out, state, Prefix(append=(kr, v))
 
 
 def _full_cuda_apply(spec, q, k, v, *, state=None, positions=None,
@@ -145,7 +153,7 @@ def _full_cuda_apply(spec, q, k, v, *, state=None, positions=None,
     qr, kr = _rope_qk(spec, q, k, positions)
     out = flash_kernel.FlashAttention.apply(qr.contiguous(), kr.contiguous(),
                                             v.contiguous(), spec.causal)
-    return out, state, Prefix()
+    return out, state, Prefix(append=(kr, v))
 
 
 def _make_local_apply(kernel: bool):
@@ -208,6 +216,14 @@ def _page_dims(spec, max_len):
     return kc, spec.routing.window or max(1, max_len // kc)
 
 
+def _append_cache(spec, B, max_len, dtype, device):
+    """Keys and values of a full (sub)spec's kv heads at their positions."""
+    dh, kv = spec.head_dim, spec.num_kv_heads
+    z = dict(dtype=dtype, device=device)
+    return {"k": torch.zeros((B, kv, max_len, dh), **z),
+            "v": torch.zeros((B, kv, max_len, dh), **z)}
+
+
 def _ring_cache(spec, B, max_len, dtype, device):
     """2W ring of a local (sub)spec's kv heads."""
     dh, W, kv = spec.head_dim, spec.window, spec.num_kv_heads
@@ -219,12 +235,14 @@ def _ring_cache(spec, B, max_len, dtype, device):
 
 
 def _pages_cache(spec, B, max_len, dtype, device):
-    """Cluster pages of a routing (sub)spec's heads."""
-    dh, Hr = spec.head_dim, spec.num_heads
+    """Cluster pages of a routing (sub)spec's heads, each row stored at the
+    decode kernel's width (`decode_kernel.page_width`; the pad columns stay
+    zero: the fill and the slot write write the first dh)."""
+    width, Hr = decode_kernel.page_width(spec.head_dim), spec.num_heads
     kc, cap = _page_dims(spec, max_len)
     z = dict(dtype=dtype, device=device)
-    return {"rk": torch.zeros((B, Hr, kc, cap, dh), **z),
-            "rv": torch.zeros((B, Hr, kc, cap, dh), **z),
+    return {"rk": torch.zeros((B, Hr, kc, cap, width), **z),
+            "rv": torch.zeros((B, Hr, kc, cap, width), **z),
             "rlen": torch.zeros((B, Hr, kc), dtype=torch.int32,
                                 device=device)}
 
@@ -233,6 +251,18 @@ def _mixed_cache(spec, B, max_len, dtype, device):
     return {**_ring_cache(_local_subspec(spec), B, max_len, dtype, device),
             **_pages_cache(_routing_subspec(spec), B, max_len, dtype,
                            device)}
+
+
+def _full_decode(spec, q, k, v, *, cache, pos, state=None):
+    """Append k/v at ``pos`` and attend the whole cache, causal on the
+    query's position (keys past it, unwritten, are masked)."""
+    qr, kr = _rope_qk(spec, q, k, pos[:, None])
+    bi = torch.arange(kr.shape[0], device=q.device)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck[bi, :, pos] = kr[:, :, 0].to(ck.dtype)
+    cv[bi, :, pos] = v[:, :, 0].to(cv.dtype)
+    o = full_attention(qr, ck, cv, causal=True, positions=pos[:, None])
+    return o, {"k": ck, "v": cv}
 
 
 def _local_decode(spec, q, k, v, *, cache, pos, state=None):
@@ -267,15 +297,16 @@ def _route_token(q, mu, cache):
 
 
 def _write_page_slot(cache, r, v0, c, plen):
-    """Ring-overwrite the new token into slot plen % cap of page c."""
+    """Ring-overwrite the new token into slot plen % cap of page c (its
+    first dh columns)."""
     B, Hr = c.shape
-    cap = cache["rk"].shape[3]
+    cap, dh = cache["rk"].shape[3], r.shape[-1]
     wslot = (plen % cap).long()
     bi = torch.arange(B, device=c.device)[:, None]
     hi = torch.arange(Hr, device=c.device)[None, :]
     ck, cv, cl = cache["rk"].clone(), cache["rv"].clone(), cache["rlen"].clone()
-    ck[bi, hi, c, wslot] = r.to(ck.dtype)
-    cv[bi, hi, c, wslot] = v0.to(cv.dtype)
+    ck[bi, hi, c, wslot, :dh] = r.to(ck.dtype)
+    cv[bi, hi, c, wslot, :dh] = v0.to(cv.dtype)
     cl[bi, hi, c] = (plen + 1).to(cl.dtype)
     return {"rk": ck, "rv": cv, "rlen": cl}
 
@@ -309,6 +340,16 @@ def _make_mixed_decode(routing_decode):
 # ---------------------------------------------------------------------------
 # Prefill cache fill, from the attention's Prefix
 # ---------------------------------------------------------------------------
+def _append_fill(cache, prefix: Prefix, *, positions):
+    """Write the prompt's roped keys and values at positions [0, N)."""
+    k, v = prefix.append
+    N = k.shape[2]
+    out = {n: cache[n].clone() for n in ("k", "v")}
+    out["k"][:, :, :N] = k.to(out["k"].dtype)
+    out["v"][:, :, :N] = v.to(out["v"].dtype)
+    return out
+
+
 def _ring_fill(cache, prefix: Prefix, *, positions):
     """Place token t at ring slot t % 2W; keep the last 2W tokens."""
     kr, v = prefix.ring
@@ -331,9 +372,9 @@ def _ring_fill(cache, prefix: Prefix, *, positions):
 def _pages_fill(cache, prefix: Prefix, *, positions):
     """Route every prefix token to its argmax page, keeping the most
     recent ``cap`` per page at the ring slots sequential decode would
-    have used."""
+    have used (the first dh columns of each row)."""
     r, scores, vr = prefix.pages
-    B, Hr = r.shape[:2]
+    B, Hr, _, dh = r.shape
     kc, cap = cache["rk"].shape[2], cache["rk"].shape[3]
     assign = scores.argmax(-1)                             # (B,Hr,N)
     memb = torch.nn.functional.one_hot(assign, kc)         # (B,Hr,N,kc)
@@ -349,8 +390,8 @@ def _pages_fill(cache, prefix: Prefix, *, positions):
     pad = torch.zeros_like(cache["rk"][:, :, :, :1])
     rk = torch.cat([cache["rk"], pad], 3)
     rv = torch.cat([cache["rv"], pad], 3)
-    rk[bi, hi, assign, write_slot] = r.to(rk.dtype)
-    rv[bi, hi, assign, write_slot] = vr.to(rv.dtype)
+    rk[bi, hi, assign, write_slot, :dh] = r.to(rk.dtype)
+    rv[bi, hi, assign, write_slot, :dh] = vr.to(rv.dtype)
     return {"rk": rk[:, :, :, :cap].contiguous(),
             "rv": rv[:, :, :, :cap].contiguous(),
             "rlen": counts.to(torch.int32)}
@@ -364,17 +405,26 @@ def _mixed_fill(cache, prefix: Prefix, *, positions):
 # ---------------------------------------------------------------------------
 # Registration
 # ---------------------------------------------------------------------------
-RING_LAYOUT = CacheLayout(name="ring", init=_ring_cache, fill=_ring_fill)
-PAGES_LAYOUT = CacheLayout(name="pages", init=_pages_cache, fill=_pages_fill)
+_RING_AXES = {"lk": 2, "lv": 2}
+_PAGE_AXES = {"rk": 2, "rv": 2, "rlen": 2}
+APPEND_LAYOUT = CacheLayout(name="append", init=_append_cache,
+                            fill=_append_fill, head_axes={"k": 2, "v": 2})
+RING_LAYOUT = CacheLayout(name="ring", init=_ring_cache, fill=_ring_fill,
+                          head_axes=_RING_AXES)
+PAGES_LAYOUT = CacheLayout(name="pages", init=_pages_cache, fill=_pages_fill,
+                           head_axes=_PAGE_AXES)
 MIXED_LAYOUT = CacheLayout(name="ring+pages", init=_mixed_cache,
-                           fill=_mixed_fill)
+                           fill=_mixed_fill,
+                           head_axes={**_RING_AXES, **_PAGE_AXES})
 
 registry.register(Backend(
     variant="full", impl="torch", apply=_full_torch_apply,
-    caps=Capabilities(supports_grad=True)))
+    decode=_full_decode, layout=APPEND_LAYOUT,
+    caps=Capabilities(supports_decode=True, supports_grad=True)))
 
 # supports_positions=False: the flash kernels mask causality by row index,
-# so a call with positions (a prefill) goes to full/torch
+# so a call with positions (a prefill) goes to full/torch; no decode (as the
+# JAX package's full/pallas), so a decode step goes there too
 registry.register(Backend(
     variant="full", impl="cuda", apply=_full_cuda_apply, priority=10,
     caps=Capabilities(supports_pad_mask=False, supports_positions=False,
@@ -385,17 +435,18 @@ _CAPS = dict(supports_pad_mask=True, supports_positions=True,
 
 
 def _register(variant, impl, apply, priority=0, decode=None, layout=None,
-              decode_kernel_dims=None):
+              decode_max_head_dim=None):
     """A backend of the paper's variants: every impl but ``torch`` runs
     kernels (needs_cuda); a backend with a decode path owns ``layout``;
-    one whose decode runs the paged decode kernel takes its head dims
-    (``decode_kernel_dims``)."""
+    one whose decode runs the paged decode kernel takes head dims up to
+    its widest instance (``decode_max_head_dim``)."""
     registry.register(Backend(
         variant=variant, impl=impl, apply=apply, decode=decode,
         layout=layout, priority=priority,
         caps=Capabilities(supports_decode=decode is not None,
                           needs_cuda=impl != "torch",
-                          decode_head_dims=decode_kernel_dims, **_CAPS)))
+                          decode_max_head_dim=decode_max_head_dim,
+                          **_CAPS)))
 
 
 _local_torch = _make_local_apply(kernel=False)
@@ -414,7 +465,7 @@ _register("local", "cuda_gathered", _local_cuda)
 
 _register("routing", "torch", _routing_torch, 0, _decode_plain, PAGES_LAYOUT)
 _register("routing", "cuda", _routing_fused, 20, _decode_kernel,
-          PAGES_LAYOUT, decode_kernel.HEAD_DIMS)
+          PAGES_LAYOUT, decode_kernel.MAX_HEAD_DIM)
 _register("routing", "cuda_gathered", _routing_gathered)
 
 _register("local+routing", "torch",
@@ -423,6 +474,6 @@ _register("local+routing", "torch",
 _register("local+routing", "cuda",
           _make_mixed_apply(_local_cuda, _routing_fused), 20,
           _make_mixed_decode(_decode_kernel), MIXED_LAYOUT,
-          decode_kernel.HEAD_DIMS)
+          decode_kernel.MAX_HEAD_DIM)
 _register("local+routing", "cuda_gathered",
           _make_mixed_apply(_local_cuda, _routing_gathered))

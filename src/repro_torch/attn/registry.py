@@ -10,15 +10,15 @@ them for CUDA tensors and never elsewhere, while an explicit ``impl=``
 runs anywhere (on CPU tensors every kernel wrapper takes its plain
 version). Every other gap of a forced ``impl=`` raises
 `BackendResolutionError`, naming the backend auto-selection would use.
-A backend's decode kernel may take only some head dims
-(``decode_head_dims``): a decode cache on the card at another head dim
-raises `NotImplementedError` (`attn.init_decode_cache`), and never falls
+A backend's decode kernel may take head dims only up to its widest
+instance (``decode_max_head_dim``): a decode cache on the card at a wider
+head dim raises `ValueError` (`attn.init_decode_cache`), and never falls
 back to a plain backend.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 from repro_torch.attn.spec import AttentionSpec
 
@@ -36,11 +36,15 @@ class CacheLayout:
                                                (roped keys, routing vectors,
                                                centroid scores) the
                                                prefill's attention computed
+    ``head_axes``   leaf name -> the axis of the heads once the leaves are
+                    stacked over a segment's groups, (G, B, head, ...), as
+                    the JAX package's layouts declare it
     """
 
     name: str
     init: Callable
     fill: Callable
+    head_axes: Mapping[str, int] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -53,8 +57,9 @@ class Capabilities:
     with positions goes to (or, forced, refuses into) the reference.
     ``supports_grad``: the apply path is differentiable (autograd of
     PyTorch ops, or a kernel with a backward Function).
-    ``decode_head_dims``: the head dims the decode path's kernel takes on
-    the card (None: any).
+    ``decode_max_head_dim``: the widest head dim the decode path's kernel
+    takes on the card (None: any); a narrower one runs zero-padded to one
+    of its widths.
     """
 
     supports_decode: bool = False
@@ -62,7 +67,7 @@ class Capabilities:
     supports_positions: bool = True
     supports_grad: bool = False
     needs_cuda: bool = False
-    decode_head_dims: Optional[Tuple[int, ...]] = None
+    decode_max_head_dim: Optional[int] = None
 
 
 @dataclass(frozen=True)

@@ -5,9 +5,10 @@
 // (batch, routing head) it reads the token's cluster id c and the page's
 // write counter rlen[c] itself, scores the routing vector r against the
 // nvalid = min(rlen, cap) occupied slots of page c of the (kc, cap, dh)
-// cache, appends the self logit r.r / sqrt(dh), takes an fp32 softmax and
-// returns the weighted sum of the page values plus the token's own value,
-// rounded once. Slots at or beyond nvalid are never read.
+// cache, appends the self logit r.r * scale (scale = 1 / sqrt of the true
+// head dim, from the caller), takes an fp32 softmax and returns the
+// weighted sum of the page values plus the token's own value, rounded
+// once. Slots at or beyond nvalid are never read.
 //
 // What bounds it on this card: 2 flops per byte of the page it reads, far
 // below the ridge, so memory: the selected page (2 * nvalid * dh elements)
@@ -29,14 +30,17 @@
 //   (cp.async.bulk, completion on an mbarrier), in chunks of C rows (8 KB
 //   of K and 8 KB of V) through a two-stage ring, so one chunk's arithmetic
 //   overlaps the next chunk's copy and shared memory stays fixed at any cap.
-// - Logits with 16-byte reads: a row takes LPR = dh * size / 16 lanes (16
-//   at dh 128 in bf16), a warp takes 32 / LPR rows at a time and reduces
-//   each in its lane group by shuffles. Warp w owns rows w, w + 4, ... of a
-//   chunk.
+// - Logits with 16-byte reads: a row is NCH = dh * size / 16 chunks. Where
+//   they divide a warp (dh 64 and 128), a row takes LPR = NCH lanes (16 at
+//   dh 128 in bf16), a warp takes 32 / LPR rows at a time and reduces each
+//   in its lane group by shuffles. At dh 192 (24 chunks in bf16, 48 in
+//   fp32) a row takes the whole warp: lane q reads chunks q, q + 32, ...
+//   (lanes 24-31 idle in bf16) and the warp reduces by shuffles. Warp w
+//   owns rows w, w + 4, ... of a chunk.
 // - Each warp keeps its own online softmax over its rows (running max m,
 //   sum l and acc over all dh columns, dh / 32 a lane, so no thread idles at
 //   dh 64); the four warps' partials are folded in warp order in shared
-//   memory into the CTA's (m, l, acc).
+//   memory into the CTA's (m, l, acc), thread t taking columns t, t + 128.
 // - The CTAs' partials are combined in distributed shared memory. Every
 //   CTA arrives at the cluster barrier on entry and waits for that phase
 //   before it writes to another CTA (so rank 0 has started); it then
@@ -51,7 +55,13 @@
 //   bit. Every sum runs in a fixed order (no atomics): the same inputs give
 //   the same bits in every run.
 // Arithmetic: fp32 logits, softmax and sums from bf16 or fp32 storage; one
-// template for both dtypes and both head dims (64, 128).
+// template for both dtypes and the page widths DH 64, 128 and 192. A head
+// dim dh below its width (rt-pg19's 129 at 192) is stored in the pages
+// zero-padded to it, while r, v_new and o keep their dh columns: r is read
+// element by element into zeros past dh (its rows are no 16-byte
+// multiple), and only the first dh columns of o are written. Zero columns
+// leave every dot product, and so every logit, as it is; at dh == DH the
+// 16-byte reads of r are the ones the kernel has always made.
 #include "common.cuh"
 
 namespace {
@@ -165,15 +175,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// E consecutive elements (4 or 2; 16, 8 or 4 bytes) converted to fp32.
+// E consecutive elements (4, 2 or 6; 16, 8 or 4 bytes a read) converted
+// to fp32.
 template <int E>
 __device__ __forceinline__ void load_cols(const float* src, float* dst) {
   if constexpr (E == 4) {
     const float4 v = *reinterpret_cast<const float4*>(src);
     dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
   } else {
-    const float2 v = *reinterpret_cast<const float2*>(src);
-    dst[0] = v.x; dst[1] = v.y;
+#pragma unroll
+    for (int e = 0; e < E; e += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(src + e);
+      dst[e] = v.x; dst[e + 1] = v.y;
+    }
   }
 }
 template <int E>
@@ -187,21 +201,28 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* src,
         *reinterpret_cast<const __nv_bfloat162*>(&u.y));
     dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
   } else {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(src));
-    dst[0] = a.x; dst[1] = a.y;
+#pragma unroll
+    for (int e = 0; e < E; e += 2) {
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(src + e));
+      dst[e] = a.x; dst[e + 1] = a.y;
+    }
   }
 }
 
 template <typename T, int DH>
 struct Decode {
   static constexpr int ROW_BYTES = DH * static_cast<int>(sizeof(T));
-  static constexpr int C = CHUNK_BYTES / ROW_BYTES;  // rows a chunk, 16..64
+  static constexpr int C = CHUNK_BYTES / ROW_BYTES;  // rows a chunk, 10..64
   static constexpr int V = Vec<T>::N;                 // elements in 16 bytes
-  static constexpr int LPR = DH / V;                  // lanes a row (logits)
+  static constexpr int NCH = DH / V;                  // 16-byte chunks a row
+  // a warp a row where the chunks do not divide a warp (dh 192)
+  static constexpr bool kWarpRow = NCH > 32 || 32 % NCH != 0;
+  static constexpr int LPR = kWarpRow ? 32 : NCH;     // lanes a row (logits)
   static constexpr int RPS = 32 / LPR;                // rows a warp step
+  static constexpr int CPL = (NCH + LPR - 1) / LPR;   // chunks a lane: 1, 2
   static constexpr int EPL = DH / 32;                 // value columns a lane
-  static_assert(LPR <= 32 && 32 % LPR == 0 && DH % 64 == 0, "row layout");
+  static_assert(DH % 64 == 0 && EPL % 2 == 0 && C >= 1, "row layout");
   struct Smem {
     alignas(128) T k[2][C * DH];     // the ring: K rows of a chunk a stage
     alignas(128) T v[2][C * DH];     // and its V rows
@@ -220,10 +241,10 @@ __global__ void __launch_bounds__(NT) routing_decode_cluster(
     const T* __restrict__ r, const T* __restrict__ v_new,
     const T* __restrict__ rk, const T* __restrict__ rv,
     const int* __restrict__ rlen, const int* __restrict__ cluster,
-    T* __restrict__ o, int kc, int cap, float scale) {
+    T* __restrict__ o, int kc, int cap, int dh, float scale) {
   using D = Decode<T, DH>;
   constexpr int C = D::C, V = D::V, LPR = D::LPR, RPS = D::RPS;
-  constexpr int EPL = D::EPL;
+  constexpr int CPL = D::CPL, EPL = D::EPL;
   __shared__ typename D::Smem sm;
   // this CTA has started: the others may write to its shared memory once
   // they have waited for this phase
@@ -240,10 +261,23 @@ __global__ void __launch_bounds__(NT) routing_decode_cluster(
     mbar_init(&sm.full[1]);
     fence_mbar_init();
   }
-  // lane group g of LPR lanes takes a row; lane q of it 16 bytes of the row
+  // lane group g of LPR lanes takes a row; lane q of it the row's 16-byte
+  // chunks q, q + LPR, ... (one chunk where the chunks divide a warp)
   const int g = lane / LPR, q = lane % LPR;
-  float rs[V];
-  Vec<T>::load(r + bh * DH + q * V, rs);
+  float rs[CPL][V];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int ch = q + i * LPR;
+    if (dh == DH && (!D::kWarpRow || ch < D::NCH)) {
+      Vec<T>::load(r + bh * DH + ch * V, rs[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int col = ch * V + e;
+        rs[i][e] = col < dh ? to_f(r[bh * dh + col]) : 0.f;
+      }
+    }
+  }
   __syncthreads();   // the lengths and the mbarriers are ready
 
   // this rank's share of the occupied slots [0, nvalid) of page c
@@ -281,10 +315,15 @@ __global__ void __launch_bounds__(NT) routing_decode_cluster(
       const int t = t0 + g, j = warp + WARPS * t;
       float d = 0.f;
       if (t < mine) {
-        float kv[V];
-        Vec<T>::load(ks + j * DH + q * V, kv);
 #pragma unroll
-        for (int e = 0; e < V; ++e) d = fmaf(rs[e], kv[e], d);
+        for (int i = 0; i < CPL; ++i) {
+          const int ch = q + i * LPR;
+          if (D::kWarpRow && ch >= D::NCH) continue;
+          float kv[V];
+          Vec<T>::load(ks + j * DH + ch * V, kv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) d = fmaf(rs[i][e], kv[e], d);
+        }
       }
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1)
@@ -323,15 +362,14 @@ __global__ void __launch_bounds__(NT) routing_decode_cluster(
   // rank 0 computes the token's own logit meanwhile
   float self = 0.f;
   if (rank == 0 && threadIdx.x < DH) {
-    for (int e = lane; e < DH; e += 32) {
-      const float x = to_f(r[bh * DH + e]);
+    for (int e = lane; e < dh; e += 32) {
+      const float x = to_f(r[bh * dh + e]);
       self = fmaf(x, x, self);
     }
     self = warp_sum(self) * scale;
   }
   cluster_wait();    // every CTA of the cluster has started
-  if (threadIdx.x < DH) {
-    const int d = threadIdx.x;
+  for (int d = threadIdx.x; d < DH; d += NT) {
     float M = NEG, a = 0.f, L = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w)
@@ -355,8 +393,7 @@ __global__ void __launch_bounds__(NT) routing_decode_cluster(
   if (rank != 0) return;
   cluster_wait();    // acquire: every CTA's partial is here
 
-  if (threadIdx.x < DH) {
-    const int d = threadIdx.x;
+  for (int d = threadIdx.x; d < dh; d += NT) {
     float M = self;
 #pragma unroll
     for (int k = 0; k < MAX_CLUSTER; ++k)
@@ -364,7 +401,7 @@ __global__ void __launch_bounds__(NT) routing_decode_cluster(
         M = fmaxf(M, sm.m_of[k]);
     // the token itself first: with no occupied slot, o is v_new exactly
     const float fs = expf(self - M);
-    float a = fs * to_f(v_new[bh * DH + d]), L = fs;
+    float a = fs * to_f(v_new[bh * dh + d]), L = fs;
 #pragma unroll
     for (int k = 0; k < MAX_CLUSTER; ++k) {
       if (k < static_cast<int>(S) && sm.l_of[k] > 0.f) {
@@ -373,15 +410,16 @@ __global__ void __launch_bounds__(NT) routing_decode_cluster(
         L = fmaf(f, sm.l_of[k], L);
       }
     }
-    o[bh * DH + d] = from_f<T>(a / L);
+    o[bh * dh + d] = from_f<T>(a / L);
   }
 }
 
 template <typename T, int DH>
 int launch(const void* r, const void* v_new, const void* rk, const void* rv,
            const int* rlen, const int* cluster, void* o, int BH, int kc,
-           int cap, cudaStream_t stream) {
-  if (BH < 1 || kc < 1 || cap < 1) return cudaErrorInvalidValue;
+           int cap, int dh, float scale, cudaStream_t stream) {
+  if (BH < 1 || kc < 1 || cap < 1 || dh < 1 || dh > DH)
+    return cudaErrorInvalidValue;
   const int want = (cap + SLOTS_PER_RANK - 1) / SLOTS_PER_RANK;
   const int S = want < MAX_CLUSTER ? want : MAX_CLUSTER;
   cudaLaunchConfig_t cfg = {};
@@ -400,33 +438,42 @@ int launch(const void* r, const void* v_new, const void* rk, const void* rv,
       &cfg, routing_decode_cluster<T, DH>, static_cast<const T*>(r),
       static_cast<const T*>(v_new), static_cast<const T*>(rk),
       static_cast<const T*>(rv), rlen, cluster, static_cast<T*>(o), kc, cap,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      dh, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// r/v_new (B*Hr, dh), rk/rv (B*Hr, kc, cap, dh), rlen (B*Hr, kc) int32,
-// cluster (B*Hr) int32; o (B*Hr, dh). dtype: 0 fp32, 1 bf16. Every pointer
-// 16-byte aligned (the bulk copies and vector reads need it).
+// r/v_new (B*Hr, dh), rk/rv (B*Hr, kc, cap, width), rlen (B*Hr, kc) int32,
+// cluster (B*Hr) int32; o (B*Hr, dh). width: 64, 128 or 192, dh <= width
+// (the pages' pad columns zero); scale: 1 / sqrt(dh). dtype: 0 fp32, 1
+// bf16. Every pointer 16-byte aligned (the bulk copies and vector reads
+// need it).
 extern "C" int routing_decode_fwd(const void* r, const void* v_new,
                                   const void* rk, const void* rv,
                                   const int* rlen, const int* cluster,
                                   void* o, int BH, int kc, int cap, int dh,
-                                  int dtype, void* stream) {
+                                  int width, int dtype, float scale,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
+  if (dtype == 1 && width == 128)
     return launch<__nv_bfloat16, 128>(r, v_new, rk, rv, rlen, cluster, o, BH,
-                                      kc, cap, s);
-  if (dtype == 1 && dh == 64)
+                                      kc, cap, dh, scale, s);
+  if (dtype == 1 && width == 64)
     return launch<__nv_bfloat16, 64>(r, v_new, rk, rv, rlen, cluster, o, BH,
-                                     kc, cap, s);
-  if (dtype == 0 && dh == 128)
+                                     kc, cap, dh, scale, s);
+  if (dtype == 1 && width == 192)
+    return launch<__nv_bfloat16, 192>(r, v_new, rk, rv, rlen, cluster, o, BH,
+                                      kc, cap, dh, scale, s);
+  if (dtype == 0 && width == 128)
     return launch<float, 128>(r, v_new, rk, rv, rlen, cluster, o, BH, kc, cap,
-                              s);
-  if (dtype == 0 && dh == 64)
+                              dh, scale, s);
+  if (dtype == 0 && width == 64)
     return launch<float, 64>(r, v_new, rk, rv, rlen, cluster, o, BH, kc, cap,
-                             s);
+                             dh, scale, s);
+  if (dtype == 0 && width == 192)
+    return launch<float, 192>(r, v_new, rk, rv, rlen, cluster, o, BH, kc, cap,
+                              dh, scale, s);
   return cudaErrorInvalidValue;
 }

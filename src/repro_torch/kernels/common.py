@@ -31,9 +31,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (64, 128)
-# the widths of the local-window and fused routing kernels: a head dim up
-# to one of them runs zero-padded to it (`pad_heads`); the flash, gathered
-# and decode kernels take SUPPORTED_HEAD_DIMS only
+# the widths of the local-window, fused routing and paged decode kernels: a
+# head dim up to one of them runs zero-padded to it (`pad_heads`); the flash
+# and gathered kernels take SUPPORTED_HEAD_DIMS only
 PADDED_HEAD_DIMS = (64, 128, 192)
 # element-type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,16 +153,18 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def check_tensors(what: str, **tensors: torch.Tensor) -> None:
+def check_tensors(what: str, unaligned: Tuple[str, ...] = (),
+                  **tensors: torch.Tensor) -> None:
     """Checks shared by every wrapper, made before it dispatches, so the CPU
     tests hold the call sites to what the kernel takes: contiguity always;
-    for CUDA tensors also one device and 16-byte alignment (dtype and shape
+    for CUDA tensors also one device and 16-byte alignment, but for those
+    the kernel reads element by element (``unaligned``; dtype and shape
     checks are per kernel)."""
     dev = next(iter(tensors.values())).device
     for n, t in tensors.items():
         require(t.is_contiguous(), f"{what}: {n} must be contiguous")
         require(t.device == dev, f"{what}: {n} is on {t.device}, not {dev}")
-        if dev.type == "cuda":
+        if dev.type == "cuda" and n not in unaligned:
             require(t.data_ptr() % 16 == 0,
                     f"{what}: {n} must be 16-byte aligned (vector loads)")
     require(dev.type in ("cpu", "cuda"),

@@ -1,21 +1,33 @@
 """Serving of the port: KV caches, prefill and single-token decode for the
-dense family (port of that path of the JAX package's ``serve/serving.py``).
+dense family (port of that path of the JAX package's ``serve/serving.py``):
+every model the port trains, the paper's and the full-attention ones.
 
 Cache layout (per segment, leaves stacked over groups G), as declared by
 the resolved decode backend of each layer's variant
-(`attn.backends.RING_LAYOUT` for ``local`` layers, `PAGES_LAYOUT` for
-``routing`` layers, `MIXED_LAYOUT` for ``local+routing`` layers: rt-cifar10
-holds rings on layers 0-7 and rings + pages on 8-11):
+(`attn.backends.APPEND_LAYOUT` for ``full`` layers, `RING_LAYOUT` for
+``local`` layers, `PAGES_LAYOUT` for ``routing`` layers, `MIXED_LAYOUT` for
+``local+routing`` layers: rt-cifar10 holds rings on layers 0-7 and rings +
+pages on 8-11):
+  full heads      keys and values at their positions (k, v:
+                  (G,B,Hkv,max_len,dh), GQA kv heads): decode writes the
+                  token at ``pos`` and attends the cache causally
   local heads     ring of 2W slots + stored absolute positions (lk, lv,
                   lpos): decode reproduces the blocked prefill semantics
-  routing heads   cluster pages (rk, rv: (G,B,Hr,kc,cap,dh), rlen): a
+  routing heads   cluster pages (rk, rv: (G,B,Hr,kc,cap,width), rlen): a
                   decoded token routes to its argmax centroid and attends
-                  only that page, O(cap * dh) per step
+                  only that page, O(cap * dh) per step; rows stored at the
+                  decode kernel's width (rt-pg19's dh 129 at 192, the pad
+                  columns zero)
 
 On CUDA tensors prefill runs the local-window and the fused routing kernels
 and decode runs the paged decode kernel; ``impl="torch"`` forces the plain
-PyTorch path (the comparison `chip_smoke.py` makes on the card). A prefill
-fills each layer's cache from what that layer's attention computed.
+PyTorch path (the comparison `chip_smoke.py` makes on the card). A full
+model (qwen2-0.5b: GQA 14:2, qkv bias, tied embeddings) is served by plain
+PyTorch on the card too, by the reference's own design: its prefill passes
+positions, which the flash kernel (row-index causal mask) does not take,
+and the JAX package has no decode kernel for it (its ``full/xla``; the
+port's ``full/torch``). A prefill fills each layer's cache from what that
+layer's attention computed.
 """
 from __future__ import annotations
 

@@ -19,8 +19,8 @@ the card by `chip_smoke.py`. Here, on the same numpy inputs:
   the card, a forced ``impl="cuda"`` with positions raises and names
   ``full/torch``, a backend without a gradient is left out of a
   differentiated call, and the ``local+routing`` resolutions are as
-  before; serving a full-attention model raises until its cache is
-  ported;
+  before (serving a full-attention model:
+  tests/test_torch_serving_models.py);
 * the reduced configs of the four full-attention models (equal to the
   JAX package's) and their forward logits against its `apply_model`, on the plain and the forced kernel
   backend, with the qkv biases set from the seed (the JAX init zeros them);
@@ -57,7 +57,6 @@ from repro_torch.interop import kstate_from_jax, params_from_jax
 from repro_torch.kernels import common
 from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.models.model import apply_model, init_model
-from repro_torch.serve import serving
 from repro_torch.train import train_step
 
 TOL = 2e-5
@@ -293,20 +292,6 @@ def test_full_cuda_left_out_of_calls_it_cannot_serve(call):
     with pytest.raises(attn.BackendResolutionError,
                        match="would serve this call with full/torch"):
         attn.resolve(spec, platform="cuda", impl="cuda", **{call: True})
-
-
-def test_full_attention_has_no_decode_path_yet():
-    """No full backend declares decode: resolution refuses it, and a full
-    model's serving cache raises instead of building a wrong one."""
-    with pytest.raises(attn.BackendResolutionError,
-                       match="full/cuda: call needs a decode path"):
-        attn.resolve(_full_spec(), decode=True, platform="cuda")
-    for impl in ("torch", "cuda"):
-        with pytest.raises(attn.BackendResolutionError,
-                           match="supports_decode=False"):
-            attn.resolve(_full_spec(), decode=True, impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        serving.init_cache(reduced_config("qwen2-0.5b"), 1, 32, device="cpu")
 
 
 def test_forced_cuda_with_positions_raises_through_attend():

@@ -28,10 +28,8 @@ on the CPU:
   dims, so the tests set them through `with_overrides` on both packages'
   configs;
 * a 5-step rt-pg19 Adafactor trajectory against JAX `make_train_step`, and
-  a port run continuing a JAX Adafactor run mid-trajectory;
-* decode of rt-pg19 (head dim 129) resolved for the card: it raises the
-  `NotImplementedError` that names its ROADMAP item, and never resolves to
-  the plain backend.
+  a port run continuing a JAX Adafactor run mid-trajectory (serving the
+  three models: tests/test_torch_serving_models.py).
 
 Tolerances (fp32): loss and gradients 1e-5 relative to each leaf's largest
 entry for one step (two frameworks summing the same fp32 products in other
@@ -63,7 +61,6 @@ from repro_torch.interop import (kstate_from_jax, opt_state_from_jax,
 from repro_torch.kernels import common
 from repro_torch.kernels import local_attention as local_k
 from repro_torch.kernels import routing_attention as routing_k
-from repro_torch.kernels import routing_decode as decode_k
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.adafactor import adafactor
 from repro_torch.train import train_step
@@ -394,32 +391,3 @@ def test_port_continues_a_jax_adafactor_run_mid_trajectory():
     for g, w in zip(tree_leaves(tree_to_numpy(pts.params)),
                     jax.tree.leaves(_np(jts6.params))):
         np.testing.assert_allclose(g, w, atol=TRAJ_TOL)
-
-
-# ---------------------------------------------------------------------------
-# decode at a head dim the decode kernel does not take
-# ---------------------------------------------------------------------------
-def test_pg19_decode_on_the_card_raises_its_roadmap_item():
-    """rt-pg19's routing layers (head dim 129) resolved for the card: the
-    kernel backend is chosen, never the plain one, and its decode cache
-    refuses, naming what it waits for. On the CPU the plain backend
-    serves it."""
-    from repro_torch.configs import get_config
-    cfg = get_config("rt-pg19")
-    for variant in ("local+routing", "routing"):
-        spec = attn.spec_for_layer(cfg, variant)
-        assert spec.head_dim == 129
-        assert attn.resolve(spec, decode=True, platform="cuda").impl == \
-            "cuda"
-        with pytest.raises(NotImplementedError, match=(
-                r"head_dim 129.*ROADMAP Queue 1: serve rt-pg19: the paged "
-                r"decode at head dim 129")):
-            attn.init_decode_cache(spec, 1, 64, torch.float32, "cuda")
-        assert attn.resolve(spec, decode=True, platform="cpu").impl == \
-            "torch"
-        assert attn.init_decode_cache(spec, 1, 64, torch.float32, "cpu")
-    # training resolves to the kernels, which take it padded
-    assert attn.resolve(spec, needs_grad=True, platform="cuda").impl == \
-        "cuda"
-    assert decode_k.HEAD_DIMS == common.SUPPORTED_HEAD_DIMS
-    assert "ROADMAP Queue 1" in decode_k.WAITS_FOR

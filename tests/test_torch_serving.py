@@ -24,6 +24,7 @@ from repro.models.model import init_model as jax_init_model
 from repro.serve import serving as jax_serving
 from repro_torch.configs import reduced_config
 from repro_torch.interop import kstate_from_jax, params_from_jax, tree_to_numpy
+from repro_torch.kernels.routing_decode import page_width
 from repro_torch.serve import serving
 
 B, N, STEPS = 2, 64, 16
@@ -102,6 +103,13 @@ def _assert_cache_match(jc, pc):
         for layer in js:
             for leaf, jv in js[layer].items():
                 pv = ps[layer][leaf]
+                if leaf in ("rk", "rv"):
+                    # the port stores its pages at the decode kernel's
+                    # width: the JAX package's columns, then zeros
+                    dh = jv.shape[-1]
+                    assert pv.shape[-1] == page_width(dh), leaf
+                    assert not pv[..., dh:].any(), leaf
+                    pv = pv[..., :dh]
                 assert pv.shape == jv.shape, (leaf, pv.shape, jv.shape)
                 if leaf in INT_LEAVES:
                     np.testing.assert_array_equal(pv, jv, err_msg=leaf)

@@ -63,6 +63,7 @@ from repro_torch.configs.base import RunConfig, TrainConfig
 from repro_torch.core.kmeans import cluster_scores, normalize_routing
 from repro_torch.interop import (kstate_from_jax, params_from_jax,
                                  train_state_from_jax, tree_to_numpy)
+from repro_torch.kernels.routing_decode import page_width
 from repro_torch.models import layers as L
 from repro_torch.models.model import apply_model
 from repro_torch.serve import serving
@@ -303,6 +304,13 @@ def _assert_cache_match(jc, pc):
             assert sorted(js[layer]) == sorted(ps[layer])
             for leaf, jv in js[layer].items():
                 pv = ps[layer][leaf]
+                if leaf in ("rk", "rv"):
+                    # the port stores its pages at the decode kernel's
+                    # width: the JAX package's columns, then zeros
+                    dh = jv.shape[-1]
+                    assert pv.shape[-1] == page_width(dh), leaf
+                    assert not pv[..., dh:].any(), leaf
+                    pv = pv[..., :dh]
                 assert pv.shape == jv.shape, (leaf, pv.shape, jv.shape)
                 if leaf in INT_LEAVES:
                     np.testing.assert_array_equal(pv, jv, err_msg=leaf)
