@@ -163,6 +163,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
    append-cache decode, as the JAX package's full/xla), each decode step
    against the prefill logits of prompt + tokens
    (MAX_MEDIAN_DIFF_FULL_FP32);
+   then (slice 15) ``serve_engine``: full-width rt-enwik8 in bf16 through
+   the continuous-batching engine (`repro_torch.serve.engine`), a pool of
+   8 lanes of 4096 tokens, 24 requests (prompts of 512 to 3072 tokens,
+   16 to 64 new tokens, half sampled, an interactive-class arrival while
+   every slot is busy, 4 repeated prompts): run A with chunked prefill
+   (2 stages a step), time slices of 8 tokens and a prefix cache, run B
+   with none of them and its free slots in reverse order. Every request's
+   tokens and recorded logits rows must be equal in A and B bit for bit;
+   a lane poisoned in the KV store before its resume must break that
+   parity; each prefill, chunked stage, decode step, park, resume and
+   activation launches exactly its kernels, adding up to the counters;
+   the fp32 engine on the kernels against the engine on the plain path
+   under the serving gates; the card's PRNG keys, bits and sampled tokens
+   against the CPU's; a lane's KV store round trip bit for bit, below
+   the uncompacted lane's bytes;
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -345,6 +360,31 @@ SERVE_PAPER = {
     "serve_wikitext103": (WIKITEXT_ARCH, (2, 2048, 16)),
 }
 SERVE_FULL = ("serve_full", FULL_ARCH, (2, 2048, 32))
+# since slice 15: the continuous-batching engine (`serve_engine`) serves
+# full-width rt-enwik8 in bf16 from a pool of 8 lanes of 4096 tokens (cluster
+# pages of cap 4096 / k = 128): 24 requests from seed 12, prompts of 512 to
+# 3072 tokens, 16 to 64 new tokens, two arrivals per engine step, odd uids
+# sampled, one interactive-class arrival while every slot is busy, the last
+# four repeating the first four prompts; run A with chunked prefill, time
+# slices and a prefix cache, run B with none of them and its free slots
+# taken in reverse order
+ENGINE_SLOTS = 8
+ENGINE_MAX_LEN = 4096
+ENGINE_PROMPTS = (512, 1024, 2048, 3072)
+ENGINE_REQUESTS = 24
+ENGINE_NEW_TOKENS = (16, 64)
+ENGINE_REPEATS = 4
+ENGINE_INTERACTIVE = 17            # its uid: arrives at step 8
+ENGINE_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95, seed=12)
+ENGINE_RUN_A = dict(chunked_prefill=2, time_slice=8)
+ENGINE_PROFILE_STEP = 40           # the engine step profiled in run A
+# the poisoned-lane control: a greedy 2048-token request of the workload,
+# parked after this many tokens and cut at ENGINE_CONTROL_TOKENS
+ENGINE_CONTROL_UID = 2
+ENGINE_CONTROL_PARK_AT = 4
+ENGINE_CONTROL_TOKENS = 8
+# the fp32 engine gate: requests, prompt, greedy tokens
+ENGINE_GATE = (4, 1024, 8)
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -481,10 +521,13 @@ BF16_GATE_FACTOR = 1.25
 _PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
 # and since slice 14 the local and fused kernels prefill, and the decode
 # kernel decodes, those three models' serving paths (qwen2-0.5b's,
-# "serve_full", runs no kernel: full/torch, as the JAX package's full/xla)
+# "serve_full", runs no kernel: full/torch, as the JAX package's full/xla);
+# since slice 15 the three also run under the continuous-batching engine
+# ("serve_engine")
 _SERVE_PAPER = tuple(SERVE_PAPER)
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
-              "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER)
+              "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER,
+              "serve_engine")
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
               *_PAPER)
 _FLASH = ("train_full", "launch")
@@ -499,12 +542,13 @@ KERNELS = {
         replaces="src/repro/kernels/routing_attention.py:325",
         kind="forward", layers="routing",
         paths=("serve", "train", "serve_cifar", "train_cifar",
-               "serve_routing", *_PAPER, *_SERVE_PAPER)),
+               "serve_routing", *_PAPER, *_SERVE_PAPER, "serve_engine")),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
         kind="decode", layers="routing",
-        paths=("serve", "serve_cifar", "serve_routing", *_SERVE_PAPER)),
+        paths=("serve", "serve_cifar", "serve_routing", *_SERVE_PAPER,
+               "serve_engine")),
     "local_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/local_attention_bwd.cu",
         replaces="src/repro/kernels/local_attention.py:59",
@@ -2500,9 +2544,12 @@ def serve(torch, cfg, params, kstate, prompts, new_tokens, impl=None,
                 decode_tok_s=B / decode_ms * 1e3)
 
 
-def profiled(torch, fn, top: int = 15) -> dict:
+def profiled(torch, fn, top: int = 15, spans: str = None) -> dict:
     """Run ``fn`` under torch.profiler: wall ms, device busy ms, device
-    launches, host aten calls and the ``top`` device ops by time."""
+    launches, host aten calls and the ``top`` device ops by time. Device
+    events named with the ``spans`` prefix are `record_function` spans
+    (the engine's ``engine/...``), which the profiler lists with the
+    device time beneath them: left out of the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -2514,7 +2561,8 @@ def profiled(torch, fn, top: int = 15) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                  and not (spans and e.key.startswith(spans))),
                  key=lambda e: -e.self_device_time_total)
     host = [e for e in events if e.device_type == DeviceType.CPU
             and e.key.startswith("aten::")]
@@ -3287,6 +3335,386 @@ def serve_model(torch, path, cfg, request, counts):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# Since slice 15: the continuous-batching engine on full-width rt-enwik8
+# ---------------------------------------------------------------------------
+def engine_requests(torch, cfg):
+    """The `serve_engine` workload (seed 12): ENGINE_REQUESTS requests,
+    prompts cycling through ENGINE_PROMPTS, ENGINE_NEW_TOKENS new tokens,
+    two arrivals per step, odd uids sampled (ENGINE_SAMPLING), uid
+    ENGINE_INTERACTIVE of the interactive class, the last ENGINE_REPEATS
+    repeating the first prompts."""
+    from repro_torch.serve.engine import (PRIORITY_INTERACTIVE, Request,
+                                          SamplingParams)
+    gen = torch.Generator().manual_seed(12)
+    fresh = ENGINE_REQUESTS - ENGINE_REPEATS
+    lo, hi = ENGINE_NEW_TOKENS
+    reqs = []
+    for uid in range(ENGINE_REQUESTS):
+        n = ENGINE_PROMPTS[uid % len(ENGINE_PROMPTS)]
+        prompt = (torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+                  .tolist() if uid < fresh else reqs[uid - fresh].prompt)
+        reqs.append(Request(
+            uid=uid, prompt=prompt, arrival_step=uid // 2,
+            max_new_tokens=int(torch.randint(lo, hi + 1, (1,),
+                                             generator=gen)),
+            sampling=(SamplingParams(**ENGINE_SAMPLING) if uid % 2
+                      else SamplingParams()),
+            priority=(PRIORITY_INTERACTIVE if uid == ENGINE_INTERACTIVE
+                      else 0)))
+    return reqs
+
+
+def fresh_requests(reqs):
+    from dataclasses import replace
+    return [replace(r, output=[], state="WAITING") for r in reqs]
+
+
+def engine_launch_checks(eng, counts):
+    """Wrap ``eng``'s prefill, prefill stages, decode step, park, resume
+    and activation so that each call holds its own launches: a model
+    prefill 1 local and 1 fused launch per layer with those heads, a
+    chunked stage those of its layers, a decode step 1 decode launch per
+    routing layer, a park, a resume and an activation (all of an exact
+    prefix hit's admission) none. Returns the per-event call counts and
+    the launches they add up to."""
+    from repro_torch.attn.spec import spec_for_layer
+    from repro_torch.models.transformer import build_segments
+    cfg = eng.cfg
+    segments = build_segments(cfg)
+    events, total = {}, {}
+
+    def of(si, n_groups):
+        variants = [spec_for_layer(cfg, s.attn).variant
+                    for s in segments[si][0]]
+        return {"local_attention": n_groups * sum("local" in v
+                                                  for v in variants),
+                "routing_fused": n_groups * sum("routing" in v
+                                                for v in variants)}
+
+    prefill_want = {"local_attention": 0, "routing_fused": 0}
+    for si, (_, G) in enumerate(segments):
+        for k, v in of(si, G).items():
+            prefill_want[k] += v
+    decode_want = {"routing_decode": prefill_want["routing_fused"]}
+
+    def wrap(name, fn, want):
+        def call(*args, **kwargs):
+            before, steps = counts(), eng.metrics.decode_steps
+            out = fn(*args, **kwargs)
+            after = counts()
+            got = {n: after[n] - before.get(n, 0) for n in after
+                   if after[n] != before.get(n, 0)}
+            w = ({} if name == "decode_step"
+                 and eng.metrics.decode_steps == steps else want)
+            if got != {k: v for k, v in w.items() if v}:
+                raise AssertionError(f"serve_engine {name} launches {got}, "
+                                     f"expected {w}")
+            events[name] = events.get(name, 0) + 1
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            return out
+        return call
+
+    eng._prefill = wrap("prefill", eng._prefill, prefill_want)
+    eng._decode_once = wrap("decode_step", eng._decode_once, decode_want)
+    for name in ("park_slot", "resume_into", "activate"):
+        setattr(eng, f"_{name}", wrap(name, getattr(eng, f"_{name}"), {}))
+    if eng.chunked_prefill is not None:
+        eng._pf_stages = [(st, wrap("prefill_stage", fn,
+                                    of(st.si, st.g1 - st.g0)))
+                          for st, fn in eng._pf_stages]
+    return events, total
+
+
+def drive_engine(torch, eng, reqs, profile_step=None):
+    """``eng.run(reqs)`` step by step: returns whether every slot was busy
+    when each interactive-class request arrived and, at ``profile_step``,
+    one engine step under the profiler (`profiled`)."""
+    pending = sorted(reqs, key=lambda r: (r.arrival_step, r.uid))
+    busy, prof = [], None
+    while pending or eng.has_work():
+        while pending and pending[0].arrival_step <= eng.step_count:
+            r = pending.pop(0)
+            if r.priority > 0:
+                busy.append(not eng.free_slot_ids())
+            eng.submit(r)
+        if eng.step_count == profile_step:
+            prof = profiled(torch, eng.step, spans="engine/")
+        else:
+            eng.step()
+        if eng.step_count > 100_000:
+            raise AssertionError("serve_engine: the engine did not drain")
+    torch.cuda.synchronize()
+    return busy, prof
+
+
+def engine_mismatches(out_a, trace_a, out_b, trace_b, uids):
+    """The uids whose tokens or recorded logits rows differ in any bit."""
+    bad = []
+    for uid in uids:
+        rows_a, rows_b = trace_a.get(uid, []), trace_b.get(uid, [])
+        if (out_a.get(uid) != out_b.get(uid) or len(rows_a) != len(rows_b)
+                or any(a.shape != b.shape or a.tobytes() != b.tobytes()
+                       for a, b in zip(rows_a, rows_b))):
+            bad.append(uid)
+    return bad
+
+
+def engine_control(torch, cfg, params, kstate, req, ref_out, ref_trace,
+                   poison):
+    """One workload request alone in a same-size pool, parked by its
+    handle after ENGINE_CONTROL_PARK_AT tokens and resumed, cut at
+    ENGINE_CONTROL_TOKENS; with ``poison`` its parked pages' values are
+    shifted by 1 in the store first. Returns the parity mismatches
+    against the same tokens of run B and, taken before the park, the KV
+    store round trip of its lane through a store of its own: the lane
+    read back with read_slot after a resume into another slot against
+    the lane before the park, and the store's bytes against the
+    uncompacted lane's."""
+    from repro_torch.serve.engine import (InferenceEngine, read_slot,
+                                          reset_slot, write_slot)
+    from repro_torch.serve.kvstore import KVStore
+    from repro_torch.tree import tree_leaves
+    eng = InferenceEngine(cfg, params, kstate, max_slots=ENGINE_SLOTS,
+                          max_len=ENGINE_MAX_LEN, record_logits=True,
+                          device=DEVICE)
+    (r,) = fresh_requests([req])
+    r.max_new_tokens = ENGINE_CONTROL_TOKENS
+    h = eng.submit(r)
+    while len(h.output) < ENGINE_CONTROL_PARK_AT:
+        eng.step()
+    slot = eng.metrics.requests[r.uid].slot
+    lane = read_slot(eng.pool, slot)
+    store = KVStore()
+    parked = store.park(r.uid, lane).nbytes
+    other = (slot + 1) % ENGINE_SLOTS
+    write_slot(eng.pool, other, store.resume(r.uid))
+    back = read_slot(eng.pool, other)
+    reset_slot(eng.pool, other)
+    round_trip = dict(
+        bitwise=all(torch.equal(a, b) for a, b in zip(tree_leaves(lane),
+                                                      tree_leaves(back))),
+        parked_bytes=parked, lane_bytes=nbytes(*tree_leaves(lane)))
+    h.park()
+    if poison:
+        for key, rec in eng.kvstore._sessions[r.uid].leaves.items():
+            if key[-1] == "rv" and rec.page_len_key is not None:
+                rec.data += 1
+    h.resume()
+    while eng.has_work():
+        eng.step()
+    n = ENGINE_CONTROL_TOKENS
+    bad = engine_mismatches({r.uid: h.output}, eng.logits_trace,
+                            {r.uid: ref_out[r.uid][:n]},
+                            {r.uid: ref_trace[r.uid][:n]}, [r.uid])
+    del eng
+    torch.cuda.empty_cache()
+    return bad, round_trip
+
+
+def engine_fp32_gate(torch, cfg, params, kstate):
+    """The engine in fp32 on the kernels (impl=None) against the engine on
+    the plain path (impl="torch"), same weights upcast: ENGINE_GATE's
+    requests (random prompts from seed 13, greedy), every recorded logits
+    row (the prefill's last and each decode step's) under the serving
+    gates (MIN_TOP1_FP32, MAX_MEDIAN_DIFF_FP32)."""
+    from repro_torch.configs import with_overrides
+    from repro_torch.serve.engine import InferenceEngine, Request
+    from repro_torch.tree import tree_map
+    n, N, T = ENGINE_GATE
+    cfg32 = with_overrides(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    gen = torch.Generator().manual_seed(13)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (N,),
+                                                generator=gen).tolist(),
+                    max_new_tokens=T) for i in range(n)]
+    runs = {}
+    for impl in (None, "torch"):
+        eng = InferenceEngine(cfg32, params32, kstate, max_slots=n,
+                              max_len=N + T, record_logits=True, impl=impl,
+                              device=DEVICE)
+        out = eng.run(fresh_requests(reqs))
+        runs[impl] = (out, torch.stack([torch.from_numpy(row)
+                                        for i in range(n)
+                                        for row in eng.logits_trace[i]]))
+        del eng
+    del params32
+    torch.cuda.empty_cache()
+    (k_out, k_rows), (p_out, p_rows) = runs[None], runs["torch"]
+    V = cfg.vocab_size
+    a, b = k_rows[:, :V].double(), p_rows[:, :V].double()
+    d = (a - b).abs().amax(-1)
+    cmp = dict(requests=n, prompt=N, new_tokens=T, rows=int(d.numel()),
+               tokens_equal=k_out == p_out, max_diff=float(d.max()),
+               median_diff=float(d.median()),
+               top1=float((a.argmax(-1) == b.argmax(-1)).double().mean()))
+    if (cmp["top1"] < MIN_TOP1_FP32
+            or cmp["median_diff"] > MAX_MEDIAN_DIFF_FP32):
+        raise AssertionError(f"serve_engine: the fp32 engine on the kernels "
+                             f"disagrees with the plain path: {cmp}")
+    return cmp
+
+
+def engine_sampling_bits(torch):
+    """`repro_torch.prng` keys, random bits and uniform floats, and
+    `sample_tokens` tokens, on the card against the CPU for a fixed set of
+    keys (seeds x uids x token indices up to 2^32 - 1) and logits (seed
+    14, one filter setting per row). Keys, bits and floats come from
+    integer arithmetic; the tokens depend on floats only through ties
+    within an ulp. The gumbel noise (torch's log on each device) is
+    reported. Raises on a difference."""
+    from repro_torch import prng
+    from repro_torch.serve.engine import sample_tokens
+    grid = torch.meshgrid(torch.tensor([0, 1, 12, 2 ** 31, 2 ** 32 - 1]),
+                          torch.tensor([0, 7, 17, 2 ** 32 - 1]),
+                          torch.tensor([0, 1, 63, 2 ** 32 - 1]),
+                          indexing="ij")
+    seeds, uids, idx = (g.flatten() for g in grid)
+    n = seeds.numel()
+    gen = torch.Generator().manual_seed(14)
+    logits = 3.0 * torch.randn((n, 256), generator=gen)
+    settings = ((0.0, 0, 1.0), (1.0, 40, 1.0), (0.9, 0, 0.9),
+                (0.8, 40, 0.95), (1.3, 1, 1.0), (1.3, 0, 1e-6))
+    rows = [settings[i % len(settings)] for i in range(n)]
+    temps = torch.tensor([r[0] for r in rows])
+    top_ks = torch.tensor([r[1] for r in rows], dtype=torch.int32)
+    top_ps = torch.tensor([r[2] for r in rows])
+    got = {}
+    for dev in ("cpu", DEVICE):
+        keys = prng.fold_in(prng.fold_in(prng.key(seeds.to(dev)),
+                                         uids.to(dev)), idx.to(dev))
+        got[dev] = dict(
+            keys=keys.cpu(), bits=prng.random_bits(keys, (257,)).cpu(),
+            uniform=prng.uniform(keys, (257,)).cpu(),
+            gumbel=prng.gumbel(keys, (257,)).cpu(),
+            tokens=sample_tokens(keys, logits.to(dev), temps.to(dev),
+                                 top_ks.to(dev), top_ps.to(dev)).cpu())
+    cpu, card = got["cpu"], got[DEVICE]
+    g, h = cpu["gumbel"], card["gumbel"]
+    one = torch.maximum(g.abs(), torch.ones_like(g))
+    ulp = torch.nextafter(one, torch.full_like(one, math.inf)) - one
+    out = {k: bool(torch.equal(cpu[k], card[k]))
+           for k in ("keys", "bits", "uniform", "tokens")}
+    out.update(keys_checked=n,
+               gumbel_equal=float((g == h).double().mean()),
+               gumbel_max_ulps=float(((g - h).abs() / ulp).max()))
+    if not all(out[k] for k in ("keys", "bits", "uniform", "tokens")):
+        raise AssertionError(f"serve_engine: the card's sampling bits differ "
+                             f"from the CPU's: {out}")
+    return out
+
+
+def serve_engine(torch, card, counts):
+    """The `serve_engine` path: full-width rt-enwik8 (random bf16 weights
+    from seed 0) through `InferenceEngine` on the kernels, run A
+    (ENGINE_RUN_A: chunked prefill, time slices, a prefix cache) then run
+    B (none of them, free slots taken in reverse order), launch counts set
+    to 0 just before run A and read just after run B. Gates: (1) every
+    request's tokens and recorded logits rows equal in A and B bit for
+    bit, and a lane poisoned in the store before its resume breaks that
+    parity (a clean park and resume keeps it); (2) each prefill, chunked
+    stage, decode step, park, resume and activation launches exactly its
+    kernels (`engine_launch_checks`), and the launches add up to the
+    counters; (3) the fp32 engine gate; (4) the card's sampling bits; (5)
+    the KV store round trip. Returns (row, launches)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import InferenceEngine
+    from repro_torch.serve.kvstore import PrefixCache
+    cfg = get_config(ARCH)
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    reqs = engine_requests(torch, cfg)
+    # warm-up outside the counted runs: cuBLAS handles, kernel loading
+    InferenceEngine(cfg, params, kstate, max_slots=ENGINE_SLOTS,
+                    max_len=ENGINE_MAX_LEN, device=DEVICE).run(
+                        [replace(reqs[0], output=[], max_new_tokens=2)])
+    torch.cuda.empty_cache()
+    common.reset_counters()
+    runs = {}
+    for name, kw in (("A", dict(ENGINE_RUN_A, prefix_cache=PrefixCache())),
+                     ("B", {})):
+        eng = InferenceEngine(cfg, params, kstate, max_slots=ENGINE_SLOTS,
+                              max_len=ENGINE_MAX_LEN, record_logits=True,
+                              device=DEVICE, **kw)
+        if name == "B":
+            eng.free_slot_ids = (lambda e=eng: list(reversed(
+                InferenceEngine.free_slot_ids(e))))
+        events, total = engine_launch_checks(eng, counts)
+        run_reqs = fresh_requests(reqs)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        busy, prof = drive_engine(torch, eng, run_reqs,
+                                  ENGINE_PROFILE_STEP if name == "A"
+                                  else None)
+        wall = time.perf_counter() - t0
+        after = counts()
+        got = {n: after[n] - before[n] for n in after
+               if after[n] != before[n]}
+        if got != total:
+            raise AssertionError(f"serve_engine run {name}: launches {got}, "
+                                 f"the engine's events add up to {total}")
+        if not (busy and all(busy)):
+            raise AssertionError(f"serve_engine run {name}: the interactive "
+                                 f"request found a free slot: {busy}")
+        if not all(r.state == "FINISHED" for r in run_reqs):
+            raise AssertionError(f"serve_engine run {name}: not all "
+                                 f"requests finished")
+        row = dict(eng.metrics.summary(), wall_s=wall, events=events,
+                   launches=got, kvstore=eng.kvstore.stats())
+        if eng.prefix_cache is not None:
+            row["prefix"] = eng.prefix_cache.stats()
+        if prof is not None:
+            row["profiled_step"] = dict(
+                step=ENGINE_PROFILE_STEP, wall_ms=prof["wall_ms"],
+                busy_ms=prof["device_busy_ms"],
+                device_launches=prof["device_launches"],
+                top_ops=prof["device_ops"][:6])
+        runs[name] = (eng, {r.uid: list(r.output) for r in run_reqs}, row)
+        print(f"serve_engine run {name} [{card}] {json.dumps(row)}",
+              flush=True)
+    launches = common.counters()
+    (eng_a, out_a, row_a), (eng_b, out_b, row_b) = runs["A"], runs["B"]
+    bad = engine_mismatches(out_a, eng_a.logits_trace, out_b,
+                            eng_b.logits_trace, [r.uid for r in reqs])
+    ran = dict(prefix_hits=row_a["prefix"]["kvstore/prefix_hits"] >= 1,
+               parks_a=row_a["parks"] >= 1 and row_a["resumes"] >= 1,
+               stages_a=row_a["events"].get("prefill_stage", 0) > 0,
+               parks_b=row_b["parks"] >= 1)
+    trace_b = eng_b.logits_trace
+    del runs, eng_a, eng_b
+    torch.cuda.empty_cache()
+    if bad or not all(ran.values()):
+        raise AssertionError(f"serve_engine: runs A and B differ on uids "
+                             f"{bad}, or a feature never ran: {ran}")
+    control = {}
+    for poison in (False, True):
+        mism, rt = engine_control(torch, cfg, params, kstate,
+                                  reqs[ENGINE_CONTROL_UID], out_b, trace_b,
+                                  poison)
+        control["poisoned" if poison else "clean"] = dict(
+            mismatches=mism, store_round_trip=rt)
+        if bool(mism) != poison:
+            raise AssertionError(f"serve_engine control (poisoned "
+                                 f"{poison}): parity mismatches {mism}")
+        if not rt["bitwise"] or rt["parked_bytes"] >= rt["lane_bytes"]:
+            raise AssertionError(f"serve_engine KV store round trip: {rt}")
+    gate = engine_fp32_gate(torch, cfg, params, kstate)
+    bits = engine_sampling_bits(torch)
+    row = dict(card=card, model=cfg.name, slots=ENGINE_SLOTS,
+               max_len=ENGINE_MAX_LEN, requests=len(reqs), run_a=row_a,
+               run_b=row_b, parity_mismatches=bad, features_ran=ran,
+               control=control, fp32_gate=gate, sampling_bits=bits)
+    print(f"serve_engine [{card}] control {json.dumps(control)} fp32 gate "
+          f"{json.dumps(gate)} sampling bits {json.dumps(bits)}", flush=True)
+    del params, kstate
+    torch.cuda.empty_cache()
+    return row, launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -3678,6 +4106,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         t = phase(path, t)
 
+    # since slice 15: full-width rt-enwik8 through the continuous-batching
+    # engine, runs A and B with exact launches per event, then its gates
+    engine_row, launches["serve_engine"] = serve_engine(torch, card,
+                                                        common.counters)
+    t = phase("serve_engine", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -3721,6 +4155,7 @@ def main(argv=None) -> int:
             paper_kernels=paper_kernel_rows, pg19_edges=pg19_edges,
             paper=paper_rows, paper_decode=paper_decode_rows,
             decode_digest=dec_digest, serve_paper=serve_rows,
+            serve_engine=engine_row,
             launches=launches, profile=prof), indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,8 @@ import torch
 from repro_torch.attn import backends as _backends       # noqa: F401 (registers)
 from repro_torch.attn.registry import (Backend,  # noqa: F401
                                        BackendResolutionError, CacheLayout,
-                                       backends_for, resolve)
+                                       backends_for, cache_reset_values,
+                                       pageable_cache_leaves, resolve)
 from repro_torch.attn.spec import (AttentionSpec, head_split,  # noqa: F401
                                    spec_for_layer, variant_for_layer)
 
@@ -67,6 +68,16 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
     new_cache = None if fill is None else _layout(spec, platform).fill(
         fill, prefix, positions=positions)
     return AttnOutput(out=out, state=new_state, cache=new_cache)
+
+
+def decode_backend(spec: AttentionSpec, impl: Optional[str] = None,
+                   platform: Optional[str] = None) -> Backend:
+    """The backend decode calls for ``spec`` resolve to on ``platform``
+    (default: "cuda" when a card is present, else "cpu"); the serve engine
+    records it and reads the pool's cache layouts from it."""
+    if platform is None:
+        platform = "cuda" if torch.cuda.is_available() else "cpu"
+    return resolve(spec, decode=True, impl=impl, platform=platform)
 
 
 def _layout(spec: AttentionSpec, platform: str):

@@ -405,17 +405,21 @@ def _mixed_fill(cache, prefix: Prefix, *, positions):
 # ---------------------------------------------------------------------------
 # Registration
 # ---------------------------------------------------------------------------
+_RING_FILLS = {"lpos": -1}
 _RING_AXES = {"lk": 2, "lv": 2}
 _PAGE_AXES = {"rk": 2, "rv": 2, "rlen": 2}
+_PAGE_LEAVES = ("rk", "rv")
 APPEND_LAYOUT = CacheLayout(name="append", init=_append_cache,
                             fill=_append_fill, head_axes={"k": 2, "v": 2})
 RING_LAYOUT = CacheLayout(name="ring", init=_ring_cache, fill=_ring_fill,
-                          head_axes=_RING_AXES)
+                          reset_values=_RING_FILLS, head_axes=_RING_AXES)
 PAGES_LAYOUT = CacheLayout(name="pages", init=_pages_cache, fill=_pages_fill,
-                           head_axes=_PAGE_AXES)
+                           head_axes=_PAGE_AXES, pageable_leaves=_PAGE_LEAVES,
+                           page_len_leaf="rlen")
 MIXED_LAYOUT = CacheLayout(name="ring+pages", init=_mixed_cache,
-                           fill=_mixed_fill,
-                           head_axes={**_RING_AXES, **_PAGE_AXES})
+                           fill=_mixed_fill, reset_values=_RING_FILLS,
+                           head_axes={**_RING_AXES, **_PAGE_AXES},
+                           pageable_leaves=_PAGE_LEAVES, page_len_leaf="rlen")
 
 registry.register(Backend(
     variant="full", impl="torch", apply=_full_torch_apply,

@@ -36,15 +36,26 @@ class CacheLayout:
                                                (roped keys, routing vectors,
                                                centroid scores) the
                                                prefill's attention computed
+    ``reset_values``    leaf name -> its value in a fresh lane (default 0:
+                        the ring positions ``lpos`` reset to -1); the slot
+                        pool's ``reset_slot`` writes them
     ``head_axes``   leaf name -> the axis of the heads once the leaves are
                     stacked over a segment's groups, (G, B, head, ...), as
                     the JAX package's layouts declare it
+    ``pageable_leaves`` leaf names laid out as cluster pages (B, H, kc, cap,
+                        ...) whose occupied prefix per page is
+                        ``min(page_len_leaf, cap)``: the KV store keeps only
+                        that prefix of a parked lane
+    ``page_len_leaf``   the (B, H, kc) int leaf counting writes per page
     """
 
     name: str
     init: Callable
     fill: Callable
+    reset_values: Mapping[str, int] = field(default_factory=dict)
     head_axes: Mapping[str, int] = field(default_factory=dict)
+    pageable_leaves: Tuple[str, ...] = ()
+    page_len_leaf: str = ""
 
 
 @dataclass(frozen=True)
@@ -121,6 +132,34 @@ def get(variant: str, impl: str) -> Backend:
 
 def backends_for(variant: str) -> List[Backend]:
     return [b for b in _REGISTRY.values() if b.variant == variant]
+
+
+def _merged(field_of, what: str) -> Dict[str, object]:
+    """leaf name -> value over every registered layout's ``field_of``
+    pairs; two layouts that disagree on a leaf raise."""
+    out: Dict[str, object] = {}
+    for lo in (b.layout for b in _REGISTRY.values() if b.layout is not None):
+        for leaf, val in field_of(lo):
+            prev = out.setdefault(leaf, val)
+            if prev != val:
+                raise ValueError(f"conflicting {what} for cache leaf "
+                                 f"{leaf!r}: {prev!r} vs {val!r} (layout "
+                                 f"{lo.name!r})")
+    return out
+
+
+def cache_reset_values() -> Dict[str, int]:
+    """leaf name -> reset value over the registered layouts (the slot
+    pool's ``reset_slot``; leaves not listed reset to 0)."""
+    return _merged(lambda lo: lo.reset_values.items(), "reset values")
+
+
+def pageable_cache_leaves() -> Dict[str, str]:
+    """leaf name -> its page-length leaf, for the cluster-page leaves of
+    the registered layouts (the KV store's page compaction)."""
+    return _merged(lambda lo: ((leaf, lo.page_len_leaf)
+                               for leaf in lo.pageable_leaves),
+                   "page-length leaves")
 
 
 def _gaps(b: Backend, *, decode: bool, padded: bool, positioned: bool,

@@ -109,21 +109,57 @@ def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None):
     return serve_step
 
 
+def decode_backends(cfg: ModelConfig, impl: Optional[str] = None,
+                    platform: Optional[str] = None) -> Dict[str, str]:
+    """variant -> "variant/impl(cache_layout)" for every attention variant
+    of the stack, as decode resolves it on ``platform`` (the engine records
+    it; `attn.decode_backend` picks the platform when None)."""
+    out: Dict[str, str] = {}
+    for pattern, _ in build_segments(cfg):
+        for s in pattern:
+            b = attn_api.decode_backend(spec_for_layer(cfg, s.attn),
+                                        impl=impl, platform=platform)
+            out[s.attn] = f"{b.name}({b.layout.name})"
+    return out
+
+
+def decode_cache_layouts(cfg: ModelConfig, impl: Optional[str] = None,
+                         platform: Optional[str] = None) -> set:
+    """The cache-layout names the decode stack uses (e.g. {"append"},
+    {"ring+pages"}). Teacher-forcing a prompt tail over a cached prefix
+    writes what a prefill writes only for {"append", "ring"}: cluster
+    pages route a prefill by balanced top-k and a decode by argmax."""
+    return {attn_api.decode_backend(spec_for_layer(cfg, s.attn), impl=impl,
+                                    platform=platform).layout.name
+            for pattern, _ in build_segments(cfg) for s in pattern}
+
+
 # ---------------------------------------------------------------------------
-# Prefill, built from depth stages: embed -> one stage per segment -> head.
-# (The JAX package also slices a segment's groups into several stages for
-# its engine's chunked prefill; the port has no engine yet.)
+# Prefill, built from resumable depth stages: embed -> one stage per slice
+# of each segment's groups -> head. Composing every stage in order is the
+# forward (`prefill` does so with whole-segment stages); the engine's
+# chunked prefill runs one group per stage and advances a few stages per
+# step, so a long prompt's prefill interleaves with the decode steps.
+# Chunking over depth, not over the sequence, keeps every stage's result
+# that of the uninterrupted forward: routing membership is balanced top-k
+# over the whole prompt.
 # ---------------------------------------------------------------------------
 class PrefillStage(NamedTuple):
-    """All groups of segment si. ``fn(params, kstate, seg_cache, x,
-    positions, batch)`` returns (x, new_seg_cache)."""
+    """Groups [g0, g1) of segment si. ``fn(params, kstate, cache_chunk, x,
+    positions, batch)`` returns (x, new_cache_chunk), the chunk being the
+    segment's cache leaves sliced to rows g0:g1 of the group axis."""
     si: int
+    g0: int
+    g1: int
     fn: Callable
 
 
-def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None):
-    """``(embed_stage, stages, head_stage)``: one whole-segment stage per
-    segment (the JAX package's ``groups_per_stage=None``)."""
+def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None,
+                        groups_per_stage: Optional[int] = None):
+    """``(embed_stage, stages, head_stage)``. ``groups_per_stage=None``
+    gives one whole-segment stage per segment (what `prefill` composes);
+    ``groups_per_stage=k`` slices each segment's groups into ceil(G / k)
+    stages (the engine's chunked prefill takes k = 1)."""
     segments = build_segments(cfg)
 
     def embed_stage(params, batch):
@@ -134,14 +170,14 @@ def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None):
             positions = torch.arange(N, device=tokens.device).expand(B, N)
         return L.embed(params["embed"], tokens), positions
 
-    def make_stage(si, pattern, G):
+    def make_stage(si, pattern, g0, g1):
         @torch.no_grad()
-        def stage(params, kstate, seg_cache, x, positions, batch):
+        def stage(params, kstate, cache_chunk, x, positions, batch):
             groups = []
-            for g in range(G):
+            for g in range(g0, g1):
                 p_group = tree_index(params["stack"][si], g)
                 k_group = tree_index(kstate[si], g)
-                c_group = tree_index(seg_cache, g)
+                c_group = tree_index(cache_chunk, g - g0)
                 new_c = {}
                 for i, spec in enumerate(pattern):
                     x, _, new_c[str(i)] = apply_layer(
@@ -152,10 +188,13 @@ def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None):
                 groups.append(new_c)
             return x, tree_stack(groups)
 
-        return PrefillStage(si, stage)
+        return PrefillStage(si, g0, g1, stage)
 
-    stages = [make_stage(si, pattern, G)
-              for si, (pattern, G) in enumerate(segments)]
+    stages = []
+    for si, (pattern, G) in enumerate(segments):
+        gps = G if groups_per_stage is None else max(1, groups_per_stage)
+        for g0 in range(0, G, gps):
+            stages.append(make_stage(si, pattern, g0, min(g0 + gps, G)))
 
     @torch.no_grad()
     def head_stage(params, x):
@@ -165,6 +204,22 @@ def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None):
         return mask_vocab_pad(logits, cfg)
 
     return embed_stage, stages, head_stage
+
+
+def slice_cache_groups(seg_cache, g0: int, g1: int):
+    """Rows [g0, g1) of a segment cache's group axis (a stage's input)."""
+    return tree_map(lambda a: a[g0:g1], seg_cache)
+
+
+def assemble_prefill_cache(stages, chunks) -> List[Dict]:
+    """Stitch per-stage cache chunks (aligned with ``stages``) back into
+    the per-segment cache list: the inverse of `slice_cache_groups`."""
+    by_seg: Dict[int, list] = {}
+    for st, nc in zip(stages, chunks):
+        by_seg.setdefault(st.si, []).append(nc)
+    return [cs[0] if len(cs) == 1
+            else tree_map(lambda *xs: torch.cat(xs, 0), *cs)
+            for _, cs in sorted(by_seg.items())]
 
 
 def prefill(params, kstate, cache, batch, cfg: ModelConfig,

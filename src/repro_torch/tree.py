@@ -2,7 +2,7 @@
 trees (dicts, lists and tuples of tensors — the JAX package's pytrees)."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -27,6 +27,16 @@ def tree_stack(trees: List[Any]) -> Any:
     """Stack same-structure trees along a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
+
+def tree_paths(tree: Any, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """(path, leaf) pairs in `tree_map` order; a path is the tuple of list
+    indices and dict keys down to the leaf."""
+    if isinstance(tree, dict):
+        return [pl for k in tree for pl in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, t in enumerate(tree)
+                for pl in tree_paths(t, prefix + (i,))]
+    return [(prefix, tree)]
 
 
 def tree_leaves(tree: Any) -> List[Any]:
