@@ -177,7 +177,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the fp32 engine on the kernels against the engine on the plain path
    under the serving gates; the card's PRNG keys, bits and sampled tokens
    against the CPU's; a lane's KV store round trip bit for bit, below
-   the uncompacted lane's bytes;
+   the uncompacted lane's bytes; run A parks through the engine's own
+   store, which copies off the card on a side stream and finishes the
+   park on a background thread (slice 16);
+   then (slice 16) ``serve_disagg``: the same model, pool and requests cut
+   to the first 16, disaggregated: a prefill pool (``prefill_only``, the
+   local and fused kernels) exports every session through a TCP blob
+   server on 127.0.0.1 started in the process, and a decode pool imports
+   them into a store with a disk tier and a remote tier on that server
+   (limits set so about 4 sessions stay on the host, 4 spill to disk and
+   8 go to the remote tier), async transfers and time slices of 8
+   tokens, and decodes them on the paged decode kernel. Gates: every
+   request's tokens and logits rows equal run B's bit for bit; spills,
+   remote parks and resumes, async parks, exports and imports each ran;
+   each prefill, decode step, park, resume, export and import launches
+   exactly its kernels (none for the last four); a blob with one payload
+   byte flipped is refused with BlobChecksumError at import. Reports park
+   p50 as the caller sees it, the background transfer p50, resume p50 by
+   tier, bytes per tier and the phase's wall time;
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -385,6 +402,14 @@ ENGINE_CONTROL_PARK_AT = 4
 ENGINE_CONTROL_TOKENS = 8
 # the fp32 engine gate: requests, prompt, greedy tokens
 ENGINE_GATE = (4, 1024, 8)
+# since slice 16: the disaggregated pools (`serve_disagg`) take the first
+# DISAGG_REQUESTS of the `serve_engine` workload; at import the decode
+# pool's host tier holds the last DISAGG_HOST sessions, its disk tier the
+# DISAGG_DISK before them and the remote tier the rest
+DISAGG_REQUESTS = 16
+DISAGG_HOST = 4
+DISAGG_DISK = 4
+DISAGG_TIME_SLICE = 8
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -523,11 +548,13 @@ _PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
 # kernel decodes, those three models' serving paths (qwen2-0.5b's,
 # "serve_full", runs no kernel: full/torch, as the JAX package's full/xla);
 # since slice 15 the three also run under the continuous-batching engine
-# ("serve_engine")
+# ("serve_engine"), and since slice 16 under its disaggregated prefill and
+# decode pools ("serve_disagg")
 _SERVE_PAPER = tuple(SERVE_PAPER)
+_ENGINE = ("serve_engine", "serve_disagg")
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
               "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER,
-              "serve_engine")
+              *_ENGINE)
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
               *_PAPER)
 _FLASH = ("train_full", "launch")
@@ -542,13 +569,13 @@ KERNELS = {
         replaces="src/repro/kernels/routing_attention.py:325",
         kind="forward", layers="routing",
         paths=("serve", "train", "serve_cifar", "train_cifar",
-               "serve_routing", *_PAPER, *_SERVE_PAPER, "serve_engine")),
+               "serve_routing", *_PAPER, *_SERVE_PAPER, *_ENGINE)),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
         kind="decode", layers="routing",
         paths=("serve", "serve_cifar", "serve_routing", *_SERVE_PAPER,
-               "serve_engine")),
+               *_ENGINE)),
     "local_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/local_attention_bwd.cu",
         replaces="src/repro/kernels/local_attention.py:59",
@@ -3371,13 +3398,13 @@ def fresh_requests(reqs):
 
 
 def engine_launch_checks(eng, counts):
-    """Wrap ``eng``'s prefill, prefill stages, decode step, park, resume
-    and activation so that each call holds its own launches: a model
-    prefill 1 local and 1 fused launch per layer with those heads, a
-    chunked stage those of its layers, a decode step 1 decode launch per
-    routing layer, a park, a resume and an activation (all of an exact
-    prefix hit's admission) none. Returns the per-event call counts and
-    the launches they add up to."""
+    """Wrap ``eng``'s prefill, prefill stages, decode step, park, resume,
+    activation, session export and import so that each call holds its own
+    launches: a model prefill 1 local and 1 fused launch per layer with
+    those heads, a chunked stage those of its layers, a decode step 1
+    decode launch per routing layer, a park, a resume, an activation (all
+    of an exact prefix hit's admission), an export and an import none.
+    Returns the per-event call counts and the launches they add up to."""
     from repro_torch.attn.spec import spec_for_layer
     from repro_torch.models.transformer import build_segments
     cfg = eng.cfg
@@ -3418,8 +3445,9 @@ def engine_launch_checks(eng, counts):
 
     eng._prefill = wrap("prefill", eng._prefill, prefill_want)
     eng._decode_once = wrap("decode_step", eng._decode_once, decode_want)
-    for name in ("park_slot", "resume_into", "activate"):
-        setattr(eng, f"_{name}", wrap(name, getattr(eng, f"_{name}"), {}))
+    for name in ("_park_slot", "_resume_into", "_activate",
+                 "export_session", "import_session"):
+        setattr(eng, name, wrap(name.lstrip("_"), getattr(eng, name), {}))
     if eng.chunked_prefill is not None:
         eng._pf_stages = [(st, wrap("prefill_stage", fn,
                                     of(st.si, st.g1 - st.g0)))
@@ -3497,6 +3525,8 @@ def engine_control(torch, cfg, params, kstate, req, ref_out, ref_trace,
                                                       tree_leaves(back))),
         parked_bytes=parked, lane_bytes=nbytes(*tree_leaves(lane)))
     h.park()
+    # the engine's own store finishes a park on its background thread
+    eng.kvstore.flush()
     if poison:
         for key, rec in eng.kvstore._sessions[r.uid].leaves.items():
             if key[-1] == "rv" and rec.page_len_key is not None:
@@ -3504,6 +3534,7 @@ def engine_control(torch, cfg, params, kstate, req, ref_out, ref_trace,
     h.resume()
     while eng.has_work():
         eng.step()
+    eng.close()
     n = ENGINE_CONTROL_TOKENS
     bad = engine_mismatches({r.uid: h.output}, eng.logits_trace,
                             {r.uid: ref_out[r.uid][:n]},
@@ -3535,6 +3566,7 @@ def engine_fp32_gate(torch, cfg, params, kstate):
                               max_len=N + T, record_logits=True, impl=impl,
                               device=DEVICE)
         out = eng.run(fresh_requests(reqs))
+        eng.close()
         runs[impl] = (out, torch.stack([torch.from_numpy(row)
                                         for i in range(n)
                                         for row in eng.logits_trace[i]]))
@@ -3617,7 +3649,9 @@ def serve_engine(torch, card, counts):
     stage, decode step, park, resume and activation launches exactly its
     kernels (`engine_launch_checks`), and the launches add up to the
     counters; (3) the fp32 engine gate; (4) the card's sampling bits; (5)
-    the KV store round trip. Returns (row, launches)."""
+    the KV store round trip. Run A parks through the engine's own store
+    (async transfers since slice 16). Returns (row, launches, run B's
+    tokens and logits rows, for `serve_disagg`)."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.kernels import common
@@ -3651,6 +3685,7 @@ def serve_engine(torch, card, counts):
                                   ENGINE_PROFILE_STEP if name == "A"
                                   else None)
         wall = time.perf_counter() - t0
+        eng.close()                 # raises a failed background park
         after = counts()
         got = {n: after[n] - before[n] for n in after
                if after[n] != before[n]}
@@ -3685,6 +3720,8 @@ def serve_engine(torch, card, counts):
                stages_a=row_a["events"].get("prefill_stage", 0) > 0,
                parks_b=row_b["parks"] >= 1)
     trace_b = eng_b.logits_trace
+    park_a = {k: row_a["kvstore"].get(f"kvstore/{k}_p50_s")
+              for k in ("park", "park_transfer", "resume")}
     del runs, eng_a, eng_b
     torch.cuda.empty_cache()
     if bad or not all(ran.values()):
@@ -3707,11 +3744,175 @@ def serve_engine(torch, card, counts):
     row = dict(card=card, model=cfg.name, slots=ENGINE_SLOTS,
                max_len=ENGINE_MAX_LEN, requests=len(reqs), run_a=row_a,
                run_b=row_b, parity_mismatches=bad, features_ran=ran,
-               control=control, fp32_gate=gate, sampling_bits=bits)
+               control=control, fp32_gate=gate, sampling_bits=bits,
+               run_a_p50_s=park_a)
     print(f"serve_engine [{card}] control {json.dumps(control)} fp32 gate "
-          f"{json.dumps(gate)} sampling bits {json.dumps(bits)}", flush=True)
+          f"{json.dumps(gate)} sampling bits {json.dumps(bits)} run A p50 s "
+          f"(park as the caller sees it, its background transfer, resume) "
+          f"{json.dumps(park_a)}", flush=True)
     del params, kstate
     torch.cuda.empty_cache()
+    return row, launches, (out_b, trace_b)
+
+
+# ---------------------------------------------------------------------------
+# Since slice 16: disaggregated prefill and decode pools through the KV
+# store's tiers
+# ---------------------------------------------------------------------------
+def flipped_payload_byte(blob: bytes) -> bytes:
+    """``blob`` with one byte of its leaf payload (the middle one, past the
+    JSON header) flipped: its CRC no longer matches."""
+    hdr_len = int.from_bytes(blob[5:9], "big")
+    start, end = 9 + hdr_len, len(blob) - 4
+    i = (start + end) // 2
+    return blob[:i] + bytes([blob[i] ^ 0xFF]) + blob[i + 1:]
+
+
+def serve_disagg(torch, card, counts, ref_out, ref_trace):
+    """The `serve_disagg` path: full-width rt-enwik8 (random bf16 weights
+    from seed 0), the first DISAGG_REQUESTS requests of the `serve_engine`
+    workload in two engines of ENGINE_SLOTS lanes of ENGINE_MAX_LEN. A
+    prefill pool (``prefill_only``) prefills them on the local and fused
+    kernels and exports every session to a `TCPStoreServer` on 127.0.0.1
+    (port 0, in this process), then closes. A decode pool imports them
+    into a store with a TCP remote tier, a disk tier in a temporary
+    directory and host and disk limits that keep the last DISAGG_HOST
+    sessions on the host and the DISAGG_DISK before them on disk, async
+    transfers and time slices of DISAGG_TIME_SLICE tokens, and decodes
+    them on the paged decode kernel. Launch counts are set to 0 just
+    before the prefill pool and read just after the decode pool. Gates:
+    (1) every request's tokens and recorded logits rows (the prefill
+    pool's first, the decode pool's after it) equal run B's of
+    `serve_engine` bit for bit; (2) spills, remote parks, remote resumes,
+    async parks, exports and imports each ran; (3) each prefill, decode
+    step, park, resume, activation, export and import launches exactly
+    its kernels (`engine_launch_checks`), adding up to the counters; (4) a
+    blob with one payload byte flipped raises BlobChecksumError at the
+    decode pool's import and leaves its store empty. Returns (row,
+    launches)."""
+    import tempfile
+    from collections import Counter
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import InferenceEngine
+    from repro_torch.serve.kvstore import KVStore, StoreConfig
+    from repro_torch.serve.kvstore.remote import (BlobChecksumError,
+                                                  TCPStoreServer,
+                                                  TCPTransport)
+    cfg = get_config(ARCH)
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    reqs = fresh_requests(engine_requests(torch, cfg)[:DISAGG_REQUESTS])
+    uids = [r.uid for r in reqs]
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    with TCPStoreServer("127.0.0.1", 0) as server, \
+            tempfile.TemporaryDirectory() as spill:
+        def tcp():
+            return TCPTransport(server.host, server.port,
+                                connect_timeout_s=10.0, io_timeout_s=120.0)
+
+        common.reset_counters()
+        pre = InferenceEngine(
+            cfg, params, kstate, max_slots=ENGINE_SLOTS,
+            max_len=ENGINE_MAX_LEN, record_logits=True, prefill_only=True,
+            kvstore=KVStore(StoreConfig(remote=tcp(), async_transfers=True)),
+            device=DEVICE)
+        pre_events, pre_total = engine_launch_checks(pre, counts)
+        for r in reqs:
+            pre.submit(r)
+        while pre.has_work():
+            pre.step()
+        pre.kvstore.flush()
+        sizes = {u: pre.kvstore._sessions[u].nbytes for u in uids}
+        t0 = time.perf_counter()
+        names = [pre.export_session(u) for u in uids]
+        export_s = time.perf_counter() - t0
+        pre_trace, pre_stats = pre.logits_trace, pre.kvstore.stats()
+        pre.close()
+        del pre
+        torch.cuda.empty_cache()
+        tcp().put("corrupt/0", flipped_payload_byte(tcp().get(names[0])))
+
+        host_limit = sum(sizes[u] for u in uids[-DISAGG_HOST:])
+        disk_limit = sum(sizes[u] for u in
+                         uids[-DISAGG_HOST - DISAGG_DISK:-DISAGG_HOST])
+        dec = InferenceEngine(
+            cfg, params, kstate, max_slots=ENGINE_SLOTS,
+            max_len=ENGINE_MAX_LEN, record_logits=True,
+            time_slice=DISAGG_TIME_SLICE,
+            kvstore=KVStore(StoreConfig(
+                remote=tcp(), async_transfers=True, spill_dir=spill,
+                host_bytes_limit=host_limit, disk_bytes_limit=disk_limit)),
+            device=DEVICE)
+        dec_events, dec_total = engine_launch_checks(dec, counts)
+        try:
+            dec.import_session("corrupt/0")
+            refused = False
+        except BlobChecksumError:
+            refused = len(dec.kvstore) == 0 and not dec.has_work()
+        tcp().delete("corrupt/0")
+        t0 = time.perf_counter()
+        handles = [dec.import_session(n) for n in names]
+        import_s = time.perf_counter() - t0
+        at_import = Counter(s.tier for s in dec.kvstore._sessions.values())
+        t0 = time.perf_counter()
+        while dec.has_work():
+            dec.step()
+            if dec.step_count > 100_000:
+                raise AssertionError("serve_disagg: the decode pool did not "
+                                     "drain")
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec.close()                 # raises a failed background park
+        got = counts()
+        left_on_server = len(server)
+    wall = time.perf_counter() - t_start
+    out = {h.uid: h.output for h in handles}
+    trace = {u: pre_trace[u] + dec.logits_trace.get(u, []) for u in uids}
+    bad = engine_mismatches(out, trace, ref_out, ref_trace, uids)
+    total = Counter(pre_total) + Counter(dec_total)
+    launches = {n: v for n, v in got.items() if v}
+    st = dec.kvstore.stats()
+    ran = {k: v >= 1 for k, v in (
+        ("spills", st["kvstore/spills"]),
+        ("remote_parks", st["kvstore/remote_parks"]),
+        ("remote_resumes", st["kvstore/remote_resumes"]),
+        ("async_parks", st["kvstore/parks"]
+         if dec.kvstore.config.async_transfers else 0),
+        ("exports", pre_stats["kvstore/exports"]),
+        ("imports", st["kvstore/imports"]))}
+    p50 = {k: st.get(f"kvstore/{k}_p50_s") for k in (
+        "park", "park_transfer", "resume", "resume_host", "resume_disk",
+        "resume_remote")}
+    row = dict(
+        card=card, model=cfg.name, slots=ENGINE_SLOTS,
+        max_len=ENGINE_MAX_LEN, requests=len(reqs), wall_s=wall,
+        export_s=export_s, import_s=import_s, decode_s=decode_s,
+        parity_mismatches=bad, ran=ran, corrupt_blob_refused=refused,
+        tiers_at_import=dict(at_import), host_bytes_limit=host_limit,
+        disk_bytes_limit=disk_limit, session_bytes=sizes,
+        p50_s=p50, prefill_pool_park_p50_s=pre_stats.get(
+            "kvstore/park_p50_s"),
+        bytes=dict(to_host=st["kvstore/bytes_to_host"],
+                   spilled=st["kvstore/bytes_spilled"],
+                   to_remote=st["kvstore/bytes_to_remote"],
+                   from_remote=st["kvstore/bytes_from_remote"],
+                   exported=pre_stats["kvstore/bytes_to_remote"]),
+        decode_steps=dec.metrics.decode_steps,
+        events=dict(prefill_pool=pre_events, decode_pool=dec_events),
+        launches=launches, kvstore=st, blobs_left_on_server=left_on_server)
+    print(f"serve_disagg [{card}] {json.dumps(row)}", flush=True)
+    del dec, params, kstate
+    torch.cuda.empty_cache()
+    if bad or not all(ran.values()) or not refused:
+        raise AssertionError(f"serve_disagg: tokens or logits differ from "
+                             f"run B's on uids {bad}, a tier or transfer "
+                             f"never ran ({ran}), or the corrupted blob was "
+                             f"not refused ({refused})")
+    if launches != dict(total):
+        raise AssertionError(f"serve_disagg: launches {launches}, the "
+                             f"pools' events add up to {dict(total)}")
     return row, launches
 
 
@@ -4108,9 +4309,16 @@ def main(argv=None) -> int:
 
     # since slice 15: full-width rt-enwik8 through the continuous-batching
     # engine, runs A and B with exact launches per event, then its gates
-    engine_row, launches["serve_engine"] = serve_engine(torch, card,
-                                                        common.counters)
+    engine_row, launches["serve_engine"], engine_ref = serve_engine(
+        torch, card, common.counters)
     t = phase("serve_engine", t)
+
+    # since slice 16: the same engine as disaggregated prefill and decode
+    # pools, sessions moved through TCP blobs and the KV store's tiers
+    disagg_row, launches["serve_disagg"] = serve_disagg(
+        torch, card, common.counters, *engine_ref)
+    del engine_ref
+    t = phase("serve_disagg", t)
 
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
@@ -4155,7 +4363,7 @@ def main(argv=None) -> int:
             paper_kernels=paper_kernel_rows, pg19_edges=pg19_edges,
             paper=paper_rows, paper_decode=paper_decode_rows,
             decode_digest=dec_digest, serve_paper=serve_rows,
-            serve_engine=engine_row,
+            serve_engine=engine_row, serve_disagg=disagg_row,
             launches=launches, profile=prof), indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,12 +9,13 @@ Public surface:
   FCFSScheduler                 — admission / backpressure policy
   EngineMetrics                 — TTFT / throughput / occupancy counters
   init_pool, write_slot, reset_slot, read_slot — slot-pooled cache lanes
-  (the KV store behind the pool lives in repro_torch.serve.kvstore)
+  (the tiered KV store behind the pool lives in repro_torch.serve.kvstore;
+  export_session / import_session move sessions between engines)
 """
-from repro_torch.serve.engine.engine import (CANCELLED, DECODE, FINISHED,
-                                             PARKED, PREFILL, WAITING,
-                                             InferenceEngine, Request,
-                                             SessionHandle)
+from repro_torch.serve.engine.engine import (CANCELLED, DECODE, EXPORTED,
+                                             FINISHED, PARKED, PREFILL,
+                                             WAITING, InferenceEngine,
+                                             Request, SessionHandle)
 from repro_torch.serve.engine.metrics import EngineMetrics, RequestStats
 from repro_torch.serve.engine.pool import (init_pool, read_slot, reset_slot,
                                            write_slot)
@@ -30,5 +31,5 @@ __all__ = [
     "FCFSScheduler", "EngineMetrics", "RequestStats", "init_pool",
     "write_slot", "reset_slot", "read_slot", "request_key", "sample_tokens",
     "WAITING", "PREFILL", "DECODE", "FINISHED", "PARKED", "CANCELLED",
-    "PRIORITY_BATCH", "PRIORITY_NORMAL", "PRIORITY_INTERACTIVE",
+    "EXPORTED", "PRIORITY_BATCH", "PRIORITY_NORMAL", "PRIORITY_INTERACTIVE",
 ]

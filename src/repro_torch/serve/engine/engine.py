@@ -11,6 +11,12 @@ Request lifecycle::
                                                    slot returned to pool)
     DECODE  --park (preempted / time-sliced / handle.park())--> PARKED
     PARKED  --readmitted, lane streamed back----> DECODE (any free slot)
+    PARKED  --export_session (disaggregation)---> EXPORTED (lane + request
+                                                  state shipped through a
+                                                  transport blob; a peer
+                                                  engine's import_session
+                                                  continues the decode
+                                                  bit for bit)
 
 Each engine ``step()``:
 
@@ -48,21 +54,32 @@ bit-identity with a solo B=1 decode; torch cannot: its matrix products take
 another path at one row, so a row of a B=1 decode differs from the same
 row of a pool decode in the last bits.
 
+Parked sessions live in the tiered KV store (`repro_torch.serve.kvstore`):
+the engine's own store runs its transfers on a background thread, so a
+park does not wait for the card. A prefill pool (``prefill_only=True``)
+hands its sessions to a decode pool through ``export_session`` /
+``import_session``; at the same pool size the decode pool's tokens and
+logits equal a monolithic engine's bit for bit.
+
 Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-``mesh`` (item 10), ``obs_jsonl`` and ``routing_stats`` (item 9),
-``export_session`` / ``import_session`` (item 8). Partial prefix reuse is
-off (item 8): see ``_prefill_into``.
+``mesh`` (item 10), ``obs_jsonl`` and ``routing_stats`` (item 9). The JAX
+engine writes its tier events (``drain_events()``) to that JSONL sink; the
+port drains them on every step and counts them by kind
+(``kvstore_events``). Partial prefix reuse is off (item 8): see
+``_prefill_into``.
 """
 from __future__ import annotations
 
 import functools
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import attn as attn_api
 from repro_torch import prng, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.obs.trace import span
@@ -73,14 +90,37 @@ from repro_torch.serve.engine.sampling import (SamplingParams,
                                                request_base_key, request_key,
                                                sample_tokens)
 from repro_torch.serve.engine.scheduler import FCFSScheduler
-from repro_torch.serve.kvstore import KVStore, PrefixCache
+from repro_torch.serve.kvstore import KVStore, PrefixCache, StoreConfig
 from repro_torch.serve.serving import (assemble_prefill_cache,
                                        decode_backends, init_cache,
                                        make_prefill_stages, make_serve_step,
                                        prefill, slice_cache_groups)
+from repro_torch.tree import tree_paths, tree_reorder, tree_unflatten
 
 WAITING, PREFILL, DECODE, FINISHED = "WAITING", "PREFILL", "DECODE", "FINISHED"
-PARKED, CANCELLED = "PARKED", "CANCELLED"
+PARKED, CANCELLED, EXPORTED = "PARKED", "CANCELLED", "EXPORTED"
+
+
+def _fit_lane(lane, like):
+    """A resumed lane fitted to the pool's lane ``like``: dicts in the
+    pool's key order (a JAX-written blob keeps the JAX package's sorted
+    order) and cluster pages stored narrower than the pool's padded with
+    zero columns (the JAX package stores a page row at the head dim, the
+    port at the decode kernel's width, whose pad columns are zero). Any
+    other difference is left for ``write_slot`` to report."""
+    lane = tree_reorder(lane, like)
+    pageable = attn_api.pageable_cache_leaves()
+    ref = dict(tree_paths(like))
+
+    def fit(path, v):
+        r = ref.get(path)
+        if (path[-1] in pageable and r is not None and v.dim() == r.dim()
+                and v.shape[:-1] == r.shape[:-1]
+                and v.shape[-1] < r.shape[-1]):
+            return torch.nn.functional.pad(v, (0, r.shape[-1] - v.shape[-1]))
+        return v
+
+    return tree_unflatten(lane, [fit(p, v) for p, v in tree_paths(lane)])
 
 
 def _unported(what: str, item: int, detail: str) -> NotImplementedError:
@@ -129,7 +169,8 @@ class SessionHandle:
     def state(self) -> str:
         return {WAITING: "queued", PREFILL: "active", DECODE: "active",
                 PARKED: "parked", FINISHED: "finished",
-                CANCELLED: "cancelled"}[self._request.state]
+                CANCELLED: "cancelled", EXPORTED: "exported"}[
+                    self._request.state]
 
     @property
     def output(self) -> List[int]:
@@ -242,11 +283,17 @@ class InferenceEngine:
         self.step_count = 0
         self.record_logits = record_logits
         self.logits_trace: Dict[int, List[np.ndarray]] = {}
-        # where parked sessions live: the host tier (transfers complete
-        # inside park/resume; the JAX engine's default store runs them on a
-        # background thread, ROADMAP.md item 8)
+        # the tiered KV store, where parked sessions live (host tier by
+        # default; StoreConfig adds disk spill and a remote transport). The
+        # engine-owned default runs async transfers so the admission path
+        # never waits for a copy off the card; a caller-provided store
+        # keeps whatever mode the caller chose.
         self._owns_kvstore = kvstore is None
-        self.kvstore = kvstore if kvstore is not None else KVStore()
+        self.kvstore = (kvstore if kvstore is not None
+                        else KVStore(StoreConfig(async_transfers=True)))
+        # the store's tier events (e.g. kvstore_remote_degraded), drained
+        # every step and counted by kind
+        self.kvstore_events: Counter = Counter()
         self.prefix_cache = prefix_cache
         # prefill_only: sessions park (held) right after their first token
         # instead of decoding
@@ -361,7 +408,9 @@ class InferenceEngine:
         sampling keys are counter-based per uid, not per slot)."""
         meta = self._parked.pop(req.uid)
         with span("engine/resume"):
-            write_slot(self.pool, slot, self.kvstore.resume(req.uid))
+            lane = _fit_lane(self.kvstore.resume(req.uid, device=self.device),
+                             self._fresh_lane)
+            write_slot(self.pool, slot, lane)
         req.state = DECODE
         self.slots[slot] = _Slot(
             req, pos=meta.pos, last_token=meta.last_token,
@@ -458,14 +507,72 @@ class InferenceEngine:
         if meta.pos is not None:
             self.kvstore.prefetch(uid)
 
+    # -- disaggregation rail (prefill pool -> decode pool) -----------------
     def export_session(self, uid: int, *, name: Optional[str] = None,
                        transport=None) -> str:
-        raise _unported("InferenceEngine.export_session", 8,
-                        "the session blob and its transports")
+        """Ship a parked (post-prefill) session to another engine through
+        a transport blob: the lane plus the request/decode state rides in
+        one checksummed blob. The session leaves this engine (state
+        EXPORTED); ownership transfers to whoever ``import_session``s the
+        returned name."""
+        meta = self._parked.get(uid)
+        if meta is None or meta.pos is None:
+            raise ValueError(
+                f"session {uid} is not parked with a prefilled lane "
+                f"(park it after prefill before exporting)")
+        sp = meta.request.sampling
+        m = {
+            "uid": uid,
+            "prompt": [int(t) for t in meta.request.prompt],
+            "output": [int(t) for t in meta.request.output],
+            "max_new_tokens": meta.request.max_new_tokens,
+            "eos_id": meta.request.eos_id,
+            "priority": meta.request.priority,
+            "sampling": {"temperature": sp.temperature, "top_k": sp.top_k,
+                         "top_p": sp.top_p, "seed": sp.seed},
+            "pos": meta.pos,
+            "last_token": meta.last_token,
+            # the JAX package's form: a uint32 key as a list of ints
+            "base_key": {"data": [int(k) for k in meta.base_key.tolist()],
+                         "dtype": "uint32"},
+        }
+        name = self.kvstore.export(uid, name=name, meta=m,
+                                   transport=transport)
+        self._parked.pop(uid)
+        if self.scheduler.has_uid(uid):     # unheld: queued to resume
+            self.scheduler.remove(uid)
+        meta.request.state = EXPORTED
+        return name
 
     def import_session(self, name: str, *, transport=None) -> SessionHandle:
-        raise _unported("InferenceEngine.import_session", 8,
-                        "the session blob and its transports")
+        """Adopt a session another engine (this package's or the JAX
+        package's) exported: the lane goes into this engine's KV store,
+        the request/decode state is rebuilt from the blob meta, and the
+        session queues for readmission. Decode continues bit for bit
+        where the exporter stopped (counter-based sampling keys make the
+        continuation engine-independent)."""
+        uid, m = self.kvstore.import_remote(name, transport=transport)
+        if (self.scheduler.has_uid(uid) or uid in self._parked
+                or any(j.request.uid == uid
+                       for j in self._prefill_jobs.values())
+                or any(s is not None and s.request.uid == uid
+                       for s in self.slots)):
+            self.kvstore.drop(uid)
+            raise ValueError(f"imported session uid {uid} collides with a "
+                             f"live session here")
+        req = Request(uid=uid, prompt=m["prompt"],
+                      max_new_tokens=m["max_new_tokens"],
+                      eos_id=m["eos_id"],
+                      sampling=SamplingParams(**m["sampling"]),
+                      priority=m["priority"], state=PARKED,
+                      output=list(m["output"]))
+        base_key = torch.tensor(m["base_key"]["data"], dtype=torch.int64)
+        self._parked[uid] = _ParkedMeta(req, pos=m["pos"],
+                                        last_token=m["last_token"],
+                                        base_key=base_key, held=False)
+        self.scheduler.submit(req)
+        self.metrics.on_submit(uid, req.prompt_len, self.step_count)
+        return SessionHandle(self, req)
 
     def cancel_session(self, uid: int) -> None:
         """Drop a session wherever it is (queue, slot, or KV store)."""
@@ -708,12 +815,17 @@ class InferenceEngine:
             with span("engine/decode"):
                 self._decode_once()
         self.step_count += 1
+        self.kvstore_events.update(ev["kind"]
+                                   for ev in self.kvstore.drain_events())
 
     def close(self) -> None:
-        """Settle KV transfers and close the engine-owned KV store."""
-        self.kvstore.flush()
-        if self._owns_kvstore:
-            self.kvstore.close()
+        """Settle KV transfers (raising a failed background park) and
+        close the engine-owned KV store."""
+        try:
+            self.kvstore.flush()
+        finally:
+            if self._owns_kvstore:
+                self.kvstore.close()
 
     def has_work(self) -> bool:
         return (bool(len(self.scheduler)) or bool(self._prefill_jobs)

@@ -50,3 +50,16 @@ def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
     """``tree``'s structure with ``leaves`` (in `tree_leaves` order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def tree_reorder(tree: Any, like: Any) -> Any:
+    """``tree`` with each dict's keys in ``like``'s order (lists and leaves
+    as they are). Where the two disagree in structure ``tree`` comes back
+    unchanged there, so the caller's own structure check reports it."""
+    if (isinstance(tree, dict) and isinstance(like, dict)
+            and tree.keys() == like.keys()):
+        return {k: tree_reorder(tree[k], like[k]) for k in like}
+    if (isinstance(tree, list) and isinstance(like, list)
+            and len(tree) == len(like)):
+        return [tree_reorder(t, x) for t, x in zip(tree, like)]
+    return tree

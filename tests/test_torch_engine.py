@@ -21,7 +21,8 @@
   equal a B=1 prefill + decode's, logits within 2e-5; chunked equals
   unchunked bit for bit.
 * EOS, the token budget, submit validation, the SessionHandle lifecycle,
-  the default device and the NotImplementedError of each unported knob.
+  the default device and the NotImplementedError of each unported knob
+  (export and import are tested in `test_torch_disagg.py`).
 """
 import dataclasses
 
@@ -534,17 +535,10 @@ def test_prefill_only_parks_after_the_first_token(model):
     assert not eng.has_work()
 
 
-@pytest.mark.parametrize("knob", ["mesh", "obs_jsonl", "routing_stats",
-                                  "export_session", "import_session"])
+@pytest.mark.parametrize("knob", ["mesh", "obs_jsonl", "routing_stats"])
 def test_unported_engine_knobs_raise(model, knob):
-    item = {"mesh": 10, "obs_jsonl": 9, "routing_stats": 9,
-            "export_session": 8, "import_session": 8}[knob]
+    item = {"mesh": 10, "obs_jsonl": 9, "routing_stats": 9}[knob]
     match = f"ROADMAP.md item {item}"
-    if knob in ("export_session", "import_session"):
-        eng = _engine(model, max_slots=1)
-        with pytest.raises(NotImplementedError, match=match):
-            getattr(eng, knob)(0)
-        return
     value = {"mesh": object(), "obs_jsonl": "engine.jsonl",
              "routing_stats": True}[knob]
     with pytest.raises(NotImplementedError, match=match):

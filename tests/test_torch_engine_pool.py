@@ -1,4 +1,4 @@
-"""The port's slot pool, host-tier KV store and prefix cache (reduced
+"""The port's slot pool, the KV store's host tier and the prefix cache (reduced
 rt-enwik8, fp32, on the CPU).
 
 * `reset_slot` returns a lane to `init_cache`'s leaves (ring positions
@@ -7,9 +7,10 @@ rt-enwik8, fp32, on the CPU).
 * the host-tier store's park -> resume round trip is byte-identical, and
   the compacted cluster pages take fewer bytes than the whole lane;
 * `PrefixCache` exact and partial lookups, LRU order and read-only
-  entries;
-* every store knob of the unported tiers raises NotImplementedError.
-Everything here is exact: no tolerance.
+  entries.
+The store's other tiers, its background transfers and the session blob
+are tested in `test_torch_kvstore_remote.py`. Everything here is exact: no
+tolerance.
 """
 import numpy as np
 import pytest
@@ -182,15 +183,6 @@ def test_park_duplicate_and_resume_missing_raise(model):
         store.resume(2)
     store.drop(1)
     assert len(store) == 0 and store.prefetch(1) is None
-
-
-@pytest.mark.parametrize("knob", [
-    dict(spill_dir="spill"), dict(host_bytes_limit=1),
-    dict(disk_bytes_limit=1), dict(remote=object()),
-    dict(async_transfers=True)], ids=lambda k: next(iter(k)))
-def test_unported_store_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
-        KVStore(StoreConfig(**knob))
 
 
 # ---------------------------------------------------------------------------
