@@ -195,6 +195,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
    byte flipped is refused with BlobChecksumError at import. Reports park
    p50 as the caller sees it, the background transfer p50, resume p50 by
    tier, bytes per tier and the phase's wall time;
+   then (slice 17) ``obs``: the routing-health stats and the obs layer on
+   the card. (a) One full-width rt-enwik8 bf16 train step (B 2 x 8192,
+   the TrainConfig defaults, remat "full", dropout 0.4) from one state
+   and batch with ``RoutingConfig.stats`` off, on and off again: loss,
+   every parameter, optimizer moment and centroid of the stats-on step
+   equal the stats-off step's bit for bit (held to the control's own
+   difference if the two stats-off steps differ), each step launches
+   exactly the train path's kernels, the ``routing/*`` scalars lie in
+   their ranges and ``rt/{seg}/{layer}/*`` covers all 12 layers; busy ms
+   of a profiled step and the step's peak memory, on against off. (b) The
+   collapse control: a stats-on forward with every layer's centroids
+   equal reads entropy < 0.05 and 31 dead of 32. (c) The engine: 8 of
+   `engine_requests`' requests over 8 lanes, chunked prefill, with
+   ``obs_jsonl`` and ``routing_stats=True``: tokens and logits rows equal
+   a stats-off engine's bit for bit, every line passes
+   ``repro_torch.obs.schema``, ``engine_tick`` carries the pages' health,
+   launches exact per event. (d) The launcher with ``--obs-jsonl
+   --routing-stats --profile-dir`` (rt-enwik8, 3 steps of 2 x 1024): valid
+   lines, exact launches, and a Chrome trace naming ``train/grad``,
+   ``train/optimizer``, ``kernels/local_attention`` and
+   ``kernels/routed_attention_fused``;
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -410,6 +431,21 @@ DISAGG_REQUESTS = 16
 DISAGG_HOST = 4
 DISAGG_DISK = 4
 DISAGG_TIME_SLICE = 8
+# since slice 17: the `obs` phase serves the first OBS_REQUESTS of the
+# `serve_engine` workload with chunked prefill, and runs the launcher with
+# the observability flags for OBS_LAUNCH_ARGV
+OBS_REQUESTS = 8
+OBS_ENGINE = dict(chunked_prefill=2)
+OBS_LAUNCH_ARGV = ["--arch", "rt-enwik8", "--steps", "3", "--batch", "2",
+                   "--seq", "1024", "--routing-stats"]
+OBS_TRACE_SPANS = ("train/grad", "train/optimizer", "kernels/local_attention",
+                   "kernels/routed_attention_fused")
+# the collapse control: every centroid of a layer equal sends each token to
+# centroid 0 (argmax takes the first of equal scores)
+OBS_COLLAPSE_ENTROPY = 0.05
+# the spans the train step and the kernel wrappers open (slice 17): the
+# profiler lists each as a device event holding the device time beneath it
+PORT_SPANS = ("train/", "kernels/")
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -549,14 +585,16 @@ _PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
 # "serve_full", runs no kernel: full/torch, as the JAX package's full/xla);
 # since slice 15 the three also run under the continuous-batching engine
 # ("serve_engine"), and since slice 16 under its disaggregated prefill and
-# decode pools ("serve_disagg")
+# decode pools ("serve_disagg"); since slice 17 rt-enwik8's train step,
+# a forward, the engine and the launcher run them with the routing-health
+# stats and the obs layer on ("obs")
 _SERVE_PAPER = tuple(SERVE_PAPER)
-_ENGINE = ("serve_engine", "serve_disagg")
+_ENGINE = ("serve_engine", "serve_disagg", "obs")
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
               "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER,
               *_ENGINE)
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
-              *_PAPER)
+              *_PAPER, "obs")
 _FLASH = ("train_full", "launch")
 _GATHERED = ("train_gathered", "fit_gathered")
 KERNELS = {
@@ -588,12 +626,12 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:372",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER)),
+        paths=("train", "train_cifar", *_PAPER, "obs")),
     "routing_fused_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:411",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER)),
+        paths=("train", "train_cifar", *_PAPER, "obs")),
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:47",
@@ -2576,7 +2614,8 @@ def profiled(torch, fn, top: int = 15, spans: str = None) -> dict:
     launches, host aten calls and the ``top`` device ops by time. Device
     events named with the ``spans`` prefix are `record_function` spans
     (the engine's ``engine/...``), which the profiler lists with the
-    device time beneath them: left out of the sums."""
+    device time beneath them: left out of the sums, as are, since slice
+    17, the train and kernel spans (`PORT_SPANS`) every path now runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -2589,7 +2628,8 @@ def profiled(torch, fn, top: int = 15, spans: str = None) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                  and not (spans and e.key.startswith(spans))),
+                  and not (spans and e.key.startswith(spans))
+                  and not e.key.startswith(PORT_SPANS)),
                  key=lambda e: -e.self_device_time_total)
     host = [e for e in events if e.device_type == DeviceType.CPU
             and e.key.startswith("aten::")]
@@ -3916,6 +3956,306 @@ def serve_disagg(torch, card, counts, ref_out, ref_trace):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# Since slice 17: the routing-health stats and the obs layer on the card
+# ---------------------------------------------------------------------------
+def with_stats(cfg, on=True):
+    """``cfg`` with ``RoutingConfig.stats`` set to ``on``."""
+    from repro_torch.configs import with_overrides
+    return with_overrides(cfg, routing=with_overrides(cfg.routing, stats=on))
+
+
+def state_diff(torch, a, b) -> dict:
+    """How two train states differ: leaves (parameters, centroids,
+    optimizer state) not equal bit for bit and the largest difference."""
+    from repro_torch.tree import tree_leaves
+    la = tree_leaves((a.params, a.kstate, a.opt_state))
+    lb = tree_leaves((b.params, b.kstate, b.opt_state))
+    differ, worst = 0, 0.0
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                differ += 1
+                worst = max(worst, float((x.float() - y.float()).abs().max()))
+        elif x != y:
+            differ += 1
+    return dict(leaves=len(la), differ=differ, max_abs=worst)
+
+
+def stats_gate(cfg, metrics) -> list:
+    """Failures of a stats-on step's metrics: the ``routing/*`` scalars
+    out of their ranges, or an ``rt/{seg}/{layer}/{field}`` missing for a
+    routing layer (each segment's leaves carry its G layers)."""
+    from repro_torch.attn.spec import spec_for_layer
+    from repro_torch.models.transformer import build_segments
+    from repro_torch.obs.routing_stats import SCALAR_FIELDS
+    kc = cfg.routing.num_clusters
+    ranges = {"entropy": (0.0, math.log(kc) + 1e-4), "dead": (0.0, kc),
+              "mismatch": (0.0, 1.0), "recall": (0.0, 1.0 + 1e-4),
+              "drift": (0.0, math.inf)}
+    bad = [f"routing/{f} = {float(metrics[f'routing/{f}'])}"
+           for f, (lo, hi) in ranges.items()
+           if not lo <= float(metrics[f"routing/{f}"]) <= hi]
+    layers = 0
+    for si, (pattern, G) in enumerate(build_segments(cfg)):
+        for i, s in enumerate(pattern):
+            if "routing" not in spec_for_layer(cfg, s.attn).variant:
+                continue
+            for f in SCALAR_FIELDS:
+                t = metrics.get(f"rt/{si}/{i}/{f}")
+                if t is None or t.shape[0] != G or not bool(
+                        t.isfinite().all()):
+                    bad.append(f"rt/{si}/{i}/{f}")
+            layers += G
+    if layers != layer_counts(cfg)["routing"]:
+        bad.append(f"rt/* covers {layers} layers")
+    return bad
+
+
+def obs_train(torch, cfg, params, kstate, batch, counts) -> dict:
+    """(a) One rt-enwik8 train step from one state and batch with the
+    stats off, on, and off again (the control): the stats-on step's loss
+    and state equal the stats-off step's bit for bit (or, when the
+    control itself differs, within the control's own difference), each
+    step launches exactly the train path's kernels, the stats lie in
+    their ranges; then one profiled step each way for busy ms and the
+    step's peak memory above the state it starts from."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.train_step import TrainState, make_train_step
+    runs = {on: train_run_config(with_stats(cfg, on)) for on in (False, True)}
+    opt_init, _ = make_optimizer(runs[False].train)
+    ts0 = TrainState(params, kstate, opt_init(params),
+                     runs[False].train.warmup_steps)
+    want = expected_launches("train", runs[False], 1)
+    fns = {on: make_train_step(run) for on, run in runs.items()}
+    steps, row = {}, {}
+    for name, on in (("off", False), ("on", True), ("control", False)):
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        ts, metrics = fns[on](ts0, batch)
+        loss = float(metrics["loss"])               # waits for the step
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {n: counts()[n] - before[n] for n in before}
+        check_launches(f"obs train {name}", got, want)
+        steps[name] = (ts, metrics, loss)
+        row[name] = dict(loss=loss, wall_ms=wall)
+    (ts_off, m_off, l_off), (ts_on, m_on, l_on), (ts_ctl, _, l_ctl) = (
+        steps["off"], steps["on"], steps["control"])
+    on_diff, ctl_diff = state_diff(torch, ts_on, ts_off), state_diff(
+        torch, ts_ctl, ts_off)
+    row.update(on_vs_off=dict(on_diff, loss_diff=abs(l_on - l_off)),
+               control_vs_off=dict(ctl_diff, loss_diff=abs(l_ctl - l_off)))
+    if ctl_diff["differ"] or l_ctl != l_off:
+        # the step itself is not bit-exact from run to run: hold the
+        # stats-on step to the control's own difference
+        ok = (on_diff["max_abs"] <= ctl_diff["max_abs"]
+              and abs(l_on - l_off) <= abs(l_ctl - l_off))
+        row["held_to"] = "control"
+    else:
+        ok = not on_diff["differ"] and l_on == l_off
+        row["held_to"] = "bit for bit"
+    if not ok:
+        raise AssertionError(f"obs train: stats on moved the step: {row}")
+    if set(m_off) != {"nll", "tokens", "loss", "grad_norm", "lr"}:
+        raise AssertionError(f"obs train: stats-off metrics {sorted(m_off)}")
+    bad = stats_gate(cfg, m_on)
+    if bad:
+        raise AssertionError(f"obs train: stats out of range: {bad}")
+    row["routing"] = {k: float(v) for k, v in m_on.items()
+                      if k.startswith("routing/")}
+    del steps, ts, ts_off, ts_on, ts_ctl, metrics
+    torch.cuda.empty_cache()
+    for name, on in (("off", False), ("on", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        before = counts()
+        prof = profiled(torch, lambda on=on: float(
+            fns[on](ts0, batch)[1]["loss"]))
+        got = {n: counts()[n] - before[n] for n in before}
+        check_launches(f"obs train profiled {name}", got, want)
+        peak = torch.cuda.max_memory_allocated()
+        row[name].update(busy_ms=prof["device_busy_ms"],
+                         busy_launches=prof["device_launches"],
+                         profiled_wall_ms=prof["wall_ms"],
+                         resident_gib=start / 2 ** 30,
+                         step_peak_gib=(peak - start) / 2 ** 30)
+    return row
+
+
+def obs_collapse(torch, cfg, params, kstate, batch, counts) -> dict:
+    """(b) One stats-on forward with every layer's centroids equal: all
+    tokens take centroid 0, so entropy ~0 and k - 1 dead."""
+    from repro_torch.models.model import apply_model, next_token_batch
+    from repro_torch.obs.routing_stats import summarize
+    flat = [{k: mu[:, :, :1].expand_as(mu).clone() for k, mu in seg.items()}
+            for seg in kstate]
+    inputs, _ = next_token_batch(batch)
+    before = counts()
+    with torch.no_grad():
+        logits, _, stats = apply_model(params, flat, inputs,
+                                       with_stats(cfg), return_stats=True)
+        summ = {k: float(v) for k, v in summarize(stats).items()}
+    got = {n: counts()[n] - before[n] for n in before
+           if counts()[n] != before[n]}
+    layers = layer_counts(cfg)
+    want = {"local_attention": layers["local"],
+            "routing_fused": layers["routing"]}
+    check_launches("obs collapse", got, want)
+    kc = cfg.routing.num_clusters
+    if not (summ["routing/entropy"] < OBS_COLLAPSE_ENTROPY
+            and summ["routing/dead"] == kc - 1
+            and bool(logits.isfinite().all())):
+        raise AssertionError(f"obs collapse control: {summ}")
+    return summ
+
+
+def timed(fn, into: list):
+    """``fn`` that appends each call's host seconds to ``into``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            into.append(time.perf_counter() - t0)
+    return call
+
+
+def obs_engine(torch, cfg, params, kstate, counts, tmp) -> dict:
+    """(c) The first OBS_REQUESTS of the `serve_engine` workload through
+    the engine with chunked prefill, stats off, then with ``obs_jsonl``
+    and ``routing_stats``: tokens and logits rows equal bit for bit,
+    launches exact per event, every line valid, the ticks carrying the
+    pages' health."""
+    from repro_torch.obs.schema import validate_jsonl
+    from repro_torch.serve.engine import InferenceEngine
+    reqs = engine_requests(torch, cfg)[:OBS_REQUESTS]
+    path = str(Path(tmp) / "engine.jsonl")
+    runs, row = {}, {}
+    for name, kw in (("off", {}),
+                     ("on", dict(obs_jsonl=path, routing_stats=True))):
+        eng = InferenceEngine(cfg, params, kstate, max_slots=ENGINE_SLOTS,
+                              max_len=ENGINE_MAX_LEN, record_logits=True,
+                              device=DEVICE, **OBS_ENGINE, **kw)
+        events, total = engine_launch_checks(eng, counts)
+        host_s = {"tick": [], "prefill_stats": []}
+        for what, attr in (("tick", "_emit_tick"),
+                           ("prefill_stats", "_emit_prefill_stats")):
+            setattr(eng, attr, timed(getattr(eng, attr), host_s[what]))
+        run_reqs = fresh_requests(reqs)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drive_engine(torch, eng, run_reqs)
+        wall = time.perf_counter() - t0
+        eng.close()
+        got = {n: counts()[n] - before[n] for n in before
+               if counts()[n] != before[n]}
+        if got != total:
+            raise AssertionError(f"obs engine {name}: launches {got}, the "
+                                 f"engine's events add up to {total}")
+        runs[name] = ({r.uid: list(r.output) for r in run_reqs},
+                      eng.logits_trace)
+        summ = eng.metrics.summary()
+        row[name] = dict(wall_s=wall, events=events, launches=got,
+                         decode_steps=summ["decode_steps"],
+                         decode_step_p50_s=summ.get("decode_step_p50_s"),
+                         **{f"{k}_calls": len(v) for k, v in host_s.items()},
+                         **{f"{k}_p50_ms": (statistics.median(v) * 1e3
+                                            if v else None)
+                            for k, v in host_s.items()})
+    bad = engine_mismatches(*runs["off"], *runs["on"],
+                            [r.uid for r in reqs])
+    lines = validate_jsonl(path)
+    recs = [json.loads(ln) for ln in open(path)]
+    kinds = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    health = [r["metrics"] for r in recs if r["kind"] == "engine_tick"
+              and "routing/entropy" in r["metrics"]]
+    prefill = [r["metrics"] for r in recs if r["kind"] == "engine_prefill"]
+    row.update(parity_mismatches=bad, lines=lines, kinds=kinds,
+               first_prefill=prefill[0] if prefill else None,
+               last_health=health[-1] if health else None)
+    if (bad or kinds.get("engine_prefill") != len(reqs)
+            or recs[-1]["kind"] != "engine_summary" or not health
+            or any(h["routing/drift"] != 0.0 for h in health)):
+        raise AssertionError(f"obs engine: {row}")
+    return row
+
+
+def obs_launch(torch, counts, tmp) -> dict:
+    """(d) The launcher with the observability flags: exact launches,
+    valid lines with the stats, and a Chrome trace naming the train and
+    kernel spans."""
+    from repro_torch.configs import get_config, with_overrides
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.schema import validate_jsonl
+    from repro_torch.obs.trace import TRACE_FILE
+    path, prof = str(Path(tmp) / "launch.jsonl"), str(Path(tmp) / "prof")
+    argv = OBS_LAUNCH_ARGV + ["--obs-jsonl", path, "--profile-dir", prof]
+    args = launcher.parser().parse_args(argv)
+    cfg = with_overrides(get_config(args.arch), dtype="float32")
+    before = counts()
+    t0 = time.perf_counter()
+    out = launcher.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: counts()[n] - before[n] for n in before}
+    check_launches("obs launch", got, expected_launches(
+        "train", train_run_config(cfg, args.batch, args.seq), args.steps))
+    lines = validate_jsonl(path)
+    recs = [json.loads(ln) for ln in open(path)]
+    trace = (Path(prof) / TRACE_FILE).read_text()
+    missing = [s for s in OBS_TRACE_SPANS if s not in trace]
+    row = dict(argv=argv[:len(OBS_LAUNCH_ARGV)] + ["--obs-jsonl", "...",
+                                                   "--profile-dir", "..."],
+               wall_s=wall, lines=lines, trace_bytes=len(trace),
+               missing_spans=missing,
+               routing=recs[-1]["metrics"].get("routing/entropy"), **out)
+    if (lines != args.steps or missing or out["steps"] != args.steps
+            or not all("routing/recall" in r["metrics"] for r in recs)):
+        raise AssertionError(f"obs launch: {row}")
+    return row
+
+
+def obs_phase(torch, card, counts) -> dict:
+    """The `obs` path: (a) `obs_train`, (b) `obs_collapse`, (c)
+    `obs_engine`, (d) `obs_launch`, on full-width rt-enwik8 (random bf16
+    weights from seed 0) and the launcher's fp32 one."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    # every wrapper's counter exists before the first count is read
+    from repro_torch.kernels import (flash_attention, local_attention,  # noqa: F401
+                                     routing_attention, routing_decode,
+                                     routing_gathered)
+    from repro_torch.models.model import init_model
+    cfg = get_config(ARCH)
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    batch = train_batches(torch, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 1)[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        row = dict(card=card, train=obs_train(torch, cfg, params, kstate,
+                                              batch, counts))
+        print(f"obs train [{card}] {json.dumps(row['train'])}", flush=True)
+        row["collapse"] = obs_collapse(torch, cfg, params, kstate, batch,
+                                       counts)
+        print(f"obs collapse {json.dumps(row['collapse'])}", flush=True)
+        del batch
+        torch.cuda.empty_cache()
+        row["engine"] = obs_engine(torch, cfg, params, kstate, counts, tmp)
+        print(f"obs engine [{card}] {json.dumps(row['engine'])}", flush=True)
+        del params, kstate
+        torch.cuda.empty_cache()
+        row["launch"] = obs_launch(torch, counts, tmp)
+        print(f"obs launch {json.dumps(row['launch'])}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return row
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -4320,6 +4660,14 @@ def main(argv=None) -> int:
     del engine_ref
     t = phase("serve_disagg", t)
 
+    # since slice 17: the routing-health stats and the obs layer: a train
+    # step and a forward with the stats, the engine with its JSONL sink and
+    # the launcher with its observability flags
+    common.reset_counters()
+    obs_row = obs_phase(torch, card, common.counters)
+    launches["obs"] = common.counters()
+    t = phase("obs", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -4363,7 +4711,7 @@ def main(argv=None) -> int:
             paper_kernels=paper_kernel_rows, pg19_edges=pg19_edges,
             paper=paper_rows, paper_decode=paper_decode_rows,
             decode_digest=dec_digest, serve_paper=serve_rows,
-            serve_engine=engine_row, serve_disagg=disagg_row,
+            serve_engine=engine_row, serve_disagg=disagg_row, obs=obs_row,
             launches=launches, profile=prof), indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

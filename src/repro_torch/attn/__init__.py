@@ -32,6 +32,8 @@ class AttnOutput(NamedTuple):
     state: Optional[torch.Tensor]       # centroids (routing variants)
     cache: Optional[dict] = None        # updated decode cache (decode and
                                         # filling prefill calls)
+    stats: Optional[object] = None      # obs.RoutingStats (routing variants
+    #                                     with RoutingConfig.stats=True)
 
 
 def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
@@ -39,7 +41,9 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
            impl: Optional[str] = None, fill=None) -> AttnOutput:
     """Run the attention ``spec`` describes on un-roped q/k/v.
 
-    Prefill mode (``cache=None``): returns (out, new_state); with ``fill``
+    Prefill mode (``cache=None``): returns (out, new_state, and for a
+    routing variant with ``RoutingConfig.stats`` its obs.RoutingStats as
+    ``stats``); with ``fill``
     (a decode cache of ``spec``, per the layout `init_decode_cache`
     builds) also that cache filled from the keys, routing vectors and
     centroid scores this attention computed, which needs ``positions``.
@@ -62,12 +66,15 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
     backend = resolve(spec, padded=pad_mask is not None,
                       positioned=positions is not None,
                       needs_grad=needs_grad, impl=impl, platform=platform)
-    out, new_state, prefix = backend.apply(
+    # (out, new_state, prefix) or, with routing-health stats on, (out,
+    # new_state, prefix, stats)
+    out, new_state, prefix, *stats = backend.apply(
         spec, q, k, v, state=state, positions=positions, pad_mask=pad_mask,
         update_state=update_state)
     new_cache = None if fill is None else _layout(spec, platform).fill(
         fill, prefix, positions=positions)
-    return AttnOutput(out=out, state=new_state, cache=new_cache)
+    return AttnOutput(out=out, state=new_state, cache=new_cache,
+                      stats=stats[0] if stats else None)
 
 
 def decode_backend(spec: AttentionSpec, impl: Optional[str] = None,

@@ -187,7 +187,12 @@ def _make_routing_apply(routing_impl: str):
         ro = routed_attention(q.contiguous(), k_in, v_e,
                               KMeansState(mu=state), rc, positions, pad_mask,
                               update_state, impl=routing_impl)
-        return ro.out, ro.state.mu, Prefix(pages=(ro.r_q, ro.scores, v_e))
+        prefix = Prefix(pages=(ro.r_q, ro.scores, v_e))
+        if ro.stats is None:
+            return ro.out, ro.state.mu, prefix
+        # the routing-health stats (RoutingConfig.stats): attend() takes
+        # a 3- or a 4-tuple
+        return ro.out, ro.state.mu, prefix, ro.stats
     return apply
 
 
@@ -199,12 +204,12 @@ def _make_mixed_apply(local_apply, routing_apply):
         (ql, kl, vl), (qr, kr, vr) = _split_heads(spec, q, k, v)
         o_l, _, pl = local_apply(_local_subspec(spec), ql, kl, vl,
                                  positions=positions, pad_mask=pad_mask)
-        o_r, mu, pr = routing_apply(_routing_subspec(spec), qr, kr, vr,
-                                    state=state, positions=positions,
-                                    pad_mask=pad_mask,
-                                    update_state=update_state)
+        o_r, mu, pr, *stats = routing_apply(
+            _routing_subspec(spec), qr, kr, vr, state=state,
+            positions=positions, pad_mask=pad_mask,
+            update_state=update_state)
         return (torch.cat([o_l, o_r], dim=1), mu,
-                Prefix(ring=pl.ring, pages=pr.pages))
+                Prefix(ring=pl.ring, pages=pr.pages), *stats)
     return apply
 
 

@@ -85,7 +85,8 @@ class Capabilities:
 class Backend:
     """apply(spec, q, k, v, *, state, positions, pad_mask, update_state)
           -> (out, new_state, prefix): the `Prefix` a cache fill reuses
-          (empty for a variant without a decode layout)
+          (empty for a variant without a decode layout); a routing
+          variant with ``RoutingConfig.stats`` appends its RoutingStats
     decode(spec, q, k, v, *, cache, pos, state) -> (out, new_cache)
           [supports_decode only, with its ``layout``]"""
 

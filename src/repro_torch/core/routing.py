@@ -18,13 +18,15 @@ kernel, and runs the gathered CUDA kernels on them
 layout is the backward of the gather). `block_attention`, `block_bwd_dq`
 and `block_bwd_dkv` are the plain versions of the block kernels,
 `routed_attention_bwd_dq` and `routed_attention_bwd_dkv` those of the
-fused backward kernels. The centroids carry no gradient. The segment fold
-(``RoutingConfig.segments > 1``) and the routing-health stats of the JAX
-package are not ported yet and raise.
+fused backward kernels. The centroids carry no gradient.
+``RoutingConfig.stats`` adds the routing-health stats
+(`repro_torch.obs.routing_stats`) to the output, from intermediates every
+impl has before its kernel runs. The segment fold
+(``RoutingConfig.segments > 1``) is not ported yet and raises.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -42,6 +44,7 @@ class RoutingOutput(NamedTuple):
     state: KMeansState          # updated (or unchanged) centroids
     r_q: torch.Tensor           # (B, H, N, dh) routing vectors of q
     scores: torch.Tensor        # (B, H, N, k) fp32 centroid affinities of r_q
+    stats: Optional[Any] = None  # obs.RoutingStats if cfg.stats
 
 
 def balanced_topk(scores: torch.Tensor, window: int,
@@ -263,10 +266,11 @@ def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown routing impl {impl!r}; expected {IMPLS}")
-    if cfg.segments > 1 or cfg.stats:
+    if cfg.segments > 1:
         raise NotImplementedError(
-            "the port's routed_attention has no segment fold and no "
-            "routing-health stats yet (RoutingConfig.segments=1, stats=False)")
+            "the port's routed_attention has no segment fold yet "
+            "(RoutingConfig.segments=1; ROADMAP.md item 11: the fold comes "
+            "with routing_for_seq)")
     B, H, N, dh = q.shape
     if positions is None:
         positions = torch.arange(N, device=q.device).expand(B, N)
@@ -304,4 +308,11 @@ def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
     if update_state:
         new_state = ema_update(state, r_q, None if shared else r_k,
                                pad_mask, cfg.decay)
-    return RoutingOutput(out=out, state=new_state, r_q=r_q, scores=scores_q)
+    stats = None
+    if cfg.stats:
+        from repro_torch.obs.routing_stats import compute_routing_stats
+        stats = compute_routing_stats(
+            r_q, k_attn, state.mu, new_state.mu, scores_q, q_idx, k_idx,
+            positions, pad_mask, cfg.causal, probes=cfg.stats_probes)
+    return RoutingOutput(out=out, state=new_state, r_q=r_q, scores=scores_q,
+                         stats=stats)

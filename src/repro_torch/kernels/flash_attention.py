@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import attention as ref
 from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
+from repro_torch.obs.trace import span
 
 LAUNCHES = C.counter("flash_attention")
 LAUNCHES_BWD_DQ = C.counter("flash_attention_bwd_dq")
@@ -76,6 +77,7 @@ def _dims(what, q, k):
     return B, H, k.shape[1], N, k.shape[2], dh, C.dtype_code(what, q)
 
 
+@span("kernels/flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True):
     what = "flash_attention"
@@ -146,6 +148,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = True):
     return dk, dv
 
 
+@span("kernels/flash_attention_bwd")
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True):
     """(dq (B,H,N,dh), dk, dv (B,Hkv,M,dh)) in at least fp32 through the
     two backward kernels (their plain versions for CPU tensors)."""

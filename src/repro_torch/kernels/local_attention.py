@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import local as ref
 from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
+from repro_torch.obs.trace import span
 
 LAUNCHES = C.counter("local_attention")
 LAUNCHES_BWD_DQ = C.counter("local_attention_bwd_dq")
@@ -85,6 +86,7 @@ def _opt_ptr(t):
     return None if t is None else C.ptr(t)
 
 
+@span("kernels/local_attention")
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int, causal: bool = True,
                     pad_mask: Optional[torch.Tensor] = None):
@@ -177,6 +179,7 @@ def local_attention_bwd_dkv(q, k, v, do, lse, dsum, window: int,
     return C.unpad_heads(dh, dk, dv)
 
 
+@span("kernels/local_attention_bwd")
 def local_attention_bwd(q, k, v, out, lse, do, window: int,
                         causal: bool = True, pad_mask=None):
     """(dq (B,H,N,dh), dk, dv (B,Hkv,N,dh)) in at least fp32 through the

@@ -37,6 +37,7 @@ import torch
 from repro_torch.core import routing as ref
 from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
+from repro_torch.obs.trace import span
 
 LAUNCHES = C.counter("routing_fused")
 LAUNCHES_BWD_DQ = C.counter("routing_fused_bwd_dq")
@@ -91,6 +92,7 @@ def _key_positions(positions, kvalid):
     return torch.where(kvalid, positions, SENTINEL).to(torch.int32)
 
 
+@span("kernels/routed_attention_fused")
 def routed_attention_fused(q: torch.Tensor, k: Optional[torch.Tensor],
                            v: torch.Tensor, q_idx: torch.Tensor,
                            k_idx: torch.Tensor, positions: torch.Tensor,
@@ -198,6 +200,7 @@ def routed_attention_fused_bwd_dkv(q, k, v, q_idx, k_idx, positions, do,
     return C.unpad_heads(dh, dk, dv)
 
 
+@span("kernels/routed_attention_fused_bwd")
 def routed_attention_fused_bwd(q, k, v, q_idx, k_idx, positions, out, lse,
                                do, causal: bool = True, kvalid=None):
     """Per-cluster (dqg, dkg, dvg) through the two backward kernels (their

@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import routing as ref
 from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
+from repro_torch.obs.trace import span
 
 LAUNCHES = C.counter("routing_gathered")
 LAUNCHES_BWD_DQ = C.counter("routing_gathered_bwd_dq")
@@ -74,6 +75,7 @@ def _check(what, qf, kf, vf, pqf, pkf, **more):
     C.check_tensors(what, q=qf, k=kf, v=vf, pos_q=pqf, pos_k=pkf, **more)
 
 
+@span("kernels/routed_attention_blocks")
 def routed_attention_blocks(qf: torch.Tensor, kf: torch.Tensor,
                             vf: torch.Tensor, pqf: torch.Tensor,
                             pkf: torch.Tensor, causal: bool = True):
@@ -166,6 +168,7 @@ def routed_attention_blocks_bwd_dkv(qf, kf, vf, pqf, pkf, do, lse, dsum,
     return dk, dv
 
 
+@span("kernels/routed_attention_blocks_bwd")
 def routed_attention_blocks_bwd(qf, kf, vf, pqf, pkf, out, lse, do,
                                 causal: bool = True):
     """(dq, dk, dv) fp32 blocks through the two backward kernels (their

@@ -8,7 +8,9 @@ centroids per segment. It draws from a ``torch.Generator``, so its numbers
 differ from the JAX package's ``init_model``; tests carry JAX weights
 across with `repro_torch.interop` instead. `apply_model` returns (logits,
 new_kstate): the dense family has no auxiliary losses, so the JAX
-package's third output (MoE aux terms, all zero here) is left out.
+package's third output (MoE aux terms, all zero here) is left out; with
+``return_stats=True`` the third element is the routing-health stats the
+JAX package carries in that aux dict.
 
 Batch dict keys: ``tokens`` (B,S) int, optional ``positions`` (B,S) int
 and ``pad_mask`` (B,S) bool.
@@ -42,19 +44,22 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 def apply_model(params, kstate, batch: Dict[str, torch.Tensor],
                 cfg: ModelConfig, *, impl: Optional[str] = None,
-                remat: str = "none", drop_seed: Optional[int] = None):
+                remat: str = "none", drop_seed: Optional[int] = None,
+                return_stats: bool = False):
     """(logits (B,S,V) fp32, new_kstate). The routing layers always
     return their EMA centroid update; it is functional: the caller (the
-    train step) decides whether to keep it."""
+    train step) decides whether to keep it. ``return_stats`` adds a third
+    element: the stack's routing-health stats (`T.apply_stack`), None
+    unless ``cfg.routing.stats`` is on."""
     x = L.embed(params["embed"], batch["tokens"])
-    x, new_kstate = T.apply_stack(
+    x, new_kstate, *stats = T.apply_stack(
         params["stack"], kstate, x, cfg, positions=batch.get("positions"),
         pad_mask=batch.get("pad_mask"), impl=impl, remat=remat,
-        drop_seed=drop_seed)
+        drop_seed=drop_seed, return_stats=return_stats)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     logits = L.logits_out(params["embed"], x, cfg.tie_embeddings,
                           cfg.logit_softcap)
-    return mask_vocab_pad(logits, cfg), new_kstate
+    return (mask_vocab_pad(logits, cfg), new_kstate, *stats)
 
 
 def mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -29,6 +29,7 @@ from repro_torch.attn.spec import head_split, spec_for_layer, variant_for_layer
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kmeans import init_kmeans
 from repro_torch.models import layers as L
+from repro_torch.obs.routing_stats import stack_stats
 from repro_torch.tree import (tree_leaves, tree_map, tree_stack,
                               tree_unflatten)
 
@@ -140,10 +141,12 @@ def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
     """One ``attn`` layer, with dropout (rate ``cfg.dropout``) on the
     attention and FFN outputs when ``drop_seed`` is given.
 
-    Returns (x, new_kmu, new_cache). With ``cache`` (the layer's
+    Returns (x, new_kmu, new_cache, stats). With ``cache`` (the layer's
     decode-cache leaves, prefill) the cache is filled from what the
     attention computed (roped keys, routing vectors, centroid scores),
-    which needs ``positions``; else new_cache is None.
+    which needs ``positions``; else new_cache is None. ``stats`` is the
+    obs.RoutingStats of a routing layer with ``RoutingConfig.stats`` on,
+    else None.
     """
     seeds = ((None, None) if drop_seed is None
              else (fold_seed(drop_seed, 0), fold_seed(drop_seed, 1)))
@@ -157,7 +160,7 @@ def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
     h2 = L.apply_norm(p["ln2"], x, cfg.norm)
     x = x + _dropout(L.apply_mlp(p["ffn"], h2, cfg.act), cfg.dropout,
                      seeds[1])
-    return x, out.state, out.cache
+    return x, out.state, out.cache, out.stats
 
 
 def _unstack(tree, G: int):
@@ -172,15 +175,22 @@ def _unstack(tree, G: int):
 
 def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
                 positions=None, pad_mask=None, impl=None,
-                remat: str = "none", drop_seed: Optional[int] = None):
+                remat: str = "none", drop_seed: Optional[int] = None,
+                return_stats: bool = False):
     """The whole stack over x (B,N,d) -> (x, new_seg_kstate), with each
-    routing layer's EMA centroid update.
+    routing layer's EMA centroid update. ``return_stats`` adds a third
+    element: the routing-health stats, a list over segments of
+    {layer: obs.RoutingStats} with leaves stacked over the segment's
+    groups (G, ...), or None when no layer computes them
+    (``RoutingConfig.stats`` off).
 
     ``remat="full"`` recomputes each group in the backward
     (`torch.utils.checkpoint`, non-reentrant), as the JAX package's
     ``jax.checkpoint`` per scan group: its forward kernels then run twice
-    per step. ``drop_seed`` (with ``cfg.dropout > 0``) turns dropout on;
-    layer ``n`` of the stack draws from ``fold_seed(drop_seed, n)``.
+    per step (their stats, no-grad outputs of the checkpointed group, are
+    computed again there and dropped). ``drop_seed`` (with
+    ``cfg.dropout > 0``) turns dropout on; layer ``n`` of the stack draws
+    from ``fold_seed(drop_seed, n)``.
     """
     if remat == "save_dots":
         raise NotImplementedError(
@@ -188,34 +198,40 @@ def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}")
     dropout_on = drop_seed is not None and cfg.dropout > 0
-    new_seg_kstate = []
+    new_seg_kstate, seg_stats = [], []
     layer = 0
     for si, (pattern, G) in enumerate(build_segments(cfg)):
 
         def group_fn(x, p_group, k_group, base, pattern=pattern):
-            new_k = {}
+            new_k, stats_g = {}, {}
             for i, spec in enumerate(pattern):
                 seed = fold_seed(drop_seed, base + i) if dropout_on else None
-                x, nk, _ = apply_layer(
+                x, nk, _, st = apply_layer(
                     spec, p_group[i], k_group.get(str(i)), x, cfg,
                     positions=positions, pad_mask=pad_mask,
                     update_state=True, impl=impl, drop_seed=seed)
                 if str(i) in k_group:
                     new_k[str(i)] = nk
-            return x, new_k
+                if st is not None:
+                    stats_g[str(i)] = st
+            return x, new_k, stats_g
 
-        groups = []
+        groups, stats = [], []
         for p_group, k_group in zip(_unstack(seg_params[si], G),
                                     _unstack(seg_kstate[si], G)):
             if remat == "full":
                 # the layer draws nothing from the default generators, so
                 # their state need not be saved for the recompute
-                x, new_k = checkpoint(group_fn, x, p_group, k_group, layer,
-                                      use_reentrant=False,
-                                      preserve_rng_state=False)
+                x, new_k, stats_g = checkpoint(
+                    group_fn, x, p_group, k_group, layer,
+                    use_reentrant=False, preserve_rng_state=False)
             else:
-                x, new_k = group_fn(x, p_group, k_group, layer)
+                x, new_k, stats_g = group_fn(x, p_group, k_group, layer)
             groups.append(new_k)
+            stats.append(stats_g)
             layer += len(pattern)
         new_seg_kstate.append(tree_stack(groups))
-    return x, new_seg_kstate
+        seg_stats.append(stack_stats(stats) if stats[0] else {})
+    if not return_stats:
+        return x, new_seg_kstate
+    return x, new_seg_kstate, (seg_stats if any(seg_stats) else None)

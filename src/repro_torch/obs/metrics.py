@@ -1,5 +1,6 @@
-"""Metrics core of the port: counters, gauges, histograms and a registry
-(a copy of that part of the JAX package's ``obs/metrics.py``).
+"""Metrics core of the port: counters, gauges, histograms, a registry, the
+JSONL sink and the per-step series (a copy of the JAX package's
+``obs/metrics.py``, tensors taken where it takes device arrays).
 
   Counter    monotonically increasing float (``inc``)
   Gauge      last-written value (``set``)
@@ -9,13 +10,25 @@
 ``Registry`` is a typed name -> instrument map with ``summary()`` (a flat
 dict, histograms expanded to count/mean/min/max/p50/p90/p99) and
 ``to_csv()``. Subsystems that own a lifecycle (the engine's metrics, the
-KV store, the prefix cache) hold their own Registry. Imports the standard
-library only, so every layer of the port can report through it.
+KV store, the prefix cache, the trainer) hold their own Registry; one
+process-wide default registry exists for code with no better home.
+
+``JsonlSink`` writes one schema-versioned JSON line per event (see
+`repro_torch.obs.schema` for the record contract and the validating CLI;
+the JAX package's validator takes the same lines). ``StepSeries`` is the
+trainer's adapter: an append-only history of per-step metric dicts
+(tensors converted to host floats and lists) that optionally tees every
+record into a sink. Imports the standard library only, so every layer of
+the port can report through it.
 """
 from __future__ import annotations
 
+import json
 import math
+import time
 from typing import Any, Dict, List, Optional
+
+SCHEMA_VERSION = 1
 
 
 def _host(v):
@@ -157,3 +170,79 @@ class Registry:
         for k, v in self.summary().items():
             lines.append(f"{k},{'' if v is None else v}")
         return "\n".join(lines) + "\n"
+
+
+_DEFAULT = Registry()
+
+
+def default_registry() -> Registry:
+    return _DEFAULT
+
+
+class JsonlSink:
+    """One JSON object per line, schema-versioned (`repro_torch.obs.schema`).
+
+    Record shape::
+
+        {"v": 1, "kind": "train_step", "t": <unix s>, "source": "...",
+         "step": 12, "metrics": {...}}
+
+    Opened in append mode so a train loop and a serve loop may share one
+    file; every line is flushed (records are small; losing them in a crash
+    is the failure that matters). Tensors in a record are copied to the
+    host, which waits for the work that produced them.
+    """
+
+    def __init__(self, path: str, source: str = "", clock=time.time):
+        self.path = path
+        self.source = source
+        self.clock = clock
+        self._f = open(path, "a")
+        self.lines = 0
+
+    def emit(self, kind: str, metrics: Optional[Dict[str, Any]] = None,
+             step: Optional[int] = None, **extra) -> Dict[str, Any]:
+        rec: Dict[str, Any] = {"v": SCHEMA_VERSION, "kind": str(kind),
+                               "t": float(self.clock())}
+        if self.source:
+            rec["source"] = self.source
+        if step is not None:
+            rec["step"] = int(step)
+        if metrics is not None:
+            rec["metrics"] = {str(k): _host(v) for k, v in metrics.items()}
+        for k, v in extra.items():
+            rec[k] = _host(v)
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+        self.lines += 1
+        return rec
+
+    def close(self) -> None:
+        if not self._f.closed:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class StepSeries:
+    """Per-step metric history (a list of host-value dicts) and an optional
+    sink: ``record`` converts the tensors once (0-d -> float, arrays ->
+    nested lists), so history entries stay the plain dicts consumers
+    index, and tees the same record to the sink when one is attached."""
+
+    def __init__(self, sink: Optional[JsonlSink] = None,
+                 kind: str = "train_step"):
+        self.history: List[Dict[str, Any]] = []
+        self.sink = sink
+        self.kind = kind
+
+    def record(self, step: int, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        rec = {str(k): _host(v) for k, v in metrics.items()}
+        self.history.append(rec)
+        if self.sink is not None:
+            self.sink.emit(self.kind, metrics=rec, step=step)
+        return rec

@@ -61,12 +61,20 @@ hands its sessions to a decode pool through ``export_session`` /
 ``import_session``; at the same pool size the decode pool's tokens and
 logits equal a monolithic engine's bit for bit.
 
-Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-``mesh`` (item 10), ``obs_jsonl`` and ``routing_stats`` (item 9). The JAX
-engine writes its tier events (``drain_events()``) to that JSONL sink; the
-port drains them on every step and counts them by kind
-(``kvstore_events``). Partial prefix reuse is off (item 8): see
-``_prefill_into``.
+Observability. ``routing_stats=True`` turns on ``RoutingConfig.stats``
+for the prefills: each prefill (monolithic, or the chunked stages of a
+job) reports its ``routing/*`` means. ``obs_jsonl`` appends schema-v1
+records (`repro_torch.obs`, source ``engine``): ``engine_prefill`` per
+prefill with stats on, ``engine_tick`` per step (queue state, the KV
+store's and the prefix cache's stats and, on active lanes, the cluster
+pages' health read off the ``rlen`` leaves alone, with drift 0.0 and the
+last prefill's recall), the store's tier events as records of their own
+kind, ``kvstore_park``, ``kvstore_resume``, ``session_export``,
+``session_import``, and ``engine_summary`` at ``close()``. Tier events are
+also counted by kind (``kvstore_events``) on every step. With no sink and
+stats off a step reads nothing back from the card that it did not read
+before. ``mesh`` is not ported (ROADMAP.md item 10) and raises; partial
+prefix reuse is off (item 8): see ``_prefill_into``.
 """
 from __future__ import annotations
 
@@ -81,7 +89,9 @@ import torch
 
 from repro_torch import attn as attn_api
 from repro_torch import prng, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, with_overrides
+from repro_torch.obs import JsonlSink, pages_health
+from repro_torch.obs import routing_stats as obs_rt
 from repro_torch.obs.trace import span
 from repro_torch.serve.engine.metrics import EngineMetrics
 from repro_torch.serve.engine.pool import (init_pool, read_slot, reset_slot,
@@ -213,6 +223,7 @@ class _PrefillJob:
     x: torch.Tensor             # (1, N, d) activations entering stage_idx
     positions: torch.Tensor
     chunks: List = field(default_factory=list)   # per-stage cache chunks
+    stats: List = field(default_factory=list)    # per-stage routing stats
     stage_idx: int = 0
     admit_seq: int = 0
     t0: float = 0.0             # wall clock at admission (TTFT accounting)
@@ -252,14 +263,17 @@ class InferenceEngine:
         if mesh is not None:
             raise _unported("InferenceEngine(mesh=...)", 10,
                             "sharded serving over several cards")
-        if obs_jsonl:
-            raise _unported("InferenceEngine(obs_jsonl=...)", 9,
-                            "the JSONL sink")
-        if routing_stats:
-            raise _unported("InferenceEngine(routing_stats=True)", 9,
-                            "routing-health stats")
         if chunked_prefill is not None and chunked_prefill < 1:
             raise ValueError("chunked_prefill must be >= 1 stage per step")
+        if routing_stats:
+            # the prefills compute the routing-health stats; decode-side
+            # health comes from the cluster pages' occupancy
+            cfg = with_overrides(
+                cfg, routing=with_overrides(cfg.routing, stats=True))
+        self.routing_stats = routing_stats
+        self._sink = (JsonlSink(obs_jsonl, source="engine")
+                      if obs_jsonl else None)
+        self._last_routing: Dict[str, float] = {}
         self.cfg = cfg
         self.params = params
         self.kstate = kstate
@@ -272,7 +286,8 @@ class InferenceEngine:
         self.attn_backends = decode_backends(cfg, impl=impl,
                                              platform=self.device.type)
         self._serve_step = make_serve_step(cfg, impl=impl)
-        self._prefill = functools.partial(prefill, cfg=cfg, impl=impl)
+        self._prefill = functools.partial(prefill, cfg=cfg, impl=impl,
+                                          return_stats=routing_stats)
         self.pool = init_pool(cfg, max_slots, max_len, device=self.device)
         # a prefill clones the cache it fills, so one fresh B=1 lane serves
         # every admission
@@ -390,9 +405,11 @@ class InferenceEngine:
         """
         s = self.slots[slot]
         uid = s.request.uid
+        t0 = time.perf_counter()
         with span("engine/park"):
-            self.kvstore.park(uid, read_slot(self.pool, slot))
+            ps = self.kvstore.park(uid, read_slot(self.pool, slot))
             reset_slot(self.pool, slot)
+        dt = time.perf_counter() - t0
         s.request.state = PARKED
         self._parked[uid] = _ParkedMeta(s.request, pos=s.pos,
                                         last_token=s.last_token,
@@ -401,16 +418,24 @@ class InferenceEngine:
         self.metrics.on_park(uid, self.step_count)
         if not held:
             self.scheduler.submit(s.request)
+        if self._sink is not None:
+            # an async park's bytes read 0 until its host copy lands
+            self._sink.emit("kvstore_park", step=self.step_count, uid=uid,
+                            metrics={"park_s": dt,
+                                     "bytes": float(ps.nbytes),
+                                     "tokens": float(s.pos)})
 
     def _resume_into(self, slot: int, req: Request) -> None:
         """Stream a parked session's lane back into ``slot`` (bit-exact
         with a never-evicted run: the lane round-trips byte-identical and
         sampling keys are counter-based per uid, not per slot)."""
         meta = self._parked.pop(req.uid)
+        t0 = time.perf_counter()
         with span("engine/resume"):
             lane = _fit_lane(self.kvstore.resume(req.uid, device=self.device),
                              self._fresh_lane)
             write_slot(self.pool, slot, lane)
+        dt = time.perf_counter() - t0
         req.state = DECODE
         self.slots[slot] = _Slot(
             req, pos=meta.pos, last_token=meta.last_token,
@@ -418,6 +443,11 @@ class InferenceEngine:
             tokens_at_admit=len(req.output))
         self._admit_seq += 1
         self.metrics.on_resume(req.uid, slot, self.step_count)
+        if self._sink is not None:
+            self._sink.emit("kvstore_resume", step=self.step_count,
+                            uid=req.uid,
+                            metrics={"resume_s": dt, "slot": float(slot),
+                                     "tokens": float(meta.pos)})
 
     def _maybe_park_for(self, head: Request) -> bool:
         """Try to free capacity for the queue head by parking one active
@@ -542,6 +572,10 @@ class InferenceEngine:
         if self.scheduler.has_uid(uid):     # unheld: queued to resume
             self.scheduler.remove(uid)
         meta.request.state = EXPORTED
+        if self._sink is not None:
+            self._sink.emit("session_export", step=self.step_count,
+                            uid=uid, name=name,
+                            metrics={"tokens": float(meta.pos)})
         return name
 
     def import_session(self, name: str, *, transport=None) -> SessionHandle:
@@ -572,6 +606,10 @@ class InferenceEngine:
                                         base_key=base_key, held=False)
         self.scheduler.submit(req)
         self.metrics.on_submit(uid, req.prompt_len, self.step_count)
+        if self._sink is not None:
+            self._sink.emit("session_import", step=self.step_count,
+                            uid=uid, name=name,
+                            metrics={"tokens": float(m["pos"])})
         return SessionHandle(self, req)
 
     def cancel_session(self, uid: int) -> None:
@@ -656,12 +694,28 @@ class InferenceEngine:
             self._admit_seq += 1
             return
         with span("engine/prefill"):
-            logits, lane = self._prefill(self.params, self.kstate,
-                                         self._fresh_lane, {"tokens": toks})
+            logits, lane, *stats = self._prefill(
+                self.params, self.kstate, self._fresh_lane, {"tokens": toks})
         last_logits = logits[:, -1]
+        if stats:
+            self._emit_prefill_stats(req, stats[0])
         if self.prefix_cache is not None:
             self.prefix_cache.put(req.prompt, lane, last_logits)
         self._activate(slot, req, lane, last_logits, t0)
+
+    def _emit_prefill_stats(self, req: Request, stats_tree) -> None:
+        """Fold a prefill's stats into the ``routing/*`` means (one host
+        read), kept for the ticks' recall and, with a sink, written as an
+        ``engine_prefill`` record."""
+        summ = obs_rt.summarize(stats_tree)
+        if not summ:
+            return
+        host = torch.stack(list(summ.values())).cpu().tolist()
+        self._last_routing = dict(zip(summ, host))
+        if self._sink is not None:
+            self._sink.emit("engine_prefill", metrics=self._last_routing,
+                            step=self.step_count, uid=req.uid,
+                            prompt_len=req.prompt_len)
 
     def _activate(self, slot: int, req: Request, lane, last_logits,
                   t0: float) -> None:
@@ -705,10 +759,11 @@ class InferenceEngine:
             while budget > 0 and job.stage_idx < len(self._pf_stages):
                 _, fn = self._pf_stages[job.stage_idx]
                 with span("engine/prefill_stage"):
-                    job.x, nc = fn(self.params, self.kstate,
-                                   self._pf_fresh[job.stage_idx], job.x,
-                                   job.positions, {})
+                    job.x, nc, st_g = fn(self.params, self.kstate,
+                                         self._pf_fresh[job.stage_idx],
+                                         job.x, job.positions, {})
                 job.chunks.append(nc)
+                job.stats.append(st_g)
                 job.stage_idx += 1
                 budget -= 1
             if job.stage_idx == len(self._pf_stages):
@@ -720,6 +775,8 @@ class InferenceEngine:
         lane = assemble_prefill_cache([st for st, _ in self._pf_stages],
                                       job.chunks)
         last_logits = self._pf_head(self.params, job.x)[:, -1]
+        if self.routing_stats:
+            self._emit_prefill_stats(req, job.stats)
         if self.prefix_cache is not None:
             self.prefix_cache.put(req.prompt, lane, last_logits)
         self._activate(slot, req, lane, last_logits, job.t0)
@@ -815,15 +872,64 @@ class InferenceEngine:
             with span("engine/decode"):
                 self._decode_once()
         self.step_count += 1
-        self.kvstore_events.update(ev["kind"]
-                                   for ev in self.kvstore.drain_events())
+        events = self.kvstore.drain_events()
+        self.kvstore_events.update(ev["kind"] for ev in events)
+        if self._sink is not None:
+            self._emit_tick(events)
+
+    def _emit_tick(self, events) -> None:
+        """The store's tier events (e.g. ``kvstore_remote_degraded``) as
+        records of their own kind, then one ``engine_tick`` record: queue
+        and slot state, the store's and the prefix cache's stats and the
+        routing health of the active lanes' cluster pages
+        (``pages_health`` on the ``rlen`` leaves only: one small host
+        read, never the pages). Centroids are frozen in serving, so drift
+        is 0; recall is the latest prefill's, the only place the full
+        softmax is sampled."""
+        for ev in events:
+            ev = dict(ev)
+            self._sink.emit(ev.pop("kind"), step=self.step_count, **ev)
+        active = np.array([s is not None for s in self.slots], bool)
+        metrics: Dict[str, float] = {
+            "active_slots": float(active.sum()),
+            "queued": float(len(self.scheduler)),
+            "parked": float(len(self._parked)),
+            "prefilling": float(len(self._prefill_jobs)),
+            "decode_steps": float(self.metrics.decode_steps),
+        }
+        metrics.update(self.kvstore.stats())
+        if self.prefix_cache is not None:
+            metrics.update(self.prefix_cache.stats())
+        health = None
+        rlens = [leaf for path, leaf in tree_paths(self.pool)
+                 if path[-1] == "rlen"]
+        if rlens and active.any():
+            # every segment's rlen in one copy, so one wait for the card
+            flat = torch.cat([r.reshape(-1) for r in rlens]).cpu().numpy()
+            cuts = np.cumsum([r.numel() for r in rlens])[:-1]
+            health = pages_health(
+                [{"rlen": h.reshape(r.shape)}
+                 for h, r in zip(np.split(flat, cuts), rlens)],
+                active=active)
+        if health is not None:
+            metrics.update(health)
+            metrics["routing/drift"] = 0.0
+            if "routing/recall" in self._last_routing:
+                metrics["routing/recall"] = \
+                    self._last_routing["routing/recall"]
+        self._sink.emit("engine_tick", metrics=metrics, step=self.step_count)
 
     def close(self) -> None:
-        """Settle KV transfers (raising a failed background park) and
-        close the engine-owned KV store."""
+        """Settle KV transfers (raising a failed background park), write
+        the ``engine_summary`` record and close the JSONL sink and the
+        engine-owned KV store."""
         try:
             self.kvstore.flush()
         finally:
+            if self._sink is not None:
+                self._sink.emit("engine_summary",
+                                metrics=self.metrics.summary())
+                self._sink.close()
             if self._owns_kvstore:
                 self.kvstore.close()
 

@@ -43,6 +43,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.model import mask_vocab_pad
 from repro_torch.models.transformer import (apply_layer, build_segments,
                                             where_active)
+from repro_torch.obs.routing_stats import stack_stats
 from repro_torch.tree import tree_index, tree_map, tree_stack
 
 
@@ -146,8 +147,10 @@ def decode_cache_layouts(cfg: ModelConfig, impl: Optional[str] = None,
 # ---------------------------------------------------------------------------
 class PrefillStage(NamedTuple):
     """Groups [g0, g1) of segment si. ``fn(params, kstate, cache_chunk, x,
-    positions, batch)`` returns (x, new_cache_chunk), the chunk being the
-    segment's cache leaves sliced to rows g0:g1 of the group axis."""
+    positions, batch)`` returns (x, new_cache_chunk, stats), the chunk
+    being the segment's cache leaves sliced to rows g0:g1 of the group
+    axis and ``stats`` the stage's {layer: obs.RoutingStats} (leaves
+    stacked over its groups; empty unless ``RoutingConfig.stats``)."""
     si: int
     g0: int
     g1: int
@@ -173,20 +176,24 @@ def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None,
     def make_stage(si, pattern, g0, g1):
         @torch.no_grad()
         def stage(params, kstate, cache_chunk, x, positions, batch):
-            groups = []
+            groups, stats = [], []
             for g in range(g0, g1):
                 p_group = tree_index(params["stack"][si], g)
                 k_group = tree_index(kstate[si], g)
                 c_group = tree_index(cache_chunk, g - g0)
-                new_c = {}
+                new_c, stats_g = {}, {}
                 for i, spec in enumerate(pattern):
-                    x, _, new_c[str(i)] = apply_layer(
+                    x, _, new_c[str(i)], st = apply_layer(
                         spec, p_group[i], k_group.get(str(i)), x, cfg,
                         positions=positions, pad_mask=batch.get("pad_mask"),
                         update_state=False, impl=impl,
                         cache=c_group[str(i)])
+                    if st is not None:
+                        stats_g[str(i)] = st
                 groups.append(new_c)
-            return x, tree_stack(groups)
+                stats.append(stats_g)
+            return (x, tree_stack(groups),
+                    stack_stats(stats) if stats[0] else {})
 
         return PrefillStage(si, g0, g1, stage)
 
@@ -223,14 +230,23 @@ def assemble_prefill_cache(stages, chunks) -> List[Dict]:
 
 
 def prefill(params, kstate, cache, batch, cfg: ModelConfig,
-            impl: Optional[str] = None):
+            impl: Optional[str] = None, return_stats: bool = False):
     """Forward over the prompt ``batch["tokens"]`` (B,N), returning
-    (logits (B,N,V), filled cache)."""
+    (logits (B,N,V), filled cache). ``return_stats`` adds a third element:
+    the routing-health stats of the prompt's forward (with
+    ``RoutingConfig.stats`` on), a list over segments of {layer:
+    obs.RoutingStats} with leaves stacked over groups, the structure the
+    train stack returns."""
     embed_stage, stages, head_stage = make_prefill_stages(cfg, impl=impl)
     with torch.no_grad():
         x, positions = embed_stage(params, batch)
-    new_cache = []
-    for st in stages:
-        x, nc = st.fn(params, kstate, cache[st.si], x, positions, batch)
+    new_cache, seg_stats = [], []
+    for st in stages:                   # one whole-segment stage each
+        x, nc, st_g = st.fn(params, kstate, cache[st.si], x, positions,
+                            batch)
         new_cache.append(nc)
-    return head_stage(params, x), new_cache
+        seg_stats.append(st_g)
+    logits = head_stage(params, x)
+    if return_stats:
+        return logits, new_cache, seg_stats
+    return logits, new_cache

@@ -25,6 +25,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.model import (apply_model, init_model, lm_loss,
                                       next_token_batch)
 from repro_torch.models.transformer import build_segments, fold_seed
+from repro_torch.obs import routing_stats as obs_rt
+from repro_torch.obs.trace import span
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -60,11 +62,18 @@ def make_loss_fn(run: RunConfig, impl: Optional[str] = None):
 
     def loss_fn(params, kstate, batch, drop_seed):
         inputs, targets = next_token_batch(batch)
-        logits, new_k = apply_model(params, kstate, inputs, mc, impl=impl,
-                                    remat=tc.remat, drop_seed=drop_seed)
+        logits, new_k, rstats = apply_model(
+            params, kstate, inputs, mc, impl=impl, remat=tc.remat,
+            drop_seed=drop_seed, return_stats=True)
         loss, metrics = lm_loss(logits, targets, inputs.get("pad_mask"),
                                 tc.z_loss)
         metrics = dict(metrics)
+        if rstats is not None:
+            # routing-health stats (RoutingConfig.stats): model-wide
+            # scalars ("routing/entropy", ...) and per-layer detail
+            # ("rt/{seg}/{layer}/{field}", leading (G,) group axis)
+            metrics.update(obs_rt.summarize(rstats))
+            metrics.update(obs_rt.flatten(rstats))
         metrics["loss"] = loss.detach()
         return loss, (new_k, metrics)
 
@@ -136,7 +145,7 @@ def make_grad_fn(run: RunConfig, loss_fn):
     the batch is cut into ``grad_accum`` consecutive row blocks, each
     microbatch starts from the centroids the previous one left, grads sum
     in ``accum_dtype`` and are divided by the count, and the metrics are
-    the microbatch means. Every microbatch gets the same dropout seed, as
+    the microbatch means (the per-layer stats tensors elementwise). Every microbatch gets the same dropout seed, as
     in the JAX package."""
     tc = run.train
     vg = value_and_grad(loss_fn, run.model)
@@ -172,9 +181,10 @@ def make_grad_fn(run: RunConfig, loss_fn):
 def _finish_step(tc, schedule, opt_update, ts: TrainState, grads, new_k,
                  metrics):
     """Shared tail: clip, lr, optimizer update, state assembly."""
-    grads, gn = clip_by_global_norm(grads, tc.grad_clip)
-    lr = schedule(ts.step + 1)
-    new_params, new_opt = opt_update(grads, ts.opt_state, ts.params, lr)
+    with span("train/optimizer"):
+        grads, gn = clip_by_global_norm(grads, tc.grad_clip)
+        lr = schedule(ts.step + 1)
+        new_params, new_opt = opt_update(grads, ts.opt_state, ts.params, lr)
     metrics["grad_norm"] = gn
     metrics["lr"] = lr
     return TrainState(new_params, new_k, new_opt, ts.step + 1), metrics
@@ -188,7 +198,11 @@ def _drop_seed(run: RunConfig, step: int) -> Optional[int]:
 
 def make_train_step(run: RunConfig, impl: Optional[str] = None):
     """``train_step(ts, batch) -> (new_ts, metrics)``; the metrics are
-    0-d tensors (``lr`` a float) and are not synchronized with the host.
+    0-d tensors (``lr`` a float; with ``RoutingConfig.stats`` also the
+    ``routing/*`` scalars and the per-layer ``rt/*`` (G, H) tensors) and
+    are not synchronized with the host. The loss and backward run under
+    the span ``train/grad``, the clip and optimizer update under
+    ``train/optimizer``.
     ``impl`` forces an attention backend (``"torch"``: the plain path);
     by default CUDA tensors take the kernels."""
     _require_uncompressed(run)
@@ -199,8 +213,9 @@ def make_train_step(run: RunConfig, impl: Optional[str] = None):
     grad_fn = make_grad_fn(run, loss_fn)
 
     def train_step(ts: TrainState, batch: Dict[str, torch.Tensor]):
-        grads, new_k, metrics = grad_fn(ts.params, ts.kstate, batch,
-                                        _drop_seed(run, ts.step))
+        with span("train/grad"):
+            grads, new_k, metrics = grad_fn(ts.params, ts.kstate, batch,
+                                            _drop_seed(run, ts.step))
         return _finish_step(tc, schedule, opt_update, ts, grads, new_k,
                             metrics)
 

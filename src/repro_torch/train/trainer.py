@@ -1,6 +1,6 @@
 """Training loop of the port (port of the JAX package's
-``train/trainer.py`` on one device: no mesh, no shardings, no checkpoints,
-no obs sink yet).
+``train/trainer.py`` on one device: no mesh, no shardings, no checkpoints
+yet).
 
 * SIGTERM/SIGINT (a preemption notice) set a flag; the loop ends after
   the step in flight. The handlers are installed for `fit` (from the main
@@ -8,7 +8,10 @@ no obs sink yet).
 * Straggler watch: per-step wall times feed a rolling median; steps slower
   than ``straggler_factor`` x median increment a counter and call
   ``on_straggler(step, ratio)``.
-* ``metrics_history`` is a plain list of per-step host metric dicts.
+* ``metrics_history`` is a plain list of per-step host metric dicts,
+  kept by an obs ``StepSeries``; ``obs_jsonl`` tees every step into a
+  JSONL sink (``train_step`` records, source ``trainer``), and
+  ``self.obs`` holds the ``train/step_time_s`` histogram.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.synthetic import SyntheticLoader
+from repro_torch.obs import JsonlSink, Registry, StepSeries
+from repro_torch.obs.metrics import _host
 from repro_torch.train.train_step import (TrainState, init_train_state,
                                           make_train_step)
 
@@ -32,10 +37,12 @@ class Trainer:
                  ckpt_dir: Optional[str] = None,
                  straggler_factor: float = 2.5,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
-                 step_fn=None, device="cuda"):
+                 step_fn=None, device="cuda",
+                 obs_jsonl: Optional[str] = None):
         if ckpt_dir is not None:
             raise NotImplementedError(
-                "the port has no checkpoints yet; pass ckpt_dir=None")
+                "the port has no checkpoints yet (ROADMAP.md item 10); pass "
+                "ckpt_dir=None")
         self.device = resolve_device(device)
         self.run = run
         self.loader = loader
@@ -46,7 +53,20 @@ class Trainer:
         self._preempted = False
         self.step_fn = step_fn or make_train_step(run)
         self.state: Optional[TrainState] = None
-        self.metrics_history: List[Dict[str, Any]] = []
+        self.obs = Registry()
+        self._sink = (JsonlSink(obs_jsonl, source="trainer")
+                      if obs_jsonl else None)
+        self._series = StepSeries(sink=self._sink, kind="train_step")
+
+    @property
+    def metrics_history(self) -> List[Dict[str, Any]]:
+        """Per-step host metric dicts (the obs StepSeries' history)."""
+        return self._series.history
+
+    def close(self) -> None:
+        """Close the JSONL sink (its records are flushed line by line)."""
+        if self._sink is not None:
+            self._sink.close()
 
     def init_or_restore(self) -> TrainState:
         """A fresh state from ``run.train.seed`` (nothing to restore until
@@ -87,11 +107,12 @@ class Trainer:
                 self.state, metrics = self.step_fn(self.state, batch)
                 # the host copy of the metrics waits for the step's device
                 # work, so step_time_s covers compute, not only dispatch
-                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics = {k: _host(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 self._watch_stragglers(self.state.step, dt)
                 metrics["step_time_s"] = dt
-                self.metrics_history.append(metrics)
+                self.obs.histogram("train/step_time_s").record(dt)
+                self._series.record(self.state.step, metrics)
         finally:
             for s, h in previous.items():
                 signal.signal(s, h)

@@ -22,7 +22,8 @@
   unchunked bit for bit.
 * EOS, the token budget, submit validation, the SessionHandle lifecycle,
   the default device and the NotImplementedError of each unported knob
-  (export and import are tested in `test_torch_disagg.py`).
+  (export and import are tested in `test_torch_disagg.py`, the
+  observability knobs in `test_torch_obs_engine.py`).
 """
 import dataclasses
 
@@ -535,12 +536,11 @@ def test_prefill_only_parks_after_the_first_token(model):
     assert not eng.has_work()
 
 
-@pytest.mark.parametrize("knob", ["mesh", "obs_jsonl", "routing_stats"])
+@pytest.mark.parametrize("knob", ["mesh"])
 def test_unported_engine_knobs_raise(model, knob):
-    item = {"mesh": 10, "obs_jsonl": 9, "routing_stats": 9}[knob]
+    item = {"mesh": 10}[knob]
     match = f"ROADMAP.md item {item}"
-    value = {"mesh": object(), "obs_jsonl": "engine.jsonl",
-             "routing_stats": True}[knob]
+    value = {"mesh": object()}[knob]
     with pytest.raises(NotImplementedError, match=match):
         _engine(model, max_slots=1, **{knob: value})
 

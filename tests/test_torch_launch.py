@@ -7,7 +7,8 @@
   and ``loss a -> b`` line, and returns `Trainer.fit`'s result with a
   finite loss;
 * each flag whose subsystem is not ported raises when set, naming its
-  ROADMAP item;
+  ROADMAP item (the observability flags are held in
+  `test_torch_obs.py`);
 * without ``--device``, on a host with no card, it raises instead of
   running on the CPU.
 """
@@ -63,8 +64,7 @@ def test_reduced_qwen2_trains_on_cpu_and_prints_the_jax_lines(capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "2x4"], ["--ckpt-dir", "ckpt"], ["--seq-parallel"],
-    ["--grad-compression", "int8_ef"], ["--obs-jsonl", "obs.jsonl"],
-    ["--routing-stats"], ["--profile-dir", "prof"],
+    ["--grad-compression", "int8_ef"],
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--process-id", "0"]], ids=lambda f: f[0])
 def test_unported_flag_raises(flag):
