@@ -216,6 +216,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
    lines, exact launches, and a Chrome trace naming ``train/grad``,
    ``train/optimizer``, ``kernels/local_attention`` and
    ``kernels/routed_attention_fused``;
+   then (slice 18) ``ckpt_dist``: checkpoints, the int8 error-feedback
+   gradient exchange and the data-parallel step, on full-width rt-enwik8
+   (bf16, B 2 x 8192, the TrainConfig defaults, checkpoints of 1.5 GB in a
+   temporary directory, removed afterwards). (a) `Trainer.fit` of 4 steps
+   checkpointed every 2 against fit(2) and a fresh Trainer's fit(4) on
+   the same directory; (b) a SIGTERM at the end of step 2 from a
+   step-function wrapper: the fit returns preempted with a synchronous
+   checkpoint at step 2 only, and a fresh Trainer finishes; both equal the
+   uninterrupted run bit for bit (a digest of every parameter, optimizer
+   and centroid leaf; the step, the loader's cursor, the losses of steps
+   3-4), with exact launches per fit; (c) ``int8_ef`` at D = 1 with no
+   process group: 2 steps equal the uncompressed Trainer's to the bit,
+   every residual zero; (d) ``int8_ef`` over 2 spawned processes on the
+   card (gloo, CUDA tensors staged through the host, B 1 x 8192 each, 2
+   steps): both ranks' digests equal after each step, on step 1 every
+   compressed leaf's applied mean within 0.02 of the exact fp32 mean
+   (over its largest value; an extra all-reduce after the step) and every
+   residual within half a hop-1 plus n halves of a hop-2 quantization
+   step, exact launches in each process, the wire bytes per rank; (e) the
+   launcher (``ckpt_launch``, qwen2-0.5b as in 6) with ``--ckpt-dir`` for 2
+   steps, then 4: steps 3-4's losses equal an uninterrupted 4-step run's,
+   and ``--grad-compression int8_ef`` at D = 1 equals the uncompressed
+   run's losses; (d)'s processes run while (e) runs;
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -446,6 +469,21 @@ OBS_COLLAPSE_ENTROPY = 0.05
 # the spans the train step and the kernel wrappers open (slice 17): the
 # profiler lists each as a device event holding the device time beneath it
 PORT_SPANS = ("train/", "kernels/")
+# slice 18: checkpoints and the data-parallel step on rt-enwik8's train
+# shape. (a) an uninterrupted Trainer.fit of CKPT_STEPS checkpointed every
+# CKPT_EVERY steps against one stopped at CKPT_STOP and resumed; (b) a
+# SIGTERM at the end of step CKPT_STOP; (c) int8_ef at D = 1 for CKPT_STOP
+# steps; (d) int8_ef over DIST_RANKS processes on the one card (gloo,
+# DIST_ROWS rows each) for DIST_STEPS steps; (e) the launcher with
+# --ckpt-dir for CKPT_STOP, then CKPT_STEPS steps
+CKPT_STEPS, CKPT_STOP, CKPT_EVERY = 4, 2, 2
+DIST_RANKS, DIST_ROWS, DIST_STEPS = 2, 1, 2
+DIST_TIMEOUT_S = 600
+# the JAX package's bound on the int8 mean (tests/test_dist.py): largest
+# difference from the exact fp32 mean over the exact mean's largest value
+DIST_MEAN_REL_TOL = 0.02
+# fp32 rounding of q * scale beside the half-step bound on a residual
+DIST_RESIDUAL_SLACK = 1e-4
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -587,15 +625,18 @@ _PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
 # ("serve_engine"), and since slice 16 under its disaggregated prefill and
 # decode pools ("serve_disagg"); since slice 17 rt-enwik8's train step,
 # a forward, the engine and the launcher run them with the routing-health
-# stats and the obs layer on ("obs")
+# stats and the obs layer on ("obs"); since slice 18 its Trainer resumes
+# from checkpoints and its steps exchange int8 gradients, in this process
+# and in DIST_RANKS spawned ones ("ckpt_dist"), and the launcher resumes
+# qwen2-0.5b from its checkpoints ("ckpt_launch")
 _SERVE_PAPER = tuple(SERVE_PAPER)
 _ENGINE = ("serve_engine", "serve_disagg", "obs")
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
               "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER,
-              *_ENGINE)
+              *_ENGINE, "ckpt_dist")
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
-              *_PAPER, "obs")
-_FLASH = ("train_full", "launch")
+              *_PAPER, "obs", "ckpt_dist")
+_FLASH = ("train_full", "launch", "ckpt_launch")
 _GATHERED = ("train_gathered", "fit_gathered")
 KERNELS = {
     "local_attention": dict(
@@ -607,7 +648,8 @@ KERNELS = {
         replaces="src/repro/kernels/routing_attention.py:325",
         kind="forward", layers="routing",
         paths=("serve", "train", "serve_cifar", "train_cifar",
-               "serve_routing", *_PAPER, *_SERVE_PAPER, *_ENGINE)),
+               "serve_routing", *_PAPER, *_SERVE_PAPER, *_ENGINE,
+               "ckpt_dist")),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
@@ -626,12 +668,12 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:372",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER, "obs")),
+        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist")),
     "routing_fused_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:411",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER, "obs")),
+        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist")),
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:47",
@@ -4256,6 +4298,434 @@ def obs_phase(torch, card, counts) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Since slice 18: checkpoints, the int8 error-feedback exchange and the
+# data-parallel step on the card
+# ---------------------------------------------------------------------------
+def state_digest(ts) -> str:
+    """sha256 over the bytes of every parameter, optimizer and centroid
+    leaf, in checkpoint-key order."""
+    import hashlib
+    from repro_torch.ckpt.checkpoint import _flatten, to_host
+    h = hashlib.sha256()
+    for key, leaf in _flatten((ts.params, ts.opt_state, ts.kstate)):
+        h.update(key.encode())
+        h.update(to_host(leaf).tobytes())
+    return h.hexdigest()
+
+
+def timed_manager(mgr, log: list):
+    """Record each ``save`` (blocking or not; the seconds waiting for the
+    writer still in flight, then the save's own; whether it committed a
+    new step) and ``restore`` of ``mgr`` into ``log``."""
+    save, restore = mgr.save, mgr.restore
+
+    def timed_save(step, state, extra=None, blocking=True):
+        t0 = time.perf_counter()
+        mgr.wait()
+        t1 = time.perf_counter()
+        new = int(step) not in mgr.all_steps()
+        save(step, state, extra, blocking)
+        log.append(dict(op="save" if blocking else "save_async", step=step,
+                        new=new, wait_s=t1 - t0,
+                        s=time.perf_counter() - t1))
+
+    def timed_restore(state_like, step=None):
+        t0 = time.perf_counter()
+        out = restore(state_like, step)
+        log.append(dict(op="restore", s=time.perf_counter() - t0))
+        return out
+    mgr.save, mgr.restore = timed_save, timed_restore
+    return mgr
+
+
+def ckpt_trainer(torch, run, ckpt_dir, log, **kw):
+    """A Trainer of ``run`` on the markov task (min(V, 512) tokens, as the
+    launcher) over ``ckpt_dir``, its manager timed into ``log``."""
+    from repro_torch.data.synthetic import SyntheticLoader
+    from repro_torch.train.trainer import Trainer
+    tc = run.train
+    tr = Trainer(run, SyntheticLoader("markov", min(run.model.vocab_size,
+                                                    FULL_VOCAB),
+                                      tc.global_batch, tc.seq_len,
+                                      seed=tc.seed),
+                 ckpt_dir=str(ckpt_dir), device=DEVICE, **kw)
+    timed_manager(tr.mgr, log)
+    return tr
+
+
+def fit_counted(torch, tr, steps, counts, path, what):
+    """``tr.fit(steps)`` with the exact launches of the steps it ran."""
+    ran = len(tr.metrics_history)
+    before = counts()
+    out = tr.fit(steps)
+    torch.cuda.synchronize()
+    got = {n: counts()[n] - before[n] for n in before}
+    check_launches(f"{path} {what}", got, expected_launches(
+        path, tr.run, len(tr.metrics_history) - ran))
+    return out
+
+
+def losses_of(tr) -> list:
+    return [m["loss"] for m in tr.metrics_history]
+
+
+def ckpt_restart(torch, run, tmp, counts, log) -> tuple:
+    """(a) Trainer.fit(CKPT_STEPS) checkpointed every CKPT_EVERY steps,
+    against fit(CKPT_STOP) and a fresh Trainer's fit(CKPT_STEPS) on the
+    same directory; (b) a SIGTERM at the end of step CKPT_STOP, then a
+    fresh Trainer finishing. Every parameter, optimizer and centroid leaf,
+    the step, the loader's cursor and the losses after the stop equal the
+    uninterrupted run's bit for bit."""
+    import os
+    import signal
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    full = ckpt_trainer(torch, run, tmp / "full", log, ckpt_every=CKPT_EVERY)
+    fit_counted(torch, full, CKPT_STEPS, counts, "ckpt_dist", "full")
+    stop = ckpt_trainer(torch, run, tmp / "stop", log, ckpt_every=CKPT_EVERY)
+    fit_counted(torch, stop, CKPT_STOP, counts, "ckpt_dist", "stop")
+    stopped = stop.state
+    del stop
+    torch.cuda.empty_cache()
+    res = ckpt_trainer(torch, run, tmp / "stop", log, ckpt_every=CKPT_EVERY)
+    fit_counted(torch, res, CKPT_STEPS, counts, "ckpt_dist", "resume")
+    want = (state_digest(full.state), full.state.step, full.loader.step,
+            losses_of(full)[CKPT_STOP:])
+    row = dict(losses=losses_of(full), resumed_losses=losses_of(res),
+               digest=want[0], steps=full.state.step,
+               checkpoints=CheckpointManager(str(tmp / "full")).all_steps())
+    got = (state_digest(res.state), res.state.step, res.loader.step,
+           losses_of(res))
+    if got != want:
+        raise AssertionError(f"ckpt_dist restart: {got} != {want}")
+    step_dir = tmp / "full" / f"step_{CKPT_STEPS:08d}"
+    row["ckpt_bytes"] = (step_dir / "arrays.npz").stat().st_size
+    del res
+    torch.cuda.empty_cache()
+
+    pre = ckpt_trainer(torch, run, tmp / "pre", log, ckpt_every=10 ** 9)
+    inner, calls = pre.step_fn, []
+
+    def step_then_sigterm(state, batch):
+        out = inner(state, batch)
+        calls.append(1)
+        if len(calls) == CKPT_STOP:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+    pre.step_fn = step_then_sigterm
+    out = fit_counted(torch, pre, CKPT_STEPS, counts, "ckpt_dist",
+                      "preempted")
+    steps = pre.mgr.all_steps()
+    del pre
+    torch.cuda.empty_cache()
+    fin = ckpt_trainer(torch, run, tmp / "pre", log, ckpt_every=10 ** 9)
+    fit_counted(torch, fin, CKPT_STEPS, counts, "ckpt_dist", "finished")
+    got = (state_digest(fin.state), fin.state.step, fin.loader.step,
+           losses_of(fin))
+    row["preempted"] = dict(preempted=out["preempted"], steps=out["steps"],
+                            checkpoints=steps, resumed_losses=losses_of(fin))
+    if (not out["preempted"] or out["steps"] != CKPT_STOP
+            or steps != [CKPT_STOP] or got != want):
+        raise AssertionError(f"ckpt_dist preemption: {row['preempted']}, "
+                             f"{got} != {want}")
+    del fin, full
+    torch.cuda.empty_cache()
+    return row, stopped
+
+
+def ckpt_d1(torch, run, stopped, counts) -> dict:
+    """(c) int8_ef at D = 1 with no process group: CKPT_STOP steps from
+    the fresh state equal the uncompressed Trainer's first CKPT_STOP
+    (``stopped``) bit for bit, every residual zero."""
+    from dataclasses import replace
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    run_c = replace(run, train=replace(run.train, grad_compression="int8_ef"))
+    tc = run.train
+    ts = init_train_state(run_c, seed=tc.seed, device=DEVICE)
+    step = make_train_step(run_c)
+    batches = train_batches(torch, min(run.model.vocab_size, FULL_VOCAB),
+                            tc.global_batch, tc.seq_len, CKPT_STOP)
+    before = counts()
+    losses = []
+    for b in batches:
+        ts, m = step(ts, b)
+        losses.append(float(m["loss"]))
+    got = {n: counts()[n] - before[n] for n in before}
+    check_launches("ckpt_dist int8_ef D=1", got,
+                   expected_launches("ckpt_dist", run_c, CKPT_STOP))
+    nonzero = sum(int(e.count_nonzero()) for e in tree_leaves(ts.ef_state))
+    row = dict(losses=losses, residual_nonzero=nonzero,
+               equal=state_digest(ts) == state_digest(stopped))
+    if not row["equal"] or nonzero:
+        raise AssertionError(f"ckpt_dist int8_ef at D = 1: {row}")
+    return row
+
+
+def dist_rank(rank: int, world: int, coordinator: str, out: str) -> None:
+    """(d), one rank: full-width rt-enwik8 in bf16, DIST_ROWS rows of the
+    global batch, int8_ef over a gloo group on the one card, DIST_STEPS
+    steps. Writes to ``out``: each step's loss, wall and state digest, the
+    launches, the wire bytes of each step and, for step 1, each compressed
+    leaf's applied mean against the exact fp32 mean (one extra all-reduce,
+    after the step) and its residual against half a hop-1 step plus n
+    halves of a hop-2 step, from the scales that step used."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.dist import compression as comp
+    # every wrapper's counter exists before the counts are read
+    from repro_torch.kernels import (common, flash_attention,  # noqa: F401
+                                     local_attention, routing_attention,
+                                     routing_decode, routing_gathered)
+    from repro_torch.launch import distributed
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(distributed.LaunchSpec(coordinator, world, rank),
+                           device=DEVICE, backend="gloo")
+    cfg = get_config(ARCH)
+    run = train_run_config(cfg, batch=world * DIST_ROWS)
+    run = replace(run, train=replace(run.train, grad_compression="int8_ef"))
+    ts = init_train_state(run, seed=run.train.seed, device=DEVICE)
+    step = make_train_step(run)
+    batches = train_batches(torch, cfg.vocab_size, run.train.global_batch,
+                            run.train.seq_len, DIST_STEPS)
+    records, scales = [], []
+    quantize, ef_mean = comp._quantize, comp.int8_ef_psum_mean
+
+    def recording_quantize(x, group=comp.QUANT_GROUP):
+        q, s = quantize(x, group)
+        scales.append(s)
+        return q, s
+
+    def recording_ef_mean(x, err, group=None):
+        scales.clear()
+        mean, new_err = ef_mean(x, err, group)
+        records.append(dict(x=x.float().clone(), mean=mean,
+                            new_err=new_err, s1=scales[0], s2=scales[1]))
+        return mean, new_err
+
+    res = dict(rank=rank, losses=[], wall_ms=[], digests=[], wire=[])
+    common.reset_counters()
+    for i, b in enumerate(batches):
+        if i == 0:
+            comp._quantize, comp.int8_ef_psum_mean = (recording_quantize,
+                                                      recording_ef_mean)
+        comp.reset_wire_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = step(ts, b)
+        res["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["wire"].append(comp.wire_bytes())
+        comp._quantize, comp.int8_ef_psum_mean = quantize, ef_mean
+        res["digests"].append(state_digest(ts))
+        if i == 0:
+            res.update(dist_exchange_check(torch, comp, records, world,
+                                           rank))
+            records.clear()
+    res["launches"] = common.counters()
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.distributed.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def dist_exchange_check(torch, comp, records, n, j) -> dict:
+    """Step 1's compressed leaves: the applied mean against the exact fp32
+    mean of the ranks' gradients (largest difference over the exact
+    mean's largest value), and every residual element against half a
+    hop-1 quantization step plus n halves of a hop-2 step."""
+    g = comp.QUANT_GROUP
+    worst, over, elements = 0.0, 0, 0
+    for r in records:
+        exact = comp.all_mean(r["x"]).flatten()
+        worst = max(worst, float((r["mean"].float().flatten() - exact)
+                                 .abs().max() / exact.abs().max()))
+        bound = (r["s1"] / 2).repeat_interleave(g, dim=1)
+        bound[j] += n * (r["s2"] / 2).repeat_interleave(g)
+        bound = bound.flatten()[:exact.numel()] * (1 + DIST_RESIDUAL_SLACK)
+        over += int((r["new_err"].flatten().abs() > bound).sum())
+        elements += exact.numel()
+    return dict(compressed_leaves=len(records), compressed_elements=elements,
+                mean_rel_err=worst, residual_over_bound=over)
+
+
+def start_dist_ranks(tmp) -> list:
+    """Start DIST_RANKS processes of `dist_rank` on the one card, each
+    logging to ``tmp/rank{r}.log``."""
+    import os
+    import socket
+    import subprocess
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    procs = []
+    for r in range(DIST_RANKS):
+        with open(tmp / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.dist_rank({r}, "
+                 f"{DIST_RANKS}, {coordinator!r}, "
+                 f"{str(tmp / f'rank{r}.json')!r})"],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ)))
+    return procs
+
+
+def stop_dist_ranks(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+
+
+def finish_dist_ranks(procs, run, tmp, t0) -> dict:
+    """(d) Wait for the ranks: every rank's state digest equal after each
+    step, the applied mean within DIST_MEAN_REL_TOL of the exact one and
+    no residual over its bound on step 1, exact launches in each
+    process."""
+    codes = [p.wait(timeout=max(1.0, DIST_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+             for p in procs]
+    wall = time.perf_counter() - t0
+    if codes != [0] * DIST_RANKS:
+        tails = "\n".join((tmp / f"rank{r}.log").read_text()[-4000:]
+                          for r in range(DIST_RANKS))
+        raise AssertionError(f"ckpt_dist ranks exited with {codes}:\n{tails}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    want = expected_launches("ckpt_dist", run, DIST_STEPS)
+    for r in ranks:
+        check_launches(f"ckpt_dist rank {r['rank']}", r["launches"], want)
+    row = dict(ranks=ranks, wall_s=wall,
+               digests_equal=all(r["digests"] == ranks[0]["digests"]
+                                 for r in ranks))
+    bad = [r["rank"] for r in ranks
+           if not (r["mean_rel_err"] < DIST_MEAN_REL_TOL
+                   and r["residual_over_bound"] == 0
+                   and all(map(math.isfinite, r["losses"])))]
+    if not row["digests_equal"] or bad:
+        raise AssertionError(f"ckpt_dist D = {DIST_RANKS}: {row}")
+    return row
+
+
+def ckpt_launch(torch, counts, tmp) -> dict:
+    """(e) The launcher (LAUNCH_ARGV: qwen2-0.5b in fp32, B 8 x 256) with
+    --ckpt-dir for CKPT_STOP steps, then again for CKPT_STEPS: the resumed
+    steps' losses equal an uninterrupted CKPT_STEPS-step run's; then
+    --grad-compression int8_ef at D = 1, whose losses equal the
+    uncompressed run's. Losses are read from --obs-jsonl records."""
+    from repro_torch.configs import get_config, with_overrides
+    from repro_torch.launch import train as launcher
+    args = launcher.parser().parse_args(LAUNCH_ARGV)
+    run = full_run_config(with_overrides(get_config(args.arch),
+                                         dtype="float32"),
+                          args.batch, args.seq)
+
+    def run_launcher(name, steps, *extra):
+        path = tmp / f"{name}.jsonl"
+        argv = LAUNCH_ARGV + ["--steps", str(steps), "--obs-jsonl",
+                              str(path), *extra]
+        before = counts()
+        t0 = time.perf_counter()
+        out = launcher.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: counts()[n] - before[n] for n in before}
+        losses = [json.loads(ln)["metrics"]["loss"] for ln in open(path)]
+        check_launches(f"ckpt_launch {name}", got, expected_launches(
+            "ckpt_launch", run, len(losses)))
+        return dict(argv=argv[:len(LAUNCH_ARGV) + 2] + list(extra[:1]),
+                    wall_s=wall, losses=losses, steps=out["steps"])
+
+    ckpt = str(tmp / "launch_ckpt")
+    rows = dict(stop=run_launcher("stop", CKPT_STOP, "--ckpt-dir", ckpt),
+                resume=run_launcher("resume", CKPT_STEPS, "--ckpt-dir", ckpt),
+                full=run_launcher("full", CKPT_STEPS),
+                int8_ef=run_launcher("int8_ef", args.steps,
+                                     "--grad-compression", "int8_ef"))
+    full = rows["full"]["losses"]
+    ok = (rows["resume"]["losses"] == full[CKPT_STOP:]
+          and rows["stop"]["losses"] == full[:CKPT_STOP]
+          and rows["int8_ef"]["losses"] == full[:args.steps]
+          and rows["resume"]["steps"] == CKPT_STEPS)
+    if not ok:
+        raise AssertionError(f"ckpt_launch: {rows}")
+    return rows
+
+
+def ckpt_dist_phase(torch, card, counts) -> tuple:
+    """The `ckpt_dist` path: (a) restart and (b) preemption
+    (`ckpt_restart`), (c) int8_ef at D = 1 (`ckpt_d1`) on full-width
+    rt-enwik8 (bf16, B 2 x 8192, the TrainConfig defaults, random weights
+    from seed 0), (d) int8_ef at D = DIST_RANKS (`start_dist_ranks`,
+    `finish_dist_ranks`), then
+    the `ckpt_launch` path: (e) the launcher (`ckpt_launch`), run while
+    (d)'s processes run. Checkpoints go to a temporary directory, removed
+    afterwards. Returns the row and the launches of both paths."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (flash_attention, local_attention,  # noqa: F401
+                                     routing_attention, routing_decode,
+                                     routing_gathered)
+    cfg = get_config(ARCH)
+    run = train_run_config(cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    log = []
+    try:
+        t0 = time.perf_counter()
+        free = shutil.disk_usage(tmp).free
+        before = counts()
+        row, stopped = ckpt_restart(torch, run, tmp, counts, log)
+        print(f"ckpt_dist restart [{card}] {json.dumps(row)}", flush=True)
+        shutil.rmtree(tmp / "full")
+        shutil.rmtree(tmp / "stop")
+        shutil.rmtree(tmp / "pre")
+        row["d1"] = ckpt_d1(torch, run, stopped, counts)
+        del stopped
+        torch.cuda.empty_cache()
+        print(f"ckpt_dist int8_ef D=1 {json.dumps(row['d1'])}", flush=True)
+        launches = {n: counts()[n] - before[n] for n in before}
+        # (d)'s ranks run while (e), mostly the host writing and reading
+        # qwen2's checkpoints, runs here
+        t_dist = time.perf_counter()
+        procs = start_dist_ranks(tmp)
+        try:
+            before = counts()
+            row["launch"] = ckpt_launch(torch, counts, tmp)
+            launch_launches = {n: counts()[n] - before[n] for n in before}
+            row["dist"] = finish_dist_ranks(procs, run, tmp, t_dist)
+        finally:
+            stop_dist_ranks(procs)
+        for r in row["dist"]["ranks"]:
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        print(f"ckpt_dist D={DIST_RANKS} [{card}] "
+              f"{json.dumps(row['dist'])}", flush=True)
+        print(f"ckpt_launch {json.dumps(row['launch'])}", flush=True)
+        row.update(card=card, seconds=time.perf_counter() - t0,
+                   disk_free_gib=free / 2 ** 30, manager=log)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    saves = [e["s"] for e in log if e["op"] == "save" and e["new"]]
+    asyncs = [e["s"] for e in log if e["op"] == "save_async" and e["new"]]
+    waits = [e["wait_s"] for e in log if e["op"] == "save_async"]
+    restores = [e["s"] for e in log if e["op"] == "restore"]
+    summary = dict(
+        seconds=row["seconds"], ckpt_bytes=row["ckpt_bytes"],
+        blocking_save_s=saves, async_save_caller_s=asyncs,
+        async_wait_for_previous_writer_s=waits, restore_s=restores,
+        dist_wall_ms_per_step=[r["wall_ms"] for r in row["dist"]["ranks"]],
+        dist_wire_bytes=[r["wire"] for r in row["dist"]["ranks"]],
+        dist_mean_rel_err=[r["mean_rel_err"] for r in row["dist"]["ranks"]])
+    print(f"ckpt_dist summary [{card}] {json.dumps(summary)}", flush=True)
+    row["summary"] = summary
+    return row, launches, launch_launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -4668,6 +5138,14 @@ def main(argv=None) -> int:
     launches["obs"] = common.counters()
     t = phase("obs", t)
 
+    # since slice 18: checkpoints (restart and preemption bit for bit), the
+    # int8 error-feedback exchange at D = 1 and over DIST_RANKS processes on
+    # the card, and the launcher resuming from its checkpoints
+    common.reset_counters()
+    ckpt_row, launches["ckpt_dist"], launches["ckpt_launch"] = \
+        ckpt_dist_phase(torch, card, common.counters)
+    t = phase("ckpt_dist", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -4712,7 +5190,7 @@ def main(argv=None) -> int:
             paper=paper_rows, paper_decode=paper_decode_rows,
             decode_digest=dec_digest, serve_paper=serve_rows,
             serve_engine=engine_row, serve_disagg=disagg_row, obs=obs_row,
-            launches=launches, profile=prof), indent=1))
+            ckpt_dist=ckpt_row, launches=launches, profile=prof), indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

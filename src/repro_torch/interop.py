@@ -9,7 +9,9 @@ leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) go
 through a 16-bit integer view. `tree_to_numpy` goes the other way, with
 bfloat16 widened to float32. `opt_state_from_jax` and `train_state_from_jax`
 carry an Adam or an Adafactor state and a whole JAX ``TrainState`` across,
-so the port can continue a JAX training run mid-trajectory.
+so the port can continue a JAX training run mid-trajectory; its int8
+error-feedback residuals ((D, *shape) fp32 leaves) come across as this
+rank's row.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist import compression as comp
 from repro_torch.train.train_step import TrainState
 from repro_torch.tree import tree_map
 
@@ -65,12 +68,31 @@ def opt_state_from_jax(opt_state: Any, device="cpu") -> Any:
             "count": count}
 
 
+def ef_state_from_jax(ef_state: Any, device="cpu") -> Any:
+    """The JAX package's residuals ((D, *shape) fp32 numpy leaves, row i
+    device i's) -> the port's: this rank's row (1, *shape) when the default
+    process group has D ranks, every row with no group (at D = 1 its only
+    row; at D > 1 the port's step refuses the state)."""
+    n, r = comp.world_size(), comp.rank()
+
+    def row(x):
+        t = _leaf_to_torch(x, device).float()
+        if n == 1:
+            return t
+        if t.shape[0] != n:
+            raise ValueError(f"residual of {t.shape[0]} rows for {n} ranks")
+        return t[r:r + 1].clone()
+    return tree_map(row, ef_state)
+
+
 def train_state_from_jax(ts: Any, device="cpu"):
-    """A JAX ``TrainState`` (numpy leaves; no int8_ef residual) -> the
-    port's ``TrainState``, so a test can continue a JAX run."""
-    if getattr(ts, "ef_state", None) is not None:
-        raise NotImplementedError("int8_ef residuals are not ported")
+    """A JAX ``TrainState`` (numpy leaves) -> the port's ``TrainState``
+    (residuals by `ef_state_from_jax`), so the port can continue a JAX
+    run."""
+    ef = getattr(ts, "ef_state", None)
     return TrainState(params=params_from_jax(ts.params, device),
                       kstate=kstate_from_jax(ts.kstate, device),
                       opt_state=opt_state_from_jax(ts.opt_state, device),
-                      step=int(np.asarray(ts.step)))
+                      step=int(np.asarray(ts.step)),
+                      ef_state=None if ef is None else ef_state_from_jax(
+                          ef, device))

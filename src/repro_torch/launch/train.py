@@ -1,9 +1,17 @@
-"""Single-device training launcher of the port (counterpart of the JAX
-package's ``launch/train.py``, with its flags and defaults).
+"""Training launcher of the port (counterpart of the JAX package's
+``launch/train.py``, with its flags and defaults).
 
   PYTHONPATH=src python -m repro_torch.launch.train              # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 3 \
       --device cpu
+  # resume from (and checkpoint into) a directory; int8 error-feedback
+  # gradient exchange
+  PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir ckpt \
+      --grad-compression int8_ef
+  # two processes, data-parallel (per process; the coordinator is rank 0's
+  # rendezvous; NCCL on the card, gloo with --device cpu)
+  REPRO_COORDINATOR=localhost:29500 REPRO_NUM_PROCESSES=2 \
+      REPRO_PROCESS_ID=$RANK python -m repro_torch.launch.train
 
 The model is forced to fp32 and trained on the synthetic markov task
 (vocabulary min(V, 512)) with ``TrainConfig(lr=1e-3,
@@ -13,27 +21,23 @@ it raises. ``--obs-jsonl`` appends a ``train_step`` record per step
 (validate with ``python -m repro_torch.obs.schema``), ``--routing-stats``
 turns on the routing-health stats (``routing/*`` and ``rt/*`` metrics),
 and ``--profile-dir`` captures the whole run as a Chrome trace
-(``trace.json``). The JAX launcher's flags for meshes, checkpoints,
-sequence parallelism, gradient compression and multi-host launch are
-accepted but raise `NotImplementedError` when set: their subsystems are
-not ported yet (ROADMAP Queue 1).
+(``trace.json``). ``--mesh DxM`` is clamped to the processes as in JAX;
+the port runs the data axis only, so a model axis that stays above 1, and
+``--seq-parallel``, raise `NotImplementedError` (ROADMAP item 10).
 """
 from __future__ import annotations
 
 import argparse
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.configs.base import RunConfig, TrainConfig, with_overrides
 from repro_torch.data.synthetic import SyntheticLoader
+from repro_torch.launch import distributed
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train.trainer import Trainer
-
-_DIST = "ROADMAP Queue 1 item 10: ckpt, dist and launch"
-# flags whose subsystem is not ported -> the ROADMAP item it waits for
-_UNPORTED = {"mesh": _DIST, "ckpt_dir": _DIST, "seq_parallel": _DIST,
-             "grad_compression": _DIST, "coordinator": _DIST,
-             "num_processes": _DIST, "process_id": _DIST}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -45,10 +49,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    ap.add_argument("--mesh", default="")
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--seq-parallel", action="store_true")
-    ap.add_argument("--grad-compression", default="none")
+    ap.add_argument("--mesh", default="", help="DxM, e.g. 2x1 (default: "
+                                               "every process as data)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from the latest checkpoint here and save "
+                         "into it")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="not ported (ROADMAP item 10): raises")
+    ap.add_argument("--grad-compression", default="none",
+                    help="none or int8_ef: the error-feedback int8 "
+                         "gradient exchange (data-parallel)")
     ap.add_argument("--obs-jsonl", default=None,
                     help="append per-step metric records (schema v1 JSONL, "
                          "validated by `python -m repro_torch.obs.schema`)")
@@ -59,21 +69,32 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir", default=None,
                     help="capture a torch.profiler Chrome trace of the "
                          "whole run into this directory")
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 (or $REPRO_COORDINATOR)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="total launched processes (or $REPRO_NUM_PROCESSES)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (or $REPRO_PROCESS_ID)")
     return ap
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Parse ``argv``, train, print the JAX launcher's lines and return
-    `Trainer.fit`'s result."""
+    """Parse ``argv``, (maybe) join the process group, train, print the
+    JAX launcher's lines and return `Trainer.fit`'s result."""
     ap = parser()
     args = ap.parse_args(argv)
-    for dest, item in _UNPORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')} is not ported yet ({item})")
+    multi = distributed.initialize(coordinator=args.coordinator,
+                                   num_processes=args.num_processes,
+                                   process_id=args.process_id,
+                                   device=args.device)
+    try:
+        return _train(ap, args, multi)
+    finally:
+        if multi:
+            torch.distributed.destroy_process_group()
+
+
+def _train(ap, args, multi: bool) -> Dict[str, Any]:
     if args.arch not in ARCHS:
         ap.error(f"unknown --arch {args.arch}; choices: {sorted(ARCHS)}")
 
@@ -84,11 +105,32 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             cfg, routing=with_overrides(cfg.routing, stats=True))
     run = RunConfig(model=cfg, train=TrainConfig(
         global_batch=args.batch, seq_len=args.seq, steps=args.steps,
-        lr=1e-3, schedule="linear_warmup_rsqrt", warmup_steps=20))
+        lr=1e-3, schedule="linear_warmup_rsqrt", warmup_steps=20,
+        grad_compression=args.grad_compression))
+
+    info = distributed.process_info()
+    n = info["global_devices"]
+    d, m = ((int(x) for x in args.mesh.split("x")) if args.mesh
+            else (n, 1))
+    compressed = run.train.grad_compression == "int8_ef"
+    if compressed and m > 1:
+        ap.error("--grad-compression int8_ef is data-parallel only; "
+                 "use --mesh Dx1")
+    if compressed and args.seq_parallel:
+        ap.error("--seq-parallel needs the GSPMD path; drop it or use "
+                 "--grad-compression none")
+    if args.seq_parallel:
+        raise NotImplementedError("--seq-parallel waits for ROADMAP item 10")
+    mesh = distributed.make_process_mesh(d, m)   # clamps oversubscription
+    # every process builds the same global batches; the step takes its rows
     loader = SyntheticLoader("markov", min(cfg.vocab_size, 512),
                              args.batch, args.seq)
-    tr = Trainer(run, loader, device=args.device, obs_jsonl=args.obs_jsonl)
+    tr = Trainer(run, loader, ckpt_dir=args.ckpt_dir, device=args.device,
+                 obs_jsonl=args.obs_jsonl)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+          f"mesh=({mesh['data']}x{mesh['model']}) devices={n} "
+          f"process={info['process_index']}/{info['process_count']} "
+          f"multi_host={multi} compression={run.train.grad_compression} "
           f"device={tr.device}")
     try:
         with obs_trace.profile(args.profile_dir):

@@ -11,8 +11,15 @@ nothing accumulates in ``.grad`` and the state stays functional: the step
 returns new parameter and optimizer trees (the old ones are freed when the
 caller drops the old state).
 
-``grad_compression="int8_ef"`` raises: its data-parallel exchange belongs
-to the port's distributed slice.
+Data parallelism runs over a ``torch.distributed`` process group (one
+process per rank, `repro_torch.launch.distributed.initialize`). With
+``TrainConfig.grad_compression == "int8_ef"``, or with more than one rank,
+`make_train_step` returns the data-parallel step (the counterpart of the
+JAX package's ``shard_map`` step): every rank takes the global batch,
+differentiates its own rows, and the gradient mean goes over the wire as
+int8 with an error-feedback residual carried in ``TrainState.ef_state``
+(``int8_ef``), or as the exact fp32 mean; the optimizer update runs on
+every rank on the same mean, so the ranks stay equal bit for bit.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch.attn.spec import spec_for_layer
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.dist import compression as comp
 from repro_torch.models.model import (apply_model, init_model, lm_loss,
                                       next_token_batch)
 from repro_torch.models.transformer import build_segments, fold_seed
@@ -36,23 +44,31 @@ class TrainState(NamedTuple):
     kstate: Any
     opt_state: Any
     step: int
+    # fp32 error-feedback residuals of int8 gradient compression: a
+    # param-shaped tree of (1, *param.shape) leaves, this rank's row of the
+    # JAX package's (D, *param.shape) residual (a checkpoint holds all D
+    # rows). None when grad_compression == "none".
+    ef_state: Any = None
 
 
-def _require_uncompressed(run: RunConfig) -> None:
-    if run.train.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={run.train.grad_compression!r} needs the "
-            "data-parallel exchange of the port's distributed slice")
+def init_ef_state(params):
+    """Zero residuals, (1, *param.shape) fp32 per leaf: this rank's row."""
+    return tree_map(lambda p: torch.zeros((1, *p.shape), dtype=torch.float32,
+                                          device=p.device), params)
 
 
 def init_train_state(run: RunConfig, seed: int = 0,
                      device="cuda") -> TrainState:
     """Fresh parameters, centroids and optimizer state on ``device``
-    (default the card; raises without one unless ``device="cpu"``)."""
-    _require_uncompressed(run)
+    (default the card; raises without one unless ``device="cpu"``), and
+    zero residuals when ``grad_compression == "int8_ef"``. Each rank holds
+    only its own residual row, so the data-parallel size is not needed
+    here."""
     params, kstate = init_model(run.model, seed=seed, device=device)
     opt_init, _ = make_optimizer(run.train)
-    return TrainState(params, kstate, opt_init(params), 0)
+    ef = (init_ef_state(params)
+          if run.train.grad_compression == "int8_ef" else None)
+    return TrainState(params, kstate, opt_init(params), 0, ef)
 
 
 def make_loss_fn(run: RunConfig, impl: Optional[str] = None):
@@ -179,7 +195,7 @@ def make_grad_fn(run: RunConfig, loss_fn):
 
 
 def _finish_step(tc, schedule, opt_update, ts: TrainState, grads, new_k,
-                 metrics):
+                 metrics, new_ef):
     """Shared tail: clip, lr, optimizer update, state assembly."""
     with span("train/optimizer"):
         grads, gn = clip_by_global_norm(grads, tc.grad_clip)
@@ -187,7 +203,8 @@ def _finish_step(tc, schedule, opt_update, ts: TrainState, grads, new_k,
         new_params, new_opt = opt_update(grads, ts.opt_state, ts.params, lr)
     metrics["grad_norm"] = gn
     metrics["lr"] = lr
-    return TrainState(new_params, new_k, new_opt, ts.step + 1), metrics
+    return (TrainState(new_params, new_k, new_opt, ts.step + 1, new_ef),
+            metrics)
 
 
 def _drop_seed(run: RunConfig, step: int) -> Optional[int]:
@@ -204,8 +221,12 @@ def make_train_step(run: RunConfig, impl: Optional[str] = None):
     the span ``train/grad``, the clip and optimizer update under
     ``train/optimizer``.
     ``impl`` forces an attention backend (``"torch"``: the plain path);
-    by default CUDA tensors take the kernels."""
-    _require_uncompressed(run)
+    by default CUDA tensors take the kernels. With ``int8_ef`` compression
+    or more than one rank in the default process group, the
+    data-parallel step (`make_compressed_train_step`)."""
+    if (run.train.grad_compression == "int8_ef"
+            or comp.world_size() > 1):
+        return make_compressed_train_step(run, impl)
     tc = run.train
     loss_fn = make_loss_fn(run, impl)
     _, opt_update = make_optimizer(tc)
@@ -217,6 +238,101 @@ def make_train_step(run: RunConfig, impl: Optional[str] = None):
             grads, new_k, metrics = grad_fn(ts.params, ts.kstate, batch,
                                             _drop_seed(run, ts.step))
         return _finish_step(tc, schedule, opt_update, ts, grads, new_k,
-                            metrics)
+                            metrics, ts.ef_state)
+
+    return train_step
+
+
+def exchange_grads(grads, ef_state, group=None):
+    """The data-parallel gradient mean over ``group``'s D ranks:
+    ``(mean_grads, new_ef_state)``. With residuals (``ef_state``, leaves
+    (1, *shape)) a leaf of at least D * 128 values goes through
+    `int8_ef_psum_mean`; smaller ones (norm scales, biases: padding to
+    D * 128 would outweigh the payload saved) take the exact fp32 mean and
+    keep their residual, which stays zero. Without residuals every leaf
+    takes the exact fp32 mean. The identity at D = 1."""
+    D = comp.world_size(group)
+    gl = tree_leaves(grads)
+    el = (tree_leaves(ef_state) if ef_state is not None
+          else [None] * len(gl))
+    means, errs = [], []
+    for g, e in zip(gl, el):
+        if e is not None and g.numel() >= D * comp.QUANT_GROUP:
+            m, ne = comp.int8_ef_psum_mean(g, e[0], group)
+            e = ne[None]
+        else:
+            m = comp.all_mean(g, group)
+        means.append(m)
+        errs.append(e)
+    return (tree_unflatten(grads, means),
+            None if ef_state is None else tree_unflatten(ef_state, errs))
+
+
+def sync_metrics(metrics: Dict[str, torch.Tensor], group=None):
+    """Means over the ranks of per-rank means (exact for equal shards), but
+    ``tokens``, a count, which is summed."""
+    return {k: (comp.all_sum(v, group) if k == "tokens"
+                else comp.all_mean(v, group)) for k, v in metrics.items()}
+
+
+def make_compressed_train_step(run: RunConfig, impl: Optional[str] = None,
+                               group=None):
+    """Data-parallel train step over ``group`` (default: the default
+    process group; one rank with none), with int8 error-feedback gradient
+    compression when ``grad_compression == "int8_ef"``.
+
+    Every rank is handed the global batch and differentiates its own
+    ``global_batch / D`` rows (rank r: rows r * B / D to (r + 1) * B / D),
+    with the same dropout seed on every rank, as inside the JAX package's
+    ``shard_map``. The gradient mean is `exchange_grads`; the centroids'
+    float leaves take the exact fp32 mean and the metrics `sync_metrics`;
+    the shared tail (clip, lr, optimizer) runs on every rank on the same
+    mean. At D = 1 the exchange is the identity and the step is the
+    uncompressed step, bit for bit. Without compression at D > 1 the step
+    equals one process's step on the whole batch at dropout 0 (with
+    dropout each rank draws its shard's mask from the shared seed, not its
+    rows of the global batch's mask).
+    """
+    tc = run.train
+    D = comp.world_size(group)
+    r = comp.rank(group)
+    compress = tc.grad_compression == "int8_ef"
+    if tc.global_batch % D:
+        raise ValueError(f"global_batch={tc.global_batch} must divide over "
+                         f"{D} data-parallel ranks")
+    loss_fn = make_loss_fn(run, impl)
+    _, opt_update = make_optimizer(tc)
+    schedule = make_schedule(tc, run.model.d_model)
+    grad_fn = make_grad_fn(run, loss_fn)
+
+    def train_step(ts: TrainState, batch: Dict[str, torch.Tensor]):
+        if compress:
+            lead = ({e.shape[0] for e in tree_leaves(ts.ef_state)}
+                    if ts.ef_state is not None else None)
+            if lead != {1}:
+                # a residual of other rows would put another rank's
+                # error into this rank's exchange: the bias error feedback
+                # exists to cancel
+                raise ValueError(
+                    f"ef_state rows {sorted(lead or ())} per rank, expected "
+                    f"1 (this rank's row of {D}); build the state with "
+                    f"init_train_state under grad_compression='int8_ef'")
+        B = batch["tokens"].shape[0]
+        if B % D:
+            raise ValueError(f"batch of {B} rows does not split over {D} "
+                             f"data-parallel ranks")
+        rows = slice(r * B // D, (r + 1) * B // D)
+        local = {k: v[rows] for k, v in batch.items()}
+        with span("train/grad"):
+            grads, new_k, metrics = grad_fn(ts.params, ts.kstate, local,
+                                            _drop_seed(run, ts.step))
+        with span("train/exchange"):
+            mean_g, new_ef = exchange_grads(
+                grads, ts.ef_state if compress else None, group)
+            new_k = tree_map(lambda a: comp.all_mean(a, group)
+                             if a.is_floating_point() else a, new_k)
+            metrics = sync_metrics(metrics, group)
+        return _finish_step(tc, schedule, opt_update, ts, mean_g, new_k,
+                            metrics, new_ef if compress else ts.ef_state)
 
     return train_step

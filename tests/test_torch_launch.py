@@ -6,14 +6,21 @@
   JAX launcher's ``arch=... params=...M`` line (the same parameter count)
   and ``loss a -> b`` line, and returns `Trainer.fit`'s result with a
   finite loss;
-* each flag whose subsystem is not ported raises when set, naming its
-  ROADMAP item (the observability flags are held in
-  `test_torch_obs.py`);
+* the meshes, checkpoint, compression and multi-process flags do what
+  the JAX launcher does with the same argv: ``--mesh 2x4`` clamps to 1x1
+  on one process, ``--ckpt-dir`` writes and resumes, ``--grad-compression
+  int8_ef`` trains, ``--coordinator`` or ``--num-processes`` alone raise
+  `detect`'s ValueError, ``--process-id`` alone runs as one process (the
+  multi-process launch itself is held in `test_torch_dist.py`, the
+  observability flags in `test_torch_obs.py`);
+* what is not ported raises, naming ROADMAP item 10: ``--seq-parallel``,
+  and a mesh whose model axis stays above 1 after clamping;
 * without ``--device``, on a host with no card, it raises instead of
   running on the CPU.
 """
 import ast
 import math
+import os
 import re
 from pathlib import Path
 
@@ -62,13 +69,44 @@ def test_reduced_qwen2_trains_on_cpu_and_prints_the_jax_lines(capsys):
     assert math.isfinite(out["final_loss"])
 
 
+def _mesh_line(capsys):
+    line = capsys.readouterr().out.splitlines()[0]
+    return re.search(r" mesh=\((\d+x\d+)\) devices=(\d+) process=(\S+) "
+                     r"multi_host=(\S+) compression=(\S+) ", line).groups()
+
+
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2x4"], ["--ckpt-dir", "ckpt"], ["--seq-parallel"],
+    ["--mesh", "2x4"], ["--ckpt-dir", "ckpt"],
     ["--grad-compression", "int8_ef"],
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--process-id", "0"]], ids=lambda f: f[0])
-def test_unported_flag_raises(flag):
-    with pytest.raises(NotImplementedError, match=f"{flag[0]} .*ROADMAP"):
+def test_flags_do_what_the_jax_launcher_does(flag, tmp_path, capsys):
+    argv = ["--reduced", "--steps", "1", "--device", "cpu", *flag]
+    if flag[0] == "--ckpt-dir":
+        argv[-1] = str(tmp_path / "ckpt")
+    if flag[0] in ("--coordinator", "--num-processes"):
+        with pytest.raises(ValueError, match="coordinator|explicit rank"):
+            launcher.main(argv)
+        return
+    out = launcher.main(argv)
+    assert out["steps"] == 1 and math.isfinite(out["final_loss"])
+    comp = "int8_ef" if flag[0] == "--grad-compression" else "none"
+    assert _mesh_line(capsys) == ("1x1", "1", "0/1", "False", comp)
+    if flag[0] == "--ckpt-dir":
+        assert os.listdir(argv[-1]) == ["step_00000001"]
+        argv[2] = "2"
+        assert launcher.main(argv)["steps"] == 2
+        assert sorted(os.listdir(argv[-1])) == ["step_00000001",
+                                                "step_00000002"]
+
+
+@pytest.mark.parametrize("flag,world", [(["--seq-parallel"], 1),
+                                        (["--mesh", "2x4"], 8)],
+                         ids=["--seq-parallel", "--mesh model axis"])
+def test_unported_flag_raises(flag, world, monkeypatch):
+    from repro_torch.dist import compression as comp
+    monkeypatch.setattr(comp, "world_size", lambda group=None: world)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         launcher.main(["--reduced", "--steps", "1", "--device", "cpu",
                        *flag])
 

@@ -465,9 +465,16 @@ def test_trainer_obs_jsonl(tmp_path):
     assert rec["metrics"]["step_time_s"] > 0
     assert tr.metrics_history[0] == rec["metrics"]
     assert tr.obs.histogram("train/step_time_s").count == 3
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Trainer(run, SyntheticLoader("markov", 256, 2, 64), device="cpu",
-                ckpt_dir="ckpt")
+    # with a checkpoint directory: the resumed run records its own steps
+    ckpt, path2 = str(tmp_path / "ckpt"), str(tmp_path / "resumed.jsonl")
+    Trainer(run, SyntheticLoader("markov", 256, 2, 64), device="cpu",
+            ckpt_dir=ckpt).fit(2)
+    tr2 = Trainer(run, SyntheticLoader("markov", 256, 2, 64), device="cpu",
+                  ckpt_dir=ckpt, obs_jsonl=path2)
+    assert tr2.fit(3)["steps"] == 3
+    tr2.close()
+    assert [json.loads(ln)["step"] for ln in open(path2)] == [3]
+    assert schema.validate_jsonl(path2) == 1
 
 
 def test_launcher_obs_flags(tmp_path):

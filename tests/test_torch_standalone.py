@@ -80,7 +80,8 @@ def test_source_imports_no_jax_or_repro(path):
 
 
 @pytest.mark.parametrize("sub", ["kernels", "attn", "serve", "models",
-                                 "core", "optim", "train", "data", "launch"])
+                                 "core", "optim", "train", "data", "launch",
+                                 "ckpt", "dist"])
 def test_no_exception_handler_on_the_path(sub):
     """Nothing on the serving or training path catches an error and
     carries on. A try with only a finally catches nothing, unless its

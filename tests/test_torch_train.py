@@ -331,7 +331,7 @@ def test_remat_full_equals_none_with_dropout(impl, arch):
     assert abs(float(l2) - float(l0)) > 1e-4      # other seed, other masks
 
 
-def test_trainer_fits_watches_stragglers_and_stops_on_preemption():
+def test_trainer_fits_watches_stragglers_and_stops_on_preemption(tmp_path):
     _, run = _runs()
     calls = []
 
@@ -357,8 +357,19 @@ def test_trainer_fits_watches_stragglers_and_stops_on_preemption():
     assert out["stragglers"] == len(slow) >= 1     # every step past the 5th
     assert signal.getsignal(signal.SIGTERM) is before
     assert loader.step == 7
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        Trainer(run, loader, ckpt_dir=os.fspath("ckpt"), device="cpu")
+    # with a checkpoint directory: the preempted run is saved at its step
+    # and a fresh Trainer resumes it, loader cursor included
+    ckpt = os.fspath(tmp_path / "ckpt")
+    calls.clear()
+    tr = Trainer(run, synthetic.SyntheticLoader("markov", 128, B, S, seed=3),
+                 step_fn=step_fn, device="cpu", ckpt_dir=ckpt)
+    assert tr.fit(20)["steps"] == 7
+    tr2 = Trainer(run, synthetic.SyntheticLoader("markov", 128, B, S, seed=3),
+                  device="cpu", ckpt_dir=ckpt)
+    assert tr2.init_or_restore().step == 7 and tr2.loader.step == 7
+    for a, b in zip(tree_leaves(tr.state.params),
+                    tree_leaves(tr2.state.params)):
+        assert torch.equal(a, b)
 
 
 def test_fp32_gate_separates_a_broken_backward(monkeypatch):
