@@ -239,6 +239,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
    steps, then 4: steps 3-4's losses equal an uninterrupted 4-step run's,
    and ``--grad-compression int8_ef`` at D = 1 equals the uncompressed
    run's losses; (d)'s processes run while (e) runs;
+   then (slice 19) ``tp``: the model axis, TP_RANKS processes of `tp_rank`
+   on the one card (gloo) on a 1 x 2 mesh against 1 x 1 runs in this
+   process (`tp_references`). (a) Full-width rt-enwik8 in fp32, B 1 x
+   8192, the same state and batch: the gradients (after the model axis's
+   reductions, gathered) and one step (the parameters gathered), the
+   1 x 1 cluster membership replayed on each rank's routing heads
+   (`membership_replayed_heads`): the loss within 1e-5 relative, the
+   gradients' median and largest and the parameters' median leaf
+   difference within the routing gate's limits. (b) The same model in
+   bf16 for TP_STEPS steps: finite losses, equal on the ranks, every
+   replicated leaf equal to the bit on both ranks after each step
+   (`replicated_digest`), the wall and the bytes through the model group
+   per step. (c) (a) with ``RoutingConfig.segments=2`` under
+   seq_parallel against segments 2 at 1 x 1 (the fold on the fused
+   kernels). (d) qwen2-0.5b in fp32 at the fp32 gate's shape, TP_STEPS
+   steps with and without seq_parallel: losses within 1e-4 relative of
+   1 x 1. Each rank's launches are exact per part (a step's worth per
+   layer as 1 x 1), and every attention call runs half the heads (7 query
+   and 1 KV head for qwen2);
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -479,6 +498,30 @@ PORT_SPANS = ("train/", "kernels/")
 CKPT_STEPS, CKPT_STOP, CKPT_EVERY = 4, 2, 2
 DIST_RANKS, DIST_ROWS, DIST_STEPS = 2, 1, 2
 DIST_TIMEOUT_S = 600
+# slice 19: the model axis. TP_RANKS processes on the one card (gloo, CUDA
+# tensors staged through the host: NCCL refuses two ranks on one card) on
+# a 1 x TP_RANKS mesh: (a) full-width rt-enwik8 in fp32, B 1 x TRAIN_SEQ,
+# the gradients and one step against the 1 x 1 step in this process, the
+# 1 x 1 cluster membership replayed on each rank's routing heads; (b) the
+# same model in bf16 for TP_STEPS steps; (c) RoutingConfig.segments =
+# TP_RANKS under seq_parallel against segments = TP_RANKS at 1 x 1; (d)
+# qwen2-0.5b in fp32, B FULL_GATE_BATCH x FULL_GATE_SEQ, TP_STEPS steps
+# with and without seq_parallel against 1 x 1
+TP_RANKS, TP_STEPS = 2, 2
+TP_TIMEOUT_S = 900
+# (a), (c): the loss within this relative difference of the 1 x 1 step's
+# (only the order of fp32 sums differs); the gradients' median and largest
+# leaf difference and the parameters' median within the routing gate's
+# limits (ENWIK8_LIMITS: grad_median, bwd_max). The membership is pinned,
+# but a relu whose input sits at zero within rounding can still take the
+# other side in one of the two runs: the gradients then differ by ~1e-4
+# (PERF.md), as the routing gate's do. A parameter's largest difference is
+# reported, not gated: Adam's first step moves an element by lr times the
+# sign of its gradient, so a zero-initialised bias whose gradient element
+# changes sign differs by 2 lr
+TP_LOSS_REL_TOL = 1e-5
+# (d): each step's loss within this relative difference of 1 x 1's
+TP_FULL_LOSS_REL_TOL = 1e-4
 # the JAX package's bound on the int8 mean (tests/test_dist.py): largest
 # difference from the exact fp32 mean over the exact mean's largest value
 DIST_MEAN_REL_TOL = 0.02
@@ -628,15 +671,17 @@ _PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
 # stats and the obs layer on ("obs"); since slice 18 its Trainer resumes
 # from checkpoints and its steps exchange int8 gradients, in this process
 # and in DIST_RANKS spawned ones ("ckpt_dist"), and the launcher resumes
-# qwen2-0.5b from its checkpoints ("ckpt_launch")
+# qwen2-0.5b from its checkpoints ("ckpt_launch"); since slice 19 the
+# local, fused and flash kernels run on each tensor-parallel rank's heads
+# ("tp")
 _SERVE_PAPER = tuple(SERVE_PAPER)
 _ENGINE = ("serve_engine", "serve_disagg", "obs")
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
               "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER,
-              *_ENGINE, "ckpt_dist")
+              *_ENGINE, "ckpt_dist", "tp")
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
-              *_PAPER, "obs", "ckpt_dist")
-_FLASH = ("train_full", "launch", "ckpt_launch")
+              *_PAPER, "obs", "ckpt_dist", "tp")
+_FLASH = ("train_full", "launch", "ckpt_launch", "tp")
 _GATHERED = ("train_gathered", "fit_gathered")
 KERNELS = {
     "local_attention": dict(
@@ -649,7 +694,7 @@ KERNELS = {
         kind="forward", layers="routing",
         paths=("serve", "train", "serve_cifar", "train_cifar",
                "serve_routing", *_PAPER, *_SERVE_PAPER, *_ENGINE,
-               "ckpt_dist")),
+               "ckpt_dist", "tp")),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
@@ -668,12 +713,12 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:372",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist")),
+        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist", "tp")),
     "routing_fused_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:411",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist")),
+        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist", "tp")),
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:47",
@@ -4726,6 +4771,415 @@ def ckpt_dist_phase(torch, card, counts) -> tuple:
     return row, launches, launch_launches
 
 
+# ---------------------------------------------------------------------------
+# slice 19: the model axis (tensor and sequence parallelism) on one card
+# ---------------------------------------------------------------------------
+def membership_replayed_heads(calls: list, flips: list, rank: int):
+    """`membership_replayed` on a tensor-parallel rank: each routing call
+    takes this rank's block of the heads of the 1 x 1 run's membership
+    (the rank's routing heads are the routing heads' block ``rank``)."""
+    from repro_torch.core import routing
+    topk = routing.balanced_topk
+
+    def replay(*args, **kwargs):
+        own = topk(*args, **kwargs)
+        h = own.shape[1]
+        idx = calls[len(flips)][:, rank * h:(rank + 1) * h].to(own.device)
+        flips.append(bool((own != idx).any()))
+        return idx
+    return swapped(routing, "balanced_topk", replay)
+
+
+def tp_configs():
+    """The tp phase's configs: (a) rt-enwik8 fp32 at dropout 0, (b) the
+    same in bf16 with its own dropout, (c) (a) with TP_RANKS segments,
+    (d) qwen2-0.5b fp32."""
+    from repro_torch.configs import get_config, with_overrides
+    cfg = get_config(ARCH)
+    a = with_overrides(cfg, dtype="float32", dropout=0.0)
+    c = with_overrides(a, routing=with_overrides(a.routing,
+                                                 segments=TP_RANKS))
+    d = with_overrides(get_config(FULL_ARCH), dtype="float32")
+    return dict(a=a, b=cfg, c=c, d=d)
+
+
+def tp_runs():
+    """(a)-(c) at B 1 x TRAIN_SEQ under the TrainConfig defaults, (d) at
+    the qwen2 gate's shape under the launcher's config."""
+    cfgs = tp_configs()
+    runs = {k: train_run_config(cfgs[k], batch=1) for k in "abc"}
+    runs["d"] = full_run_config(cfgs["d"], FULL_GATE_BATCH, FULL_GATE_SEQ)
+    return runs
+
+
+def tp_batch(torch, run):
+    vocab = min(run.model.vocab_size, FULL_VOCAB)
+    return train_batches(torch, vocab, run.train.global_batch,
+                         run.train.seq_len, 1)[0]
+
+
+def tp_grads_and_step(torch, run, ts, batch, constrain_fn=None, mesh=None,
+                      membership=contextlib.nullcontext):
+    """The gradients of the loss (on a mesh: of this rank's shards, after
+    the model axis's reductions, `make_tp_grad_fn`) and one train step
+    from ``ts`` on ``batch``, each inside a fresh ``membership()``: (loss,
+    grads, step loss, new state)."""
+    from repro_torch.train.train_step import (make_grad_fn, make_loss_fn,
+                                              make_tp_grad_fn,
+                                              make_train_step)
+    grad_fn = (make_tp_grad_fn(run, None, constrain_fn, mesh)
+               if mesh is not None else
+               make_grad_fn(run, make_loss_fn(run)))
+    with membership():
+        grads, _, metrics = grad_fn(ts.params, ts.kstate, batch, None)
+    loss = metrics["loss"]
+    step = make_train_step(run, None, constrain_fn, mesh)
+    with membership():
+        new, m = step(ts, batch)
+    torch.cuda.synchronize()
+    return float(loss), grads, float(m["loss"]), new
+
+
+def tp_references(torch, tmp) -> dict:
+    """The 1 x 1 runs in this process: (a) and (c) record their cluster
+    membership and save it with their gradients and stepped parameters;
+    (d) its losses over TP_STEPS steps. Returns the readings."""
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    runs = tp_runs()
+    out = {}
+    for k in "ac":
+        run = runs[k]
+        ts = init_train_state(run, seed=0, device=DEVICE)
+        ts = ts._replace(step=run.train.warmup_steps)
+        batch = tp_batch(torch, run)
+        calls = []
+        t0 = time.perf_counter()
+        # the value_and_grad records; the step's forward, the same
+        # computation, routes the same way
+        loss, grads, step_loss, new = tp_grads_and_step(
+            torch, run, ts, batch,
+            membership=lambda: (contextlib.nullcontext() if calls
+                                else membership_recorded(calls)))
+        out[k] = dict(loss=loss, step_loss=step_loss,
+                      s=time.perf_counter() - t0)
+        torch.save(dict(calls=[c.cpu() for c in calls],
+                        grads=grads, params=new.params, old=ts.params,
+                        loss=loss, step_loss=step_loss),
+                   tmp / f"ref_{k}.pt")
+        del ts, grads, new, calls
+        torch.cuda.empty_cache()
+    run = runs["d"]
+    ts = init_train_state(run, seed=0, device=DEVICE)
+    batch = tp_batch(torch, run)
+    step = make_train_step(run)
+    losses = []
+    for _ in range(TP_STEPS):
+        ts, m = step(ts, batch)
+        losses.append(float(m["loss"]))
+    out["d"] = dict(losses=losses)
+    del ts
+    torch.cuda.empty_cache()
+    return out
+
+
+def replicated_digest(ts, mesh) -> str:
+    """sha256 over the bytes of every tensor leaf of ``ts`` the rule table
+    replicates (placed over no "model" dim), in tree order."""
+    import hashlib
+    import torch
+    from repro_torch.ckpt.checkpoint import to_host
+    from repro_torch.dist import sharding as shd
+    from repro_torch.tree import tree_paths
+    pl = shd.state_placements(mesh, ts)._asdict()
+    h = hashlib.sha256()
+    for path, leaf in tree_paths(ts._asdict()):
+        if (isinstance(leaf, torch.Tensor)
+                and "model" not in shd.placement_at(pl, path)):
+            h.update(repr(path).encode())
+            h.update(to_host(leaf).tobytes())
+    return h.hexdigest()
+
+
+def attend_heads(log: list):
+    """Inside the block, every attention call's (variant, query heads,
+    KV heads) is appended to ``log``."""
+    import repro_torch.attn as attn_api
+    attend = attn_api.attend
+
+    def recording(spec, q, k, v, **kw):
+        log.append((spec.variant, q.shape[1], v.shape[1]))
+        return attend(spec, q, k, v, **kw)
+    return swapped(attn_api, "attend", recording)
+
+
+def tp_rank(rank: int, world: int, coordinator: str, tmp: str) -> None:
+    """One tensor-parallel rank of the tp phase on a 1 x ``world`` mesh
+    over gloo on the one card: (a), (b), (c) and (d) of TP_RANKS's comment,
+    each rank's launches per part, the attention calls' head counts, and
+    on rank 0 the gathered gradients and parameters against the 1 x 1
+    references. Writes ``tmp/tp{rank}.json``."""
+    import torch
+    from repro_torch.attn.spec import specs_for_model
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tpar
+    from repro_torch.kernels import (common, flash_attention,  # noqa: F401
+                                     local_attention, routing_attention,
+                                     routing_decode, routing_gathered)
+    from repro_torch.launch import distributed
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    distributed.initialize(distributed.LaunchSpec(coordinator, world, rank),
+                           device=DEVICE, backend="gloo")
+    mesh = distributed.make_process_mesh(1, world)
+    runs = tp_runs()
+    res = dict(rank=rank, launches={}, heads={})
+
+    def constrain(run, sp):
+        return shd.make_constrain_fn(mesh, sp,
+                                     attn_specs=specs_for_model(run.model))
+
+    def part(name, run, fn):
+        heads = []
+        common.reset_counters()
+        tpar.reset_wire_bytes()
+        t0 = time.perf_counter()
+        with attend_heads(heads):
+            row = fn()
+        torch.cuda.synchronize()
+        row["s"] = time.perf_counter() - t0
+        res["launches"][name] = common.counters()
+        res["heads"][name] = sorted(set(heads))
+        res[name] = row
+
+    for k, sp in (("a", False), ("c", True)):
+        run = runs[k]
+
+        def gate(run=run, k=k, sp=sp):
+            ref = torch.load(tmp / f"ref_{k}.pt", map_location=DEVICE,
+                             weights_only=False)
+            ts = init_train_state(run, seed=0, device=DEVICE, mesh=mesh)
+            ts = ts._replace(step=run.train.warmup_steps)
+            flips = []
+
+            def replay():
+                return membership_replayed_heads(ref["calls"], flips, rank)
+
+            def replays():
+                flips.clear()
+                return replay()
+            loss, grads, step_loss, new = tp_grads_and_step(
+                torch, run, ts, tp_batch(torch, run), constrain(run, sp),
+                mesh, replays)
+            full_g = shd.gather_tree(grads, shd.grads_placements(mesh, grads),
+                                     mesh, shd.head_groups(run.model, world))
+            full = shd.gather_state(new, run.model, mesh)
+            row = dict(loss=loss, step_loss=step_loss,
+                       loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                       step_loss_rel=abs(step_loss - ref["step_loss"])
+                       / abs(ref["step_loss"]),
+                       replayed_calls=len(flips),
+                       membership_differed=sum(flips),
+                       recorded_calls=len(ref["calls"]),
+                       grads=grad_agreement(full_g, ref["grads"]),
+                       params=grad_agreement(full.params, ref["params"]),
+                       updates=grad_agreement(
+                           [a - b for a, b in zip(tree_leaves(full.params),
+                                                  tree_leaves(ref["old"]))],
+                           [a - b for a, b in zip(tree_leaves(ref["params"]),
+                                                  tree_leaves(ref["old"]))]))
+            return row
+        part(k, run, gate)
+
+    run = runs["b"]
+
+    def bf16_steps():
+        torch.cuda.reset_peak_memory_stats()
+        ts = init_train_state(run, seed=0, device=DEVICE, mesh=mesh)
+        ts = ts._replace(step=run.train.warmup_steps)
+        step = make_train_step(run, None, constrain(run, False), mesh)
+        batches = train_batches(torch, run.model.vocab_size, 1,
+                                run.train.seq_len, TP_STEPS)
+        row = dict(losses=[], wall_ms=[], model_bytes=[], digests=[],
+                   collective_ms=[])
+        spent = [0.0]
+
+        def timed_call(fn):
+            def call(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                spent[0] += time.perf_counter() - t
+                return out
+            return call
+        # host clock around each collective (its staging copies wait for
+        # the card); a step's wall less this is compute and dispatch
+        with all_of(swapped(tpar, "_gather_rows",
+                            timed_call(tpar._gather_rows)),
+                    swapped(tpar, "_exchange_rows",
+                            timed_call(tpar._exchange_rows))):
+            for b in batches:
+                tpar.reset_wire_bytes()
+                spent[0] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ts, m = step(ts, b)
+                row["losses"].append(float(m["loss"]))
+                torch.cuda.synchronize()
+                row["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                row["collective_ms"].append(spent[0] * 1e3)
+                row["model_bytes"].append(tpar.wire_bytes())
+                row["digests"].append(replicated_digest(ts, mesh))
+        row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return row
+    part("b", run, bf16_steps)
+
+    run = runs["d"]
+
+    def full_steps():
+        row = {}
+        for sp in (False, True):
+            ts = init_train_state(run, seed=0, device=DEVICE, mesh=mesh)
+            step = make_train_step(run, None, constrain(run, sp), mesh)
+            batch = tp_batch(torch, run)
+            losses = []
+            for _ in range(TP_STEPS):
+                ts, m = step(ts, batch)
+                losses.append(float(m["loss"]))
+            row["seq_parallel" if sp else "tp"] = losses
+            del ts
+            torch.cuda.empty_cache()
+        return row
+    part("d", run, full_steps)
+    torch.distributed.destroy_process_group()
+    (tmp / f"tp{rank}.json").write_text(json.dumps(res))
+
+
+def tp_expected(runs) -> dict:
+    """Per part, one rank's launches: every kernel once per layer per step
+    as 1 x 1 (the value_and_grad of (a) and (c) counts as a step)."""
+    return dict(a=expected_launches("tp", runs["a"], 2),
+                b=expected_launches("tp", runs["b"], TP_STEPS),
+                c=expected_launches("tp", runs["c"], 2),
+                d=expected_launches("tp", runs["d"], 2 * TP_STEPS))
+
+
+def tp_gate(ranks, refs, runs) -> list:
+    """What the tp phase's readings fail of its gates."""
+    from repro_torch.attn.spec import head_split, spec_for_layer
+    fails = []
+    want = tp_expected(runs)
+    for r in ranks:
+        for k, w in want.items():
+            if r["launches"][k] != w:
+                fails.append(f"rank {r['rank']} ({k}) launches "
+                             f"{r['launches'][k]}, expected {w}")
+        for k in "abcd":
+            cfg = runs[k].model
+            spec = spec_for_layer(cfg, cfg.attention)
+            if spec.variant == "local+routing":
+                Hl, Hr, kvl, kvr = head_split(spec)
+                heads = [["local+routing", (Hl + Hr) // TP_RANKS,
+                          (kvl + kvr) // TP_RANKS]]
+            else:
+                heads = [[spec.variant, spec.num_heads // TP_RANKS,
+                          spec.num_kv_heads // TP_RANKS]]
+            if r["heads"][k] != heads:
+                fails.append(f"rank {r['rank']} ({k}) attention heads "
+                             f"{r['heads'][k]}, expected {heads}")
+    lim = ENWIK8_LIMITS
+    for k in "ac":
+        row = ranks[0][k]
+        if not (row["loss_rel"] <= TP_LOSS_REL_TOL
+                and row["step_loss_rel"] <= TP_LOSS_REL_TOL
+                and row["grads"]["grad_rel_median"] <= lim["grad_median"]
+                and row["grads"]["grad_rel_max"] <= lim["bwd_max"]
+                and row["params"]["grad_rel_median"] <= lim["grad_median"]
+                and row["replayed_calls"] == row["recorded_calls"]):
+            fails.append(f"({k}) against 1 x 1: {row}")
+    b = [r["b"] for r in ranks]
+    if not (all(x["digests"] == b[0]["digests"] for x in b)
+            and all(math.isfinite(v) for x in b for v in x["losses"])
+            and all(x["losses"] == b[0]["losses"] for x in b)):
+        fails.append(f"(b) ranks differ or loss not finite: {b}")
+    ref = refs["d"]["losses"]
+    for mode in ("tp", "seq_parallel"):
+        got = ranks[0]["d"][mode]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, ref)]
+        if not max(rel) <= TP_FULL_LOSS_REL_TOL:
+            fails.append(f"(d) {mode} losses {got} against 1 x 1 {ref}")
+    return fails
+
+
+def tp_phase(torch, card, counts) -> tuple:
+    """The `tp` path: the 1 x 1 references here (`tp_references`), then
+    TP_RANKS processes of `tp_rank` on the one card; every gate of
+    `tp_gate`. References go to a temporary directory, removed afterwards.
+    Returns the row and the launches of all ranks together."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    runs = tp_runs()
+    try:
+        t0 = time.perf_counter()
+        before = counts()
+        refs = tp_references(torch, tmp)
+        launches_1x1 = {n: counts()[n] - before[n] for n in before}
+        t_refs = time.perf_counter() - t0
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+        procs = []
+        for r in range(TP_RANKS):
+            with open(tmp / f"tp{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c",
+                     f"import chip_smoke; chip_smoke.tp_rank({r}, "
+                     f"{TP_RANKS}, {coordinator!r}, {str(tmp)!r})"],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(os.environ)))
+        try:
+            codes = [p.wait(timeout=TP_TIMEOUT_S) for p in procs]
+        finally:
+            stop_dist_ranks(procs)
+        if codes != [0] * TP_RANKS:
+            tails = "\n".join((tmp / f"tp{r}.log").read_text()[-4000:]
+                              for r in range(TP_RANKS))
+            raise AssertionError(f"tp ranks exited with {codes}:\n{tails}")
+        ranks = [json.loads((tmp / f"tp{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for r in ranks:
+        for part in r["launches"].values():
+            for n, c in part.items():
+                launches[n] = launches.get(n, 0) + c
+    row = dict(card=card, refs=refs, refs_s=t_refs,
+               launches_1x1_refs=launches_1x1,
+               ranks=ranks, seconds=time.perf_counter() - t0)
+    fails = tp_gate(ranks, refs, runs)
+    summary = dict(
+        seconds=row["seconds"], refs_s=t_refs,
+        a=dict(ranks[0]["a"], s=[r["a"]["s"] for r in ranks]),
+        c=dict(ranks[0]["c"], s=[r["c"]["s"] for r in ranks]),
+        b=[dict(rank=r["rank"], losses=r["b"]["losses"],
+                wall_ms=r["b"]["wall_ms"],
+                collective_ms=r["b"]["collective_ms"],
+                model_bytes=r["b"]["model_bytes"],
+                peak_mem_gib=r["b"]["peak_mem_gib"]) for r in ranks],
+        d=dict(ranks[0]["d"], ref=refs["d"]["losses"]),
+        heads=ranks[0]["heads"])
+    print(f"tp summary [{card}] {json.dumps(summary)}", flush=True)
+    if fails:
+        raise AssertionError(f"tp phase fails: {fails}")
+    row["summary"] = summary
+    return row, launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -5146,6 +5600,13 @@ def main(argv=None) -> int:
         ckpt_dist_phase(torch, card, common.counters)
     t = phase("ckpt_dist", t)
 
+    # since slice 19: the model axis, TP_RANKS tensor-parallel ranks on the
+    # card against 1 x 1 (rt-enwik8 fp32 and bf16, the segment fold under
+    # seq_parallel, qwen2-0.5b with and without seq_parallel)
+    common.reset_counters()
+    tp_row, launches["tp"] = tp_phase(torch, card, common.counters)
+    t = phase("tp", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -5190,7 +5651,8 @@ def main(argv=None) -> int:
             paper=paper_rows, paper_decode=paper_decode_rows,
             decode_digest=dec_digest, serve_paper=serve_rows,
             serve_engine=engine_row, serve_disagg=disagg_row, obs=obs_row,
-            ckpt_dist=ckpt_row, launches=launches, profile=prof), indent=1))
+            ckpt_dist=ckpt_row, tp=tp_row, launches=launches, profile=prof),
+            indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,13 @@ import torch
 from repro_torch.attn import backends as _backends       # noqa: F401 (registers)
 from repro_torch.attn.registry import (Backend,  # noqa: F401
                                        BackendResolutionError, CacheLayout,
-                                       backends_for, cache_reset_values,
+                                       backends_for, cache_head_axes,
+                                       cache_reset_values,
                                        pageable_cache_leaves, resolve)
-from repro_torch.attn.spec import (AttentionSpec, head_split,  # noqa: F401
-                                   spec_for_layer, variant_for_layer)
+from repro_torch.attn.spec import (AttentionSpec, head_shard,  # noqa: F401
+                                   head_split, seq_shardable,
+                                   spec_for_layer, specs_for_model,
+                                   variant_for_layer)
 
 
 class AttnOutput(NamedTuple):

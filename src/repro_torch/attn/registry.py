@@ -149,6 +149,12 @@ def _merged(field_of, what: str) -> Dict[str, object]:
     return out
 
 
+def cache_head_axes() -> Dict[str, int]:
+    """leaf name -> head axis (pool coordinates) over the registered
+    layouts (`dist.sharding.cache_sharding` reads it)."""
+    return _merged(lambda lo: lo.head_axes.items(), "head axes")
+
+
 def cache_reset_values() -> Dict[str, int]:
     """leaf name -> reset value over the registered layouts (the slot
     pool's ``reset_slot``; leaves not listed reset to 0)."""

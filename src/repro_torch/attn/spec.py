@@ -96,6 +96,29 @@ def head_split(spec) -> Tuple[int, int, int, int]:
     return Hl, Hr, Hl // g, Hr // g
 
 
+@functools.lru_cache(maxsize=None)
+def head_shard(spec: AttentionSpec, tp: int) -> AttentionSpec:
+    """The spec of one rank's head shard over a ``tp``-way model axis: the
+    rank runs ``H / tp`` query and ``Hkv / tp`` KV heads, and a
+    local+routing spec ``Hl / tp`` local and ``Hr / tp`` routing heads
+    (with their KV heads), local first, as `head_split` orders the full
+    spec. Raises `ValueError` where a count does not divide by ``tp``:
+    explicit tensor parallelism cannot leave a head axis replicated."""
+    if tp <= 1:
+        return spec
+    counts = {"num_heads": spec.num_heads, "num_kv_heads": spec.num_kv_heads}
+    if spec.variant == "local+routing":
+        Hl, Hr, kvl, kvr = head_split(spec)
+        counts.update(Hl=Hl, Hr=Hr, Hkv_l=kvl, Hkv_r=kvr)
+    bad = {k: v for k, v in counts.items() if v % tp}
+    if bad:
+        raise ValueError(f"{spec.variant}: head counts {bad} do not divide "
+                         f"over a {tp}-way model axis")
+    return replace(spec, num_heads=spec.num_heads // tp,
+                   num_kv_heads=spec.num_kv_heads // tp,
+                   routing_heads=spec.routing_heads // tp)
+
+
 def variant_for_layer(cfg: ModelConfig, layer_idx: int) -> str:
     """The config's variant on routing layers (or everywhere when
     routing_layers is empty), the downgraded variant elsewhere."""
@@ -146,6 +169,28 @@ def spec_for_layer(cfg: ModelConfig, variant: str) -> AttentionSpec:
                            routing_heads=0)
         return spec
     raise ValueError(f"unknown attention variant {variant!r}")
+
+
+def specs_for_model(cfg: ModelConfig) -> Tuple[AttentionSpec, ...]:
+    """The distinct AttentionSpecs of the model's stack, in layer order
+    (`dist.sharding.make_constrain_fn` validates them)."""
+    out = []
+    for i in range(cfg.num_layers):
+        s = spec_for_layer(cfg, variant_for_layer(cfg, i))
+        if s not in out:
+            out.append(s)
+    return tuple(out)
+
+
+def seq_shardable(spec: AttentionSpec, tp: int) -> bool:
+    """Whether sequence-sharding the residual stream over a ``tp``-way
+    model axis keeps this spec's routing shard-local: full and local
+    attention see the whole sequence anyway; routing's balanced top-k is
+    shard-local only when its segment fold aligns with the model axis
+    (``RoutingConfig.segments % tp == 0``)."""
+    if tp <= 1 or spec.routing is None:
+        return True
+    return spec.routing.segments % tp == 0
 
 
 def resolve_chunk(spec: AttentionSpec, seq_len: int) -> int:

@@ -3,9 +3,13 @@ Transformer models and four full-attention models).
 
 `get_config(arch)` returns the full published config; `reduced_config(arch)`
 returns the same-family miniature the CPU parity tests run. Both are copies
-of the JAX package's registry functions, restricted to that family.
+of the JAX package's registry functions, restricted to that family, as are
+`routing_for_seq` (k ~ sqrt(n) and the segment fold for a sequence length)
+and `with_routing` (the paper's local+routing attention on any dense arch).
 """
 from __future__ import annotations
+
+import math
 
 from repro_torch.configs import (granite_8b, paper, phi4_mini_3_8b,
                                  qwen2_0_5b, starcoder2_3b)
@@ -30,6 +34,35 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch]()
+
+
+def _pow2_round(x: int) -> int:
+    return 2 ** max(0, round(math.log2(max(x, 1))))
+
+
+def routing_for_seq(cfg: ModelConfig, seq_len: int,
+                    segments: int = 0) -> ModelConfig:
+    """Scale k ~ sqrt(n) (the paper's choice) for a sequence length.
+
+    ``segments=0`` -> auto: shard-local routing (16 segments, the TP width
+    of the production mesh) at 32k tokens and more, else one segment.
+    Decode ignores the segments (the cluster-paged cache is already
+    local)."""
+    if segments == 0:
+        segments = 16 if seq_len >= 32768 else 1
+    n_local = max(seq_len // max(segments, 1), 1)
+    k = min(_pow2_round(int(math.sqrt(n_local))), max(n_local // 16, 1))
+    return with_overrides(cfg, routing=with_overrides(
+        cfg.routing, num_clusters=max(k, 1), window=0, segments=segments))
+
+
+def with_routing(cfg: ModelConfig) -> ModelConfig:
+    """The paper's technique on a dense arch: local+routing attention (half
+    the heads local, half routing, the paper's default split); an ssm
+    config, which has no attention, comes back as it is."""
+    if cfg.family == "ssm":
+        return cfg
+    return with_overrides(cfg, attention="local+routing")
 
 
 def reduced_config(arch: str) -> ModelConfig:

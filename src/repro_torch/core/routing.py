@@ -21,8 +21,11 @@ and `block_bwd_dkv` are the plain versions of the block kernels,
 fused backward kernels. The centroids carry no gradient.
 ``RoutingConfig.stats`` adds the routing-health stats
 (`repro_torch.obs.routing_stats`) to the output, from intermediates every
-impl has before its kernel runs. The segment fold
-(``RoutingConfig.segments > 1``) is not ported yet and raises.
+impl has before its kernel runs. ``RoutingConfig.segments > 1`` folds
+contiguous sequence segments into the batch (shard-local routing, the
+JAX package's segment fold) when the segments divide the sequence and
+each holds at least ``num_clusters`` tokens; otherwise the whole sequence
+routes as one segment.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import RoutingConfig
+from repro_torch.configs.base import RoutingConfig, with_overrides
 from repro_torch.core import upcast
 from repro_torch.core.kmeans import (KMeansState, cluster_scores, ema_update,
                                      normalize_routing)
@@ -251,6 +254,36 @@ def routed_attention_bwd_dkv(q, k, v, q_idx, k_idx, positions, do, lse,
                          valid_k, scale)
 
 
+def _folded(q, k, v, state, cfg: RoutingConfig, positions, pad_mask,
+            update_state, impl) -> RoutingOutput:
+    """Segmented (shard-local) routing: the ``ns`` contiguous segments of
+    the sequence fold into the batch, (B,H,N,d) -> (B*ns,H,N/ns,d), so
+    assignment, top-k and attention never cross a segment boundary; the
+    causal mask reads the original positions. The centroids are shared by
+    the segments, and the stats are those of the folded batch (per-head
+    means over the segments)."""
+    B, H, N, dh = q.shape
+    ns = cfg.segments
+    Nl = N // ns
+
+    def fold(x):            # (B,H,N,d) -> (B*ns,H,Nl,d)
+        return (x.reshape(B, H, ns, Nl, -1).transpose(1, 2)
+                .reshape(B * ns, H, Nl, -1))
+
+    def unfold(x):          # (B*ns,H,Nl,d) -> (B,H,N,d)
+        return (x.reshape(B, ns, H, Nl, -1).transpose(1, 2)
+                .reshape(B, H, N, -1))
+
+    out = routed_attention(
+        fold(q), None if k is None else fold(k), fold(v), state,
+        with_overrides(cfg, segments=1), positions.reshape(B * ns, Nl),
+        None if pad_mask is None else pad_mask.reshape(B * ns, Nl),
+        update_state, impl)
+    return RoutingOutput(out=unfold(out.out), state=out.state,
+                         r_q=unfold(out.r_q), scores=unfold(out.scores),
+                         stats=out.stats)
+
+
 def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
                      v: torch.Tensor, state: KMeansState, cfg: RoutingConfig,
                      positions: Optional[torch.Tensor] = None,
@@ -266,14 +299,13 @@ def routed_attention(q: torch.Tensor, k: Optional[torch.Tensor],
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown routing impl {impl!r}; expected {IMPLS}")
-    if cfg.segments > 1:
-        raise NotImplementedError(
-            "the port's routed_attention has no segment fold yet "
-            "(RoutingConfig.segments=1; ROADMAP.md item 11: the fold comes "
-            "with routing_for_seq)")
     B, H, N, dh = q.shape
     if positions is None:
         positions = torch.arange(N, device=q.device).expand(B, N)
+    ns = cfg.segments
+    if ns > 1 and N % ns == 0 and N // ns >= cfg.num_clusters:
+        return _folded(q, k, v, state, cfg, positions, pad_mask,
+                       update_state, impl)
     w = min(cfg.window or max(1, N // cfg.num_clusters), N)
     shared = cfg.share_qk and cfg.causal
 

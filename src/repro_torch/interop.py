@@ -11,7 +11,9 @@ bfloat16 widened to float32. `opt_state_from_jax` and `train_state_from_jax`
 carry an Adam or an Adafactor state and a whole JAX ``TrainState`` across,
 so the port can continue a JAX training run mid-trajectory; its int8
 error-feedback residuals ((D, *shape) fp32 leaves) come across as this
-rank's row.
+rank's row. On a mesh with a model axis (``mesh=``, ``cfg=``) the state
+comes across as this rank's shards, its local+routing heads grouped as
+`dist.sharding.shard_state` groups them.
 """
 from __future__ import annotations
 
@@ -85,14 +87,19 @@ def ef_state_from_jax(ef_state: Any, device="cpu") -> Any:
     return tree_map(row, ef_state)
 
 
-def train_state_from_jax(ts: Any, device="cpu"):
+def train_state_from_jax(ts: Any, device="cpu", mesh=None, cfg=None):
     """A JAX ``TrainState`` (numpy leaves) -> the port's ``TrainState``
     (residuals by `ef_state_from_jax`), so the port can continue a JAX
-    run."""
+    run; on a ``mesh`` whose model axis holds more than one rank, this
+    rank's shards of it (``cfg`` names the model: its head grouping)."""
     ef = getattr(ts, "ef_state", None)
-    return TrainState(params=params_from_jax(ts.params, device),
+    full = TrainState(params=params_from_jax(ts.params, device),
                       kstate=kstate_from_jax(ts.kstate, device),
                       opt_state=opt_state_from_jax(ts.opt_state, device),
                       step=int(np.asarray(ts.step)),
                       ef_state=None if ef is None else ef_state_from_jax(
                           ef, device))
+    if mesh is None or mesh.size("model") <= 1:
+        return full
+    from repro_torch.dist.sharding import shard_state
+    return shard_state(full, cfg, mesh)

@@ -122,8 +122,9 @@ def process_info() -> dict:
             "local_devices": 1, "global_devices": n}
 
 
-def make_process_mesh(data: int = 1, model: int = 1) -> dict:
-    """The (data, model) grid over every process (call after `initialize`):
-    `launch/mesh.make_host_mesh`, which clamps the request to the largest
-    feasible grid."""
+def make_process_mesh(data: int = 1, model: int = 1):
+    """The (data, model) `Mesh` over every process (call after
+    `initialize`; every process calls it, since it creates the axes'
+    process groups): `launch/mesh.make_host_mesh`, which clamps the
+    request to the largest feasible grid."""
     return make_host_mesh(data, model)

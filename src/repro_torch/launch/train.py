@@ -12,6 +12,8 @@
   # rendezvous; NCCL on the card, gloo with --device cpu)
   REPRO_COORDINATOR=localhost:29500 REPRO_NUM_PROCESSES=2 \
       REPRO_PROCESS_ID=$RANK python -m repro_torch.launch.train
+  # the same two processes tensor-parallel, and sequence-parallel too
+  ... python -m repro_torch.launch.train --mesh 1x2 [--seq-parallel]
 
 The model is forced to fp32 and trained on the synthetic markov task
 (vocabulary min(V, 512)) with ``TrainConfig(lr=1e-3,
@@ -21,9 +23,12 @@ it raises. ``--obs-jsonl`` appends a ``train_step`` record per step
 (validate with ``python -m repro_torch.obs.schema``), ``--routing-stats``
 turns on the routing-health stats (``routing/*`` and ``rt/*`` metrics),
 and ``--profile-dir`` captures the whole run as a Chrome trace
-(``trace.json``). ``--mesh DxM`` is clamped to the processes as in JAX;
-the port runs the data axis only, so a model axis that stays above 1, and
-``--seq-parallel``, raise `NotImplementedError` (ROADMAP item 10).
+(``trace.json``). ``--mesh DxM`` is clamped to the processes as in JAX:
+D data ranks, each of M model ranks that train the model tensor-parallel
+(`repro_torch.dist.sharding`, `repro_torch.dist.tensor_parallel`), and
+``--seq-parallel`` shards the residual stream's sequence over the model
+axis too (a routing model needs ``RoutingConfig.segments`` a multiple of
+M, else `ValueError`, as in JAX).
 """
 from __future__ import annotations
 
@@ -32,9 +37,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.attn.spec import specs_for_model
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.configs.base import RunConfig, TrainConfig, with_overrides
 from repro_torch.data.synthetic import SyntheticLoader
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import distributed
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train.trainer import Trainer
@@ -55,7 +62,8 @@ def parser() -> argparse.ArgumentParser:
                     help="resume from the latest checkpoint here and save "
                          "into it")
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="not ported (ROADMAP item 10): raises")
+                    help="shard the residual stream's sequence over the "
+                         "model axis")
     ap.add_argument("--grad-compression", default="none",
                     help="none or int8_ef: the error-feedback int8 "
                          "gradient exchange (data-parallel)")
@@ -119,16 +127,19 @@ def _train(ap, args, multi: bool) -> Dict[str, Any]:
     if compressed and args.seq_parallel:
         ap.error("--seq-parallel needs the GSPMD path; drop it or use "
                  "--grad-compression none")
-    if args.seq_parallel:
-        raise NotImplementedError("--seq-parallel waits for ROADMAP item 10")
     mesh = distributed.make_process_mesh(d, m)   # clamps oversubscription
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    use_fsdp = cfg.param_count() > 20e9
+    constrain = (None if compressed else shd.make_constrain_fn(
+        mesh, args.seq_parallel, fsdp_prefetch=use_fsdp,
+        attn_specs=specs_for_model(cfg)))
     # every process builds the same global batches; the step takes its rows
     loader = SyntheticLoader("markov", min(cfg.vocab_size, 512),
                              args.batch, args.seq)
     tr = Trainer(run, loader, ckpt_dir=args.ckpt_dir, device=args.device,
-                 obs_jsonl=args.obs_jsonl)
+                 obs_jsonl=args.obs_jsonl, mesh=mesh, constrain_fn=constrain)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-          f"mesh=({mesh['data']}x{mesh['model']}) devices={n} "
+          f"mesh=({d}x{m}) devices={n} "
           f"process={info['process_index']}/{info['process_count']} "
           f"multi_host={multi} compression={run.train.grad_compression} "
           f"device={tr.device}")

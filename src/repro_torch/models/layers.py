@@ -113,15 +113,17 @@ def init_attn_proj(gen, cfg, device):
 
 def qkv_project(p, x: torch.Tensor, cfg):
     """x: (B,N,d) -> q (B,H,N,dh), k/v (B,Hkv,N,dh), un-roped (the
-    attention backends rope per variant), each contiguous."""
+    attention backends rope per variant), each contiguous. The head counts
+    are the weights' (a tensor-parallel rank holds a column block of
+    them)."""
     B, N, _ = x.shape
-    dh, H, Hkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    dh = cfg.head_dim_
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, N, H, dh).transpose(1, 2).contiguous()
-    k = k.reshape(B, N, Hkv, dh).transpose(1, 2).contiguous()
-    v = v.reshape(B, N, Hkv, dh).transpose(1, 2).contiguous()
+    q = q.reshape(B, N, -1, dh).transpose(1, 2).contiguous()
+    k = k.reshape(B, N, -1, dh).transpose(1, 2).contiguous()
+    v = v.reshape(B, N, -1, dh).transpose(1, 2).contiguous()
     return q, k, v
 
 
@@ -142,12 +144,20 @@ def init_embed(gen, vocab: int, d: int, dtype, device, tie: bool):
     return p
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+def embed(p, tokens: torch.Tensor, axis=None) -> torch.Tensor:
+    """Token rows; on a model axis (``axis``, a
+    `dist.tensor_parallel.ModelAxis` of more than one rank) the table is
+    this rank's vocabulary block, and the lookup is vocab-parallel."""
+    if axis is not None and axis.size > 1:
+        from repro_torch.dist.tensor_parallel import vocab_embed
+        return vocab_embed(p["tok"], tokens, axis)
     return p["tok"][tokens]
 
 
 def logits_out(p, x: torch.Tensor, tie: bool,
                softcap: float = 0.0) -> torch.Tensor:
+    """fp32 logits; with this rank's vocabulary block of ``tok`` or
+    ``unembed`` (tensor parallelism), this rank's block of them."""
     lg = (x @ p["tok"].T) if tie else (x @ p["unembed"])
     lg = lg.float()
     if softcap:

@@ -14,6 +14,25 @@ restores only the default generators' state, so a generator carried into
 a rematerialized group would draw new masks on recompute. Masks cannot
 equal the JAX package's bits (another generator), so parity is held at
 dropout 0 and dropout by its statistics.
+
+Tensor parallelism (a `dist.tensor_parallel.ModelAxis` of M > 1 ranks):
+each rank holds its shards of the rule table's placements
+(`dist.sharding`) and runs the layer on them, Megatron-style: the
+attention and FFN inputs enter the column-parallel products through
+`ModelAxis.enter`, the row-parallel products' partial sums leave through
+`ModelAxis.exit`, and the attention is one single-device call on the
+rank's heads (`attn.head_shard`), so the CUDA kernels run there. A
+local+routing layer's rank takes ``Hl / M`` local and ``Hr / M`` routing
+heads (with their KV heads), not a contiguous column block of ``wq``: a
+contiguous cut would give rank 0 every local head and the last rank every
+routing head, while the centroids (`kstate_sharding`) split the routing
+heads evenly. So `dist.sharding.shard_tree` groups the attention leaves'
+head axis by rank before it cuts (`dist.sharding.head_groups`); the rule
+table's sharded dims stay the JAX package's, only the order of the heads
+inside them differs. With sequence parallelism the residual stream is the
+rank's N / M slice of the sequence: `enter` gathers it, `exit`
+reduce-scatters it, and the dropout mask is drawn for the whole sequence
+(the same on every rank) and sliced.
 """
 from __future__ import annotations
 
@@ -124,20 +143,30 @@ def fold_seed(seed: int, *data: int) -> int:
     return int.from_bytes(h.digest(), "little") & (2 ** 63 - 1)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]):
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int],
+             rows: Optional[Tuple[int, int]] = None):
     """Inverted dropout with a mask drawn from a generator seeded with
     ``seed``: the same seed gives the same mask, so a recomputed layer
-    reproduces its forward."""
+    reproduces its forward. ``rows`` (offset, full length): x holds those
+    rows of a longer sequence (a sequence-parallel rank's slice); the mask
+    is drawn for the full length and sliced, so it is the unsharded
+    stream's."""
     if seed is None or rate <= 0.0:
         return x
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    shape = list(x.shape)
+    if rows is not None:
+        shape[1] = rows[1]
+    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    if rows is not None:
+        keep = keep.narrow(1, rows[0], x.shape[1])
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
                 positions=None, pad_mask=None, update_state=True,
-                impl=None, cache=None, drop_seed: Optional[int] = None):
+                impl=None, cache=None, drop_seed: Optional[int] = None,
+                axis=None):
     """One ``attn`` layer, with dropout (rate ``cfg.dropout``) on the
     attention and FFN outputs when ``drop_seed`` is given.
 
@@ -146,20 +175,28 @@ def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
     attention computed (roped keys, routing vectors, centroid scores),
     which needs ``positions``; else new_cache is None. ``stats`` is the
     obs.RoutingStats of a routing layer with ``RoutingConfig.stats`` on,
-    else None.
+    else None. ``axis`` (a `ModelAxis`): ``p`` and ``kmu`` are this rank's
+    shards, x its part of the residual stream.
     """
     seeds = ((None, None) if drop_seed is None
              else (fold_seed(drop_seed, 0), fold_seed(drop_seed, 1)))
-    h = L.apply_norm(p["ln1"], x, cfg.norm)
+    tp = axis is not None and axis.size > 1
+    enter = axis.enter if tp else (lambda t: t)
+    leave = axis.exit if tp else (lambda t: t)
+    rows = axis.seq_rows(x.shape[1]) if tp and axis.seq_parallel else None
+    a_spec = spec_for_layer(cfg, spec.attn)
+    if tp:
+        a_spec = attn_api.head_shard(a_spec, axis.size)
+    h = enter(L.apply_norm(p["ln1"], x, cfg.norm))
     q, k, v = L.qkv_project(p["attn"], h, cfg)
-    out = attn_api.attend(spec_for_layer(cfg, spec.attn), q, k, v,
+    out = attn_api.attend(a_spec, q, k, v,
                           state=kmu, positions=positions, pad_mask=pad_mask,
                           update_state=update_state, impl=impl, fill=cache)
-    x = x + _dropout(L.out_project(p["attn"], out.out), cfg.dropout,
-                     seeds[0])
-    h2 = L.apply_norm(p["ln2"], x, cfg.norm)
-    x = x + _dropout(L.apply_mlp(p["ffn"], h2, cfg.act), cfg.dropout,
-                     seeds[1])
+    x = x + _dropout(leave(L.out_project(p["attn"], out.out)), cfg.dropout,
+                     seeds[0], rows)
+    h2 = enter(L.apply_norm(p["ln2"], x, cfg.norm))
+    x = x + _dropout(leave(L.apply_mlp(p["ffn"], h2, cfg.act)), cfg.dropout,
+                     seeds[1], rows)
     return x, out.state, out.cache, out.stats
 
 
@@ -176,7 +213,7 @@ def _unstack(tree, G: int):
 def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
                 positions=None, pad_mask=None, impl=None,
                 remat: str = "none", drop_seed: Optional[int] = None,
-                return_stats: bool = False):
+                return_stats: bool = False, constrain_fn=None, axis=None):
     """The whole stack over x (B,N,d) -> (x, new_seg_kstate), with each
     routing layer's EMA centroid update. ``return_stats`` adds a third
     element: the routing-health stats, a list over segments of
@@ -191,6 +228,11 @@ def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
     computed again there and dropped). ``drop_seed`` (with
     ``cfg.dropout > 0``) turns dropout on; layer ``n`` of the stack draws
     from ``fold_seed(drop_seed, n)``.
+
+    ``axis`` (a `dist.tensor_parallel.ModelAxis`) runs the layers on this
+    rank's shards (see the module's docstring); ``constrain_fn``
+    (`dist.sharding.make_constrain_fn`) is applied to the residual stream
+    at entry and after each group, as in the JAX package.
     """
     if remat == "save_dots":
         raise NotImplementedError(
@@ -198,6 +240,8 @@ def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}")
     dropout_on = drop_seed is not None and cfg.dropout > 0
+    constrain = constrain_fn or (lambda t: t)
+    x = constrain(x)
     new_seg_kstate, seg_stats = [], []
     layer = 0
     for si, (pattern, G) in enumerate(build_segments(cfg)):
@@ -209,12 +253,13 @@ def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
                 x, nk, _, st = apply_layer(
                     spec, p_group[i], k_group.get(str(i)), x, cfg,
                     positions=positions, pad_mask=pad_mask,
-                    update_state=True, impl=impl, drop_seed=seed)
+                    update_state=True, impl=impl, drop_seed=seed,
+                    axis=axis)
                 if str(i) in k_group:
                     new_k[str(i)] = nk
                 if st is not None:
                     stats_g[str(i)] = st
-            return x, new_k, stats_g
+            return constrain(x), new_k, stats_g
 
         groups, stats = [], []
         for p_group, k_group in zip(_unstack(seg_params[si], G),

@@ -22,7 +22,8 @@ def adam(b1=0.9, b2=0.98, eps=1e-9, weight_decay=0.0):
         return {"m": tree_map(f32, params), "v": tree_map(f32, params),
                 "count": 0}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, model=None):
+        # elementwise: a model-axis shard (``model``) updates on its own
         count = state["count"] + 1
         c = np.float32(count)
         bc1 = float(np.float32(1.0) - np.float32(b1) ** c)

@@ -20,6 +20,15 @@ differentiates its own rows, and the gradient mean goes over the wire as
 int8 with an error-feedback residual carried in ``TrainState.ef_state``
 (``int8_ef``), or as the exact fp32 mean; the optimizer update runs on
 every rank on the same mean, so the ranks stay equal bit for bit.
+
+On a (data, model) mesh whose model axis holds M > 1 ranks
+(`make_train_step(run, mesh=, constrain_fn=)`, `make_tp_train_step`) each
+rank holds its shards of the state (`init_train_state(mesh=)`,
+`dist.sharding.shard_state`) and runs the model tensor-parallel over its
+model group (and, with a ``constrain_fn`` of ``seq_parallel``,
+sequence-parallel); the gradient mean goes over its data group, the norm
+of the clip sums the shards' squares over the model group, Adam updates
+its shards and Adafactor reduces its statistics over the model group.
 """
 from __future__ import annotations
 
@@ -30,8 +39,10 @@ import torch
 from repro_torch.attn.spec import spec_for_layer
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.dist import compression as comp
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.models.model import (apply_model, init_model, lm_loss,
-                                      next_token_batch)
+                                      model_axis, next_token_batch)
 from repro_torch.models.transformer import build_segments, fold_seed
 from repro_torch.obs import routing_stats as obs_rt
 from repro_torch.obs.trace import span
@@ -57,33 +68,53 @@ def init_ef_state(params):
                                           device=p.device), params)
 
 
-def init_train_state(run: RunConfig, seed: int = 0,
-                     device="cuda") -> TrainState:
+def init_train_state(run: RunConfig, seed: int = 0, device="cuda",
+                     mesh=None, fsdp: bool = False) -> TrainState:
     """Fresh parameters, centroids and optimizer state on ``device``
     (default the card; raises without one unless ``device="cpu"``), and
     zero residuals when ``grad_compression == "int8_ef"``. Each rank holds
     only its own residual row, so the data-parallel size is not needed
-    here."""
+    here. On a ``mesh`` whose model axis holds M > 1 ranks, this rank's
+    shards of the same state (`dist.sharding.shard_state`: every rank
+    draws the whole state from ``seed`` and keeps its part). ``fsdp``
+    raises `NotImplementedError` (ROADMAP item 10)."""
+    if fsdp:
+        raise NotImplementedError(
+            "fsdp=True: the FSDP compute path waits for ROADMAP item 10 "
+            "(with item 12's families above 20 B parameters)")
     params, kstate = init_model(run.model, seed=seed, device=device)
     opt_init, _ = make_optimizer(run.train)
     ef = (init_ef_state(params)
           if run.train.grad_compression == "int8_ef" else None)
-    return TrainState(params, kstate, opt_init(params), 0, ef)
+    ts = TrainState(params, kstate, opt_init(params), 0, ef)
+    if mesh is not None and mesh.size("model") > 1:
+        ts = shd.shard_state(ts, run.model, mesh)
+    return ts
 
 
-def make_loss_fn(run: RunConfig, impl: Optional[str] = None):
+def make_loss_fn(run: RunConfig, impl: Optional[str] = None,
+                 constrain_fn=None, mesh=None):
     """``loss_fn(params, kstate, batch, drop_seed) -> (loss, (new_kstate,
-    metrics))``; ``batch["tokens"]`` is (B, S+1)."""
+    metrics))``; ``batch["tokens"]`` is (B, S+1). With ``mesh`` (a model
+    axis of M > 1 ranks) the params and centroids are this rank's shards
+    and the loss and the routing-health stats are the whole model's, on
+    every model rank."""
     mc, tc = run.model, run.train
+    axis = model_axis(mesh, constrain_fn)
 
     def loss_fn(params, kstate, batch, drop_seed):
         inputs, targets = next_token_batch(batch)
         logits, new_k, rstats = apply_model(
             params, kstate, inputs, mc, impl=impl, remat=tc.remat,
-            drop_seed=drop_seed, return_stats=True)
+            drop_seed=drop_seed, return_stats=True,
+            constrain_fn=constrain_fn, mesh=mesh)
         loss, metrics = lm_loss(logits, targets, inputs.get("pad_mask"),
-                                tc.z_loss)
+                                tc.z_loss, axis)
         metrics = dict(metrics)
+        if rstats is not None and axis is not None:
+            # each model rank computed its routing heads' stats: gather
+            # them along the head axis (rank order is head order)
+            rstats = _gather_heads(rstats, axis.mesh)
         if rstats is not None:
             # routing-health stats (RoutingConfig.stats): model-wide
             # scalars ("routing/entropy", ...) and per-layer detail
@@ -94,6 +125,14 @@ def make_loss_fn(run: RunConfig, impl: Optional[str] = None):
         return loss, (new_k, metrics)
 
     return loss_fn
+
+
+def _gather_heads(seg_stats, mesh):
+    """The stack's routing-health stats (a list over segments of {layer:
+    RoutingStats}, leaves (G, H/M, ...)) with the model ranks' heads
+    gathered: the whole model's (G, H, ...)."""
+    return [{li: type(st)(*(tpar.all_gather_dim(x, 1, mesh) for x in st))
+             for li, st in seg.items()} for seg in seg_stats]
 
 
 def value_and_grad(loss_fn, cfg: Optional[ModelConfig] = None):
@@ -144,13 +183,25 @@ def leaf_grads(loss, leaves, unread: Optional[List[bool]] = None,
             for p, g in zip(leaves, grads)]
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in tree_leaves(tree)))
+def global_norm(tree, model=None) -> torch.Tensor:
+    """The L2 norm over every leaf. ``model`` (mesh, dims): the leaves
+    whose dim is not None are this rank's shards, whose squares are summed
+    over the model group; the others (replicated, equal on every rank)
+    count once."""
+    leaves = tree_leaves(tree)
+    if model is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    mesh, dims = model
+    zero = leaves[0].new_zeros((), dtype=torch.float32)
+    repl = sum((g.float().square().sum() for g, d in zip(leaves, dims)
+                if d is None), zero)
+    cut = sum((g.float().square().sum() for g, d in zip(leaves, dims)
+               if d is not None), zero)
+    return torch.sqrt(repl + tpar.all_sum(cut, mesh))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gn = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, model=None):
+    gn = global_norm(grads, model)
     scale = torch.clamp(max_norm / gn.clamp_min(1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
@@ -195,12 +246,14 @@ def make_grad_fn(run: RunConfig, loss_fn):
 
 
 def _finish_step(tc, schedule, opt_update, ts: TrainState, grads, new_k,
-                 metrics, new_ef):
-    """Shared tail: clip, lr, optimizer update, state assembly."""
+                 metrics, new_ef, model=None):
+    """Shared tail: clip, lr, optimizer update, state assembly (``model``:
+    (mesh, dims) of a tensor-parallel state, see `global_norm`)."""
     with span("train/optimizer"):
-        grads, gn = clip_by_global_norm(grads, tc.grad_clip)
+        grads, gn = clip_by_global_norm(grads, tc.grad_clip, model)
         lr = schedule(ts.step + 1)
-        new_params, new_opt = opt_update(grads, ts.opt_state, ts.params, lr)
+        new_params, new_opt = opt_update(grads, ts.opt_state, ts.params, lr,
+                                         model=model)
     metrics["grad_norm"] = gn
     metrics["lr"] = lr
     return (TrainState(new_params, new_k, new_opt, ts.step + 1, new_ef),
@@ -213,7 +266,8 @@ def _drop_seed(run: RunConfig, step: int) -> Optional[int]:
             else None)
 
 
-def make_train_step(run: RunConfig, impl: Optional[str] = None):
+def make_train_step(run: RunConfig, impl: Optional[str] = None,
+                    constrain_fn=None, mesh=None):
     """``train_step(ts, batch) -> (new_ts, metrics)``; the metrics are
     0-d tensors (``lr`` a float; with ``RoutingConfig.stats`` also the
     ``routing/*`` scalars and the per-layer ``rt/*`` (G, H) tensors) and
@@ -221,12 +275,18 @@ def make_train_step(run: RunConfig, impl: Optional[str] = None):
     the span ``train/grad``, the clip and optimizer update under
     ``train/optimizer``.
     ``impl`` forces an attention backend (``"torch"``: the plain path);
-    by default CUDA tensors take the kernels. With ``int8_ef`` compression
-    or more than one rank in the default process group, the
-    data-parallel step (`make_compressed_train_step`)."""
+    by default CUDA tensors take the kernels. On a ``mesh`` whose model
+    axis holds more than one rank, the tensor-parallel step
+    (`make_tp_train_step`, ``constrain_fn`` from
+    `dist.sharding.make_constrain_fn`); else, with ``int8_ef`` compression
+    or more than one rank in the default process group, the data-parallel
+    step (`make_compressed_train_step`, over the mesh's data group)."""
+    if mesh is not None and mesh.size("model") > 1:
+        return make_tp_train_step(run, impl, constrain_fn, mesh)
     if (run.train.grad_compression == "int8_ef"
             or comp.world_size() > 1):
-        return make_compressed_train_step(run, impl)
+        return make_compressed_train_step(
+            run, impl, None if mesh is None else mesh.group("data"))
     tc = run.train
     loss_fn = make_loss_fn(run, impl)
     _, opt_update = make_optimizer(tc)
@@ -336,3 +396,98 @@ def make_compressed_train_step(run: RunConfig, impl: Optional[str] = None,
                             metrics, new_ef if compress else ts.ef_state)
 
     return train_step
+
+
+def make_tp_train_step(run: RunConfig, impl: Optional[str] = None,
+                       constrain_fn=None, mesh=None):
+    """The train step on a (data, model) mesh with M > 1 model ranks: the
+    gradients of `make_tp_grad_fn`, then the clip, whose norm sums the
+    shards' squares over the model group, and the optimizer: Adam updates
+    each shard, Adafactor reduces its statistics over the model group.
+    ``int8_ef`` raises `ValueError` (data-parallel only, as in the JAX
+    package). The routing-health stats (``RoutingConfig.stats``) are the
+    whole model's: each rank's heads' stats gathered over the model
+    group (`make_loss_fn`).
+    """
+    tc = run.train
+    if tc.grad_compression == "int8_ef":
+        raise ValueError(
+            "int8_ef grad compression is data-parallel only; got a mesh "
+            f"with model axis size {mesh.size('model')}")
+    grad_fn = make_tp_grad_fn(run, impl, constrain_fn, mesh)
+    _, opt_update = make_optimizer(tc)
+    schedule = make_schedule(tc, run.model.d_model)
+
+    def train_step(ts: TrainState, batch: Dict[str, torch.Tensor]):
+        grads, new_k, metrics = grad_fn(ts.params, ts.kstate, batch,
+                                        _drop_seed(run, ts.step))
+        dims = shd.model_dims(shd.grads_placements(mesh, grads), grads)
+        return _finish_step(tc, schedule, opt_update, ts, grads, new_k,
+                            metrics, ts.ef_state, model=(mesh, dims))
+
+    return train_step
+
+
+def make_tp_grad_fn(run: RunConfig, impl: Optional[str] = None,
+                    constrain_fn=None, mesh=None):
+    """``(params, kstate, batch, drop_seed) -> (grads, new_kstate,
+    metrics)`` of this rank's shards on a (data, model) mesh.
+
+    Each rank is handed the global batch and takes the rows of its data
+    coordinate (D data ranks: rows d * B / D to (d + 1) * B / D); the model
+    ranks of one data coordinate run the model tensor-parallel on their
+    shards (`models.transformer`), sequence-parallel when ``constrain_fn``
+    says so. The gradients of the replicated leaves come out equal on the
+    model ranks (the conjugate collectives; under sequence parallelism
+    each rank's part of a norm's gradient, from its slice of the
+    sequence, is summed over the model group). Over D > 1 the gradients,
+    float centroids and metrics take the exact fp32 mean over the data
+    group, as the data-parallel step's."""
+    D = mesh.size("data")
+    if run.train.global_batch % D:
+        raise ValueError(f"global_batch={run.train.global_batch} must "
+                         f"divide over {D} data-parallel ranks")
+    seq_parallel = getattr(constrain_fn, "seq_parallel", False)
+    dgroup = mesh.group("data")
+    d = mesh.coord("data")
+    grad_fn = make_grad_fn(run, make_loss_fn(run, impl, constrain_fn, mesh))
+
+    def tp_grad_fn(params, kstate, batch, drop_seed):
+        B = batch["tokens"].shape[0]
+        if B % D:
+            raise ValueError(f"batch of {B} rows does not split over {D} "
+                             f"data-parallel ranks")
+        rows = slice(d * B // D, (d + 1) * B // D)
+        local = {k: v[rows] for k, v in batch.items()}
+        with span("train/grad"):
+            grads, new_k, metrics = grad_fn(params, kstate, local,
+                                            drop_seed)
+        with span("train/exchange"):
+            if seq_parallel:
+                dims = shd.model_dims(shd.grads_placements(mesh, grads),
+                                      grads)
+                grads = _sum_replicated(grads, dims, mesh)
+            if D > 1:
+                grads, _ = exchange_grads(grads, None, dgroup)
+                new_k = tree_map(lambda a: comp.all_mean(a, dgroup)
+                                 if a.is_floating_point() else a, new_k)
+                metrics = sync_metrics(metrics, dgroup)
+        return grads, new_k, metrics
+
+    return tp_grad_fn
+
+
+def _sum_replicated(grads, dims, mesh):
+    """The replicated leaves' gradients summed over the model group (one
+    flat buffer): under sequence parallelism each rank's is the part of
+    its slice of the sequence."""
+    leaves = tree_leaves(grads)
+    idx = [i for i, dm in enumerate(dims) if dm is None]
+    if not idx:
+        return grads
+    flat = torch.cat([leaves[i].float().reshape(-1) for i in idx])
+    flat = tpar.all_sum(flat, mesh)
+    out = list(leaves)
+    for i, part in zip(idx, flat.split([leaves[i].numel() for i in idx])):
+        out[i] = part.reshape(leaves[i].shape).to(leaves[i].dtype)
+    return tree_unflatten(grads, out)

@@ -1,6 +1,6 @@
 """Training loop of the port (port of the JAX package's
-``train/trainer.py``; data-parallel over the default process group, no
-model-axis mesh).
+``train/trainer.py``; data-parallel over the default process group, and on
+a ``mesh`` with a model axis tensor-parallel too).
 
 * `fit` resumes from the latest complete checkpoint of ``ckpt_dir``
   (atomic rename commit: a torn save is invisible), restoring parameters,
@@ -17,6 +17,11 @@ model-axis mesh).
   (the step takes its own rows); the residual rows are gathered into the
   checkpoint's (D, *shape) leaves, rank 0 writes, and each rank restores
   its own row (a checkpoint of another D re-zeros them).
+* On a mesh whose model axis holds M > 1 ranks (``mesh=``, with
+  ``constrain_fn`` from `dist.sharding.make_constrain_fn`) every rank holds
+  its shards; a checkpoint is written in the JAX package's format from the
+  gathered full arrays, by rank 0, and a restore cuts the full arrays for
+  the current mesh, so a checkpoint moves between meshes.
 * Straggler watch: per-step wall times feed a rolling median; steps slower
   than ``straggler_factor`` x median increment a counter and call
   ``on_straggler(step, ratio)``.
@@ -41,6 +46,7 @@ from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.dist import compression as comp
+from repro_torch.dist import sharding as shd
 from repro_torch.obs import JsonlSink, Registry, StepSeries
 from repro_torch.obs.metrics import _host
 from repro_torch.tree import tree_map
@@ -54,9 +60,12 @@ class Trainer:
                  straggler_factor: float = 2.5,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
                  async_ckpt: bool = True, step_fn=None, device="cuda",
-                 obs_jsonl: Optional[str] = None):
+                 obs_jsonl: Optional[str] = None, mesh=None,
+                 constrain_fn=None):
         self.device = resolve_device(device)
         self.run = run
+        self.mesh = mesh
+        self.tp = mesh is not None and mesh.size("model") > 1
         self.loader = loader
         self.ckpt_every = ckpt_every
         self.async_ckpt = async_ckpt
@@ -66,7 +75,8 @@ class Trainer:
         self.straggler_count = 0
         self._times: List[float] = []
         self._preempted = False
-        self.step_fn = step_fn or make_train_step(run)
+        self.step_fn = step_fn or make_train_step(
+            run, constrain_fn=constrain_fn, mesh=mesh)
         self.state: Optional[TrainState] = None
         self.obs = Registry()
         self._sink = (JsonlSink(obs_jsonl, source="trainer")
@@ -85,10 +95,13 @@ class Trainer:
 
     def init_or_restore(self) -> TrainState:
         """The latest checkpoint's state (and loader cursor), or a fresh
-        state from ``run.train.seed`` when there is none."""
-        state = init_train_state(self.run, seed=self.run.train.seed,
-                                 device=self.device)
-        if self.mgr is not None and self.mgr.latest_step() is not None:
+        state from ``run.train.seed`` when there is none; on a model axis,
+        this rank's shards of either."""
+        resume = self.mgr is not None and self.mgr.latest_step() is not None
+        state = init_train_state(
+            self.run, seed=self.run.train.seed, device=self.device,
+            mesh=None if resume else self.mesh)
+        if resume:
             D, r = comp.world_size(), comp.rank()
             if any(k.split("/", 1)[0] == "params" for k in self.mgr.keys()):
                 # the field-named layout: leaves keyed "params/...",
@@ -110,6 +123,8 @@ class Trainer:
                 state = legacy._replace(ef_state=state.ef_state)
             if "loader" in extra:
                 self.loader.restore(extra["loader"])
+            if self.tp:
+                state = shd.shard_state(state, self.run.model, self.mesh)
         self.state = state
         return state
 
@@ -130,6 +145,8 @@ class Trainer:
             return
         D = comp.world_size()
         state = self.state
+        if self.tp:
+            state = shd.gather_state(state, self.run.model, self.mesh)
         if state.ef_state is not None and D > 1:
             state = state._replace(ef_state=tree_map(
                 lambda e: comp.all_gather_rows(e[0]), state.ef_state))

@@ -35,7 +35,8 @@ axis_name="i")``.
   ``--process-id``, ``int8_ef``, ``--ckpt-dir``);
 * ``detect`` / ``LaunchSpec`` / ``feasible_mesh_shape``, copied from
   ``tests/test_distributed.py`` and ``tests/test_mesh.py``, and the port's
-  mesh, which clamps as JAX's and refuses a model axis above 1.
+  mesh, which clamps as JAX's (its model axis is held in
+  `test_torch_tp.py`).
 """
 import concurrent.futures
 import datetime
@@ -609,13 +610,23 @@ def test_feasible_mesh_shape(n, data, model, want):
 
 
 def test_host_mesh_clamps_to_the_data_axis(monkeypatch):
-    assert dist.make_process_mesh(64, 64) == {"data": 1, "model": 1}
-    assert port_mesh.make_host_mesh(2, 4) == {"data": 1, "model": 1}
+    """The clamped grid, its coordinates, and the production meshes'
+    shapes (the JAX package's); a model axis above 1 builds process
+    groups, held in `test_torch_tp.py`."""
+    m = dist.make_process_mesh(64, 64)
+    assert m.shape == {"data": 1, "model": 1}
+    assert m.coords == {"data": 0, "model": 0} and m.groups == {}
+    assert port_mesh.make_host_mesh(2, 4).shape == {"data": 1, "model": 1}
     monkeypatch.setattr(comp, "world_size", lambda group=None: 8)
-    assert port_mesh.make_host_mesh(8, 1) == {"data": 8, "model": 1}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_mesh.make_host_mesh(2, 4)
-    with pytest.raises(ValueError, match="out of the data axis"):
+    monkeypatch.setattr(comp, "rank", lambda group=None: 5)
+    m = port_mesh.make_host_mesh(8, 1)
+    assert m.shape == {"data": 8, "model": 1}
+    assert m.coords == {"data": 5, "model": 0}
+    assert m.groups == {"data": None}        # the default group
+    with pytest.raises(ValueError, match="processes out"):
         port_mesh.make_host_mesh(4, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_mesh.make_production_mesh()
+    for multi_pod, shape in ((False, {"data": 16, "model": 16}),
+                             (True, {"pod": 2, "data": 16, "model": 16})):
+        pm = port_mesh.make_production_mesh(multi_pod=multi_pod)
+        assert pm.shape == shape and pm.axis_names == tuple(shape)
+        assert pm.coords is None and pm.groups == {}

@@ -13,8 +13,10 @@
   `detect`'s ValueError, ``--process-id`` alone runs as one process (the
   multi-process launch itself is held in `test_torch_dist.py`, the
   observability flags in `test_torch_obs.py`);
-* what is not ported raises, naming ROADMAP item 10: ``--seq-parallel``,
-  and a mesh whose model axis stays above 1 after clamping;
+* ``--seq-parallel`` trains (on one process its model axis is one rank;
+  the model axis itself is held in `test_torch_tp.py`), and beside
+  ``--grad-compression int8_ef`` it and a model-axis mesh are refused with
+  the JAX launcher's ``ap.error``;
 * without ``--device``, on a host with no card, it raises instead of
   running on the CPU.
 """
@@ -104,11 +106,18 @@ def test_flags_do_what_the_jax_launcher_does(flag, tmp_path, capsys):
                                         (["--mesh", "2x4"], 8)],
                          ids=["--seq-parallel", "--mesh model axis"])
 def test_unported_flag_raises(flag, world, monkeypatch):
+    """Both flags are ported: what still refuses them is the int8 exchange,
+    data-parallel only (the JAX launcher's ``ap.error``); at one process
+    ``--seq-parallel`` trains."""
     from repro_torch.dist import compression as comp
+    if world == 1:
+        out = launcher.main(["--reduced", "--steps", "1", "--device", "cpu",
+                             *flag])
+        assert out["steps"] == 1 and math.isfinite(out["final_loss"])
     monkeypatch.setattr(comp, "world_size", lambda group=None: world)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(SystemExit):
         launcher.main(["--reduced", "--steps", "1", "--device", "cpu",
-                       *flag])
+                       *flag, "--grad-compression", "int8_ef"])
 
 
 def test_defaults_to_the_card(monkeypatch):

@@ -265,12 +265,21 @@ def test_routing_stats_detect_collapse():
 
 
 def test_segments_still_raise_naming_item_11():
+    """The segment fold is ported: ``segments=2`` with the stats on routes
+    each half of the sequence on its own and reads the stats of the folded
+    batch, as the JAX package's `routed_attention` does (its fold holds in
+    `test_torch_sharding.py` too)."""
     q, v, mu = _routing_inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
-        routing.routed_attention(
-            torch.tensor(q), None, torch.tensor(v),
-            KMeansState(torch.tensor(mu)),
-            RoutingConfig(num_clusters=4, segments=2, stats=True))
+    got = routing.routed_attention(
+        torch.tensor(q), None, torch.tensor(v),
+        KMeansState(torch.tensor(mu)),
+        RoutingConfig(num_clusters=4, segments=2, stats=True))
+    want = jax_routing.routed_attention(
+        q, None, v, JaxKMeansState(mu),
+        JaxRoutingConfig(num_clusters=4, segments=2, stats=True))
+    _close(got.out.numpy(), want.out)
+    _close(got.state.mu.numpy(), want.state.mu)
+    _stats_close(got.stats, want.stats, drift_atol=DRIFT_ATOL)
 
 
 def test_summarize_and_flatten_match_jax(jax_routed):
