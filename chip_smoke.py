@@ -258,6 +258,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
    1 x 1. Each rank's launches are exact per part (a step's worth per
    layer as 1 x 1), and every attention call runs half the heads (7 query
    and 1 KV head for qwen2);
+   then (slice 20) ``remat``: one bf16 step each of full-width rt-enwik8
+   (B 2 x 8192, the TrainConfig defaults, dropout 0.4) and qwen2-0.5b (B
+   2 x 4096, the launcher's config) from the same state at step 1000,
+   under remat "full" and "save_dots": the loss and every gradient equal
+   to the bit (a leaf "full" does not repeat itself may differ within
+   MAX_REPEAT_FP32), the launches equal and a train step's; busy ms of a
+   profiled step and the gradient step's peak memory, "full" against
+   "save_dots"; then the fp32 routing gate (as in 5, rt-enwik8's limits,
+   membership pinned) at B 1 x 8192 under "save_dots"; and
+   ``tp_engine``: the serve engine on the mesh, TP_RANKS processes of
+   `tp_engine_rank` on the one card (gloo), full-width rt-enwik8 with
+   each rank running 2 local and 2 routing heads. (a) fp32 at 1 x 2, 8
+   requests (prompts 256-1024, 8 greedy tokens) over 4 lanes of 2048 with
+   record_logits, against the 1 x 1 fp32 engine in this process: every
+   stream up to its first differing token under the serving gates
+   (top-1 >= 0.99, median largest logit difference <= 1e-2), the ranks'
+   tokens and logits rows equal to the bit; the streams equal to the end
+   and the decode routing choices that differ are reported. (b) bf16 at
+   1 x 2, `serve_engine`'s first 8 requests and two of its repeated
+   prompts, chunked prefill, time slices, a prefix cache, half sampled:
+   the ranks' streams equal to the bit, each prefill, chunked stage,
+   decode step, park, resume and activation launching exactly its
+   kernels on the rank's heads; TTFT, the decode-step wall p50 / p90 and
+   the bytes per rank per decode step through the model group. (c) fp32
+   at 2 x 1, as (a), the lanes over the data axis;
 9. print the per-kernel JSON line, then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
@@ -509,6 +534,27 @@ DIST_TIMEOUT_S = 600
 # with and without seq_parallel against 1 x 1
 TP_RANKS, TP_STEPS = 2, 2
 TP_TIMEOUT_S = 900
+# slice 20: remat "save_dots" against "full", one bf16 step each from the
+# same state at REMAT_STEP (rt-enwik8's vaswani peak) of rt-enwik8 at B
+# TRAIN_BATCH x TRAIN_SEQ (the TrainConfig defaults, dropout 0.4) and
+# qwen2-0.5b at B FULL_BATCH x FULL_SEQ (the launcher's config); the loss
+# and every gradient equal to the bit, the launches equal; then the fp32
+# routing gate under "save_dots" at B 1 x TRAIN_SEQ
+REMAT_STEP = 1000
+# slice 20: the serve engine on the mesh, TP_RANKS processes on the one
+# card (gloo). (a) fp32 at 1 x 2: TP_ENGINE_REQUESTS requests (prompts from
+# TP_ENGINE_PROMPTS, TP_ENGINE_NEW greedy tokens) over TP_ENGINE_SLOTS
+# lanes of TP_ENGINE_MAX_LEN, record_logits, against the 1 x 1 fp32 engine
+# in this process under the serving gates (MIN_TOP1_FP32,
+# MAX_MEDIAN_DIFF_FP32) up to each stream's first differing token; (b)
+# bf16 at 1 x 2: serve_engine's first 8 requests and two of its repeated
+# prompts (prefix hits), chunked prefill, time slices (ENGINE_RUN_A);
+# (c) fp32 at 2 x 1, as (a), the slots over the data axis
+TP_ENGINE_REQUESTS = 8
+TP_ENGINE_PROMPTS = (256, 512, 768, 1024)
+TP_ENGINE_NEW = 8
+TP_ENGINE_SLOTS, TP_ENGINE_MAX_LEN = 4, 2048
+TP_ENGINE_REPEATS = (20, 21)        # serve_engine's repeats of uids 0, 1
 # (a), (c): the loss within this relative difference of the 1 x 1 step's
 # (only the order of fp32 sums differs); the gradients' median and largest
 # leaf difference and the parameters' median within the routing gate's
@@ -676,12 +722,15 @@ _PAPER = ("train_pg19", "train_imagenet64", "train_wikitext103")
 # ("tp")
 _SERVE_PAPER = tuple(SERVE_PAPER)
 _ENGINE = ("serve_engine", "serve_disagg", "obs")
+# and since slice 20 the local, fused and flash kernels train under remat
+# "save_dots" ("remat"), and the local, fused and decode kernels serve on
+# each rank's heads of the mesh engine ("tp_engine")
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
               "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER,
-              *_ENGINE, "ckpt_dist", "tp")
+              *_ENGINE, "ckpt_dist", "tp", "remat", "tp_engine")
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
-              *_PAPER, "obs", "ckpt_dist", "tp")
-_FLASH = ("train_full", "launch", "ckpt_launch", "tp")
+              *_PAPER, "obs", "ckpt_dist", "tp", "remat")
+_FLASH = ("train_full", "launch", "ckpt_launch", "tp", "remat")
 _GATHERED = ("train_gathered", "fit_gathered")
 KERNELS = {
     "local_attention": dict(
@@ -694,13 +743,13 @@ KERNELS = {
         kind="forward", layers="routing",
         paths=("serve", "train", "serve_cifar", "train_cifar",
                "serve_routing", *_PAPER, *_SERVE_PAPER, *_ENGINE,
-               "ckpt_dist", "tp")),
+               "ckpt_dist", "tp", "remat", "tp_engine")),
     "routing_decode": dict(
         route="cuda", source="src/repro_torch/csrc/routing_decode.cu",
         replaces="src/repro/kernels/routing_decode.py:59",
         kind="decode", layers="routing",
         paths=("serve", "serve_cifar", "serve_routing", *_SERVE_PAPER,
-               *_ENGINE)),
+               *_ENGINE, "tp_engine")),
     "local_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/local_attention_bwd.cu",
         replaces="src/repro/kernels/local_attention.py:59",
@@ -713,12 +762,14 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:372",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist", "tp")),
+        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist", "tp",
+               "remat")),
     "routing_fused_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/routing_fused_bwd.cu",
         replaces="src/repro/kernels/routing_attention.py:411",
         kind="backward", layers="routing",
-        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist", "tp")),
+        paths=("train", "train_cifar", *_PAPER, "obs", "ckpt_dist", "tp",
+               "remat")),
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:47",
@@ -2804,19 +2855,31 @@ def one_graph_grads(torch, run, params32, kstate, batch, contexts,
                     impl=None):
     """Gradients of one forward graph's loss (on ``impl``), one backward
     pass inside each of ``contexts``: the forward is the same for all of
-    them, so they differ only in the backward."""
+    them, so they differ only in the backward. Under remat "save_dots"
+    each backward gets a forward of its own: torch's selective checkpoint
+    lets a region's backward run once (its saved products are handed
+    over, not kept), and the forward kernels repeat bit for bit, so the
+    forwards are the same bits."""
     from repro_torch.train.train_step import (leaf_grads, make_loss_fn,
                                               unread_leaves)
     from repro_torch.tree import tree_leaves, tree_unflatten
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params32)]
     unread = unread_leaves(params32, run.model)
-    loss, _ = make_loss_fn(run, impl)(tree_unflatten(params32, leaves),
-                                      kstate, batch, None)
+    once = run.train.remat == "save_dots"
+
+    def forward():
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params32)]
+        loss, _ = make_loss_fn(run, impl)(tree_unflatten(params32, leaves),
+                                          kstate, batch, None)
+        return leaves, loss
+    leaves, loss = forward()
     out = []
     for i, ctx in enumerate(contexts):
+        if once and i:
+            leaves, loss = forward()
         with ctx:
             g = leaf_grads(loss, leaves, unread,
-                           retain_graph=i < len(contexts) - 1)
+                           retain_graph=not once and i < len(contexts) - 1)
         torch.cuda.synchronize()
         out.append(tree_unflatten(params32, g))
     return out
@@ -2910,7 +2973,7 @@ def gate_failures(out, limits) -> list:
 
 
 def routing_gate(torch, cfg, params, kstate, batch, limits, impl=None,
-                 ref_impl="torch"):
+                 ref_impl="torch", remat="full"):
     """fp32 train step of a routing model (dropout 0, the same weights),
     the kernel path ``impl`` against the path ``ref_impl``:
 
@@ -2927,13 +2990,15 @@ def routing_gate(torch, cfg, params, kstate, batch, limits, impl=None,
 
     Reported beside them: ``ref_impl`` routing on its own (``unpinned``,
     with the number of routing calls whose membership differed). Raises
-    on any of `gate_failures`."""
+    on any of `gate_failures`. Every path runs under ``remat``."""
+    from dataclasses import replace
     from repro_torch.configs import with_overrides
     from repro_torch.train.train_step import make_loss_fn, value_and_grad
     from repro_torch.tree import tree_leaves, tree_map
     run = train_run_config(with_overrides(cfg, dtype="float32", dropout=0.0),
                            batch["tokens"].shape[0],
                            batch["tokens"].shape[1] - 1)
+    run = replace(run, train=replace(run.train, remat=remat))
     params32 = tree_map(lambda t: t.float(), params)
 
     def step(impl, membership=contextlib.nullcontext()):
@@ -3125,12 +3190,12 @@ def layer_counts(cfg) -> dict:
 def expected_launches(path, run, steps):
     """Per kernel, the launches of ``steps`` train steps of ``run`` on
     ``path``: each forward kernel of the path once per layer that runs it
-    and microbatch, twice with remat "full" (forward and recompute); each
-    backward kernel once; every other kernel never."""
+    and microbatch, twice with remat "full" or "save_dots" (forward and
+    recompute); each backward kernel once; every other kernel never."""
     tc = run.train
     layers = layer_counts(run.model)
     per = tc.grad_accum * steps
-    fwd = per * (2 if tc.remat == "full" else 1)
+    fwd = per * (2 if tc.remat in ("full", "save_dots") else 1)
     return {n: (0 if path not in meta["paths"] else
                 layers[meta["layers"]] * (fwd if meta["kind"] == "forward"
                                           else per))
@@ -5180,6 +5245,437 @@ def tp_phase(torch, card, counts) -> tuple:
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# Since slice 20: remat "save_dots", and the serve engine on the mesh
+# ---------------------------------------------------------------------------
+def remat_runs():
+    """The remat phase's bf16 cells: rt-enwik8 under the TrainConfig
+    defaults at its train shape, qwen2-0.5b under the launcher's config
+    at B FULL_BATCH x FULL_SEQ."""
+    from repro_torch.configs import get_config
+    return {"rt-enwik8": train_run_config(get_config(ARCH)),
+            "qwen2-0.5b": full_run_config(get_config(FULL_ARCH), FULL_BATCH,
+                                          FULL_SEQ)}
+
+
+def with_remat(run, remat):
+    from dataclasses import replace
+    return replace(run, train=replace(run.train, remat=remat))
+
+
+def leaf_differences(torch, a, b) -> list:
+    """(index, largest |a - b| / largest |b|) of every leaf pair that
+    differs in any bit."""
+    from repro_torch.tree import tree_leaves
+    return [(i, float((x.float() - y.float()).abs().max()
+                      / y.float().abs().max().clamp_min(1e-30)))
+            for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b)))
+            if not torch.equal(x, y)]
+
+
+def remat_cell(torch, name, run, counts) -> dict:
+    """One cell of the remat phase: from random weights (seed 0) and a
+    state at REMAT_STEP, the loss and gradients of one step (the step's
+    dropout seed) under "full" and under "save_dots", each with its
+    launches and peak memory, then one profiled train step of each (busy
+    ms, wall). Gates: the loss and every gradient leaf equal to the bit,
+    or, for a leaf that "full" does not repeat bit for bit itself (a
+    third "full" run), within MAX_REPEAT_FP32 of it; the launches equal
+    each other and a train step's (`expected_launches`)."""
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.train_step import (TrainState, _drop_seed,
+                                              make_grad_fn, make_loss_fn,
+                                              make_train_step)
+    params, kstate = init_model(run.model, seed=0, device=DEVICE)
+    vocab = min(run.model.vocab_size, FULL_VOCAB)
+    batch = train_batches(torch, vocab, run.train.global_batch,
+                          run.train.seq_len, 1)[0]
+    seed = _drop_seed(run, REMAT_STEP)
+    opt_init, _ = make_optimizer(run.train)
+    ts = TrainState(params, kstate, opt_init(params), REMAT_STEP)
+    row, got = dict(shape=f"B{run.train.global_batch} x "
+                          f"{run.train.seq_len}", step=REMAT_STEP), {}
+    for remat in ("full", "save_dots"):
+        r = with_remat(run, remat)
+        grad_fn = make_grad_fn(r, make_loss_fn(r))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        grads, _, metrics = grad_fn(params, kstate, batch, seed)
+        loss = metrics["loss"].clone()
+        torch.cuda.synchronize()
+        launches = {n: counts()[n] - before[n] for n in before}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got[remat] = (loss, grads)
+        step_fn = make_train_step(r)
+        prof = profiled(torch, lambda: float(step_fn(ts, batch)[1]["loss"]))
+        row[remat] = dict(loss=float(loss), launches=launches,
+                          grad_peak_mem_gib=peak,
+                          busy_ms=prof["device_busy_ms"],
+                          wall_ms=prof["wall_ms"],
+                          device_launches=prof["device_launches"],
+                          top_ops=prof["device_ops"][:5])
+        want = {n: c for n, c in expected_launches("remat", r, 1).items()
+                if c}
+        if {n: c for n, c in launches.items() if c} != want:
+            raise AssertionError(f"remat {name} {remat}: launches "
+                                 f"{launches}, expected {want}")
+        del step_fn
+    (lf, gf), (ld, gd) = got["full"], got["save_dots"]
+    diff = leaf_differences(torch, gd, gf)
+    unrepeatable = []
+    if diff:
+        r = with_remat(run, "full")
+        again = make_grad_fn(r, make_loss_fn(r))(params, kstate, batch,
+                                                 seed)[0]
+        unrepeatable = [i for i, _ in leaf_differences(torch, again, gf)]
+    row.update(loss_equal=bool(torch.equal(lf, ld)), leaves_differing=diff,
+               full_unrepeatable_leaves=unrepeatable)
+    bad = [(i, d) for i, d in diff
+           if i not in unrepeatable or not d <= MAX_REPEAT_FP32]
+    if not row["loss_equal"] or bad:
+        raise AssertionError(f"remat {name}: save_dots against full: "
+                             f"loss equal {row['loss_equal']}, leaves "
+                             f"{bad} differ beyond the repeat bound")
+    del params, kstate, ts, got, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def remat_phase(torch, card, counts) -> dict:
+    """The `remat` path: `remat_cell` for each of `remat_runs` (the
+    counters set to 0 by the caller, read here after the cells), then the
+    fp32 routing gate (`routing_gate`, rt-enwik8's limits, membership
+    pinned) at B 1 x TRAIN_SEQ under "save_dots". Returns the row and the
+    cells' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+    t0 = time.perf_counter()
+    rows = {name: remat_cell(torch, name, run, counts)
+            for name, run in remat_runs().items()}
+    launches = counts()
+    cfg = get_config(ARCH)
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    batch = train_batches(torch, cfg.vocab_size, 1, TRAIN_SEQ, 1)[0]
+    gate = routing_gate(torch, cfg, params, kstate, batch, ENWIK8_LIMITS,
+                        remat="save_dots")
+    del params, kstate
+    torch.cuda.empty_cache()
+    row = dict(card=card, cells=rows, fp32_gate=gate,
+               seconds=time.perf_counter() - t0)
+    summary = {name: {k: {m: r[k][m] for m in ("busy_ms", "wall_ms",
+                                                "grad_peak_mem_gib")}
+                      for k in ("full", "save_dots")}
+               for name, r in rows.items()}
+    for name, r in rows.items():
+        summary[name].update({k: r[k] for k in (
+            "loss_equal", "leaves_differing", "full_unrepeatable_leaves")})
+    print(f"remat [{card}] {json.dumps(summary)} fp32 gate "
+          f"{json.dumps({k: gate[k] for k in ('loss_diff', 'grad_rel_median', 'backward', 'repeat')})}",
+          flush=True)
+    return row, launches
+
+
+def tp_engine_requests(torch, cfg):
+    """(a) and (c)'s workload (seed 15): TP_ENGINE_REQUESTS greedy
+    requests, prompts cycling through TP_ENGINE_PROMPTS, TP_ENGINE_NEW new
+    tokens each, two arrivals per step."""
+    from repro_torch.serve.engine import Request
+    gen = torch.Generator().manual_seed(15)
+    return [Request(uid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (TP_ENGINE_PROMPTS[i % len(TP_ENGINE_PROMPTS)],),
+        generator=gen).tolist(), max_new_tokens=TP_ENGINE_NEW,
+        arrival_step=i // 2) for i in range(TP_ENGINE_REQUESTS)]
+
+
+@contextlib.contextmanager
+def decode_routes(eng, log: list):
+    """Inside the block, each of ``eng``'s decode steps appends {"step",
+    "active": the global slots it decodes here, "c": every routing
+    layer's chosen cluster (B, Hr) in layer order} to ``log``."""
+    from repro_torch.attn import backends
+    route = backends._route_token
+    lanes = eng._decode_lanes
+
+    def step(local, greedy):
+        log.append(dict(step=eng.step_count, active=list(local), c=[]))
+        return lanes(local, greedy)
+
+    def routed(q, mu, cache):
+        r, c, plen = route(q, mu, cache)
+        if log:
+            log[-1]["c"].append(c.cpu())
+        return r, c, plen
+    eng._decode_lanes = step
+    try:
+        with swapped(backends, "_route_token", routed):
+            yield
+    finally:
+        eng._decode_lanes = lanes
+
+
+def tp_engine_fp32(torch, mesh=None, log=None):
+    """(a) (or, on a 2 x 1 mesh, (c); without a mesh the 1 x 1 reference):
+    full-width rt-enwik8 in fp32 (random weights from seed 0) through the
+    engine on `tp_engine_requests`, recording the logits and, into
+    ``log``, the decode routing. Returns (tokens, logits rows by uid,
+    the engine's summary)."""
+    import numpy as np
+    from repro_torch.configs import get_config, with_overrides
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import InferenceEngine
+    cfg = with_overrides(get_config(ARCH), dtype="float32")
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    eng = InferenceEngine(cfg, params, kstate, max_slots=TP_ENGINE_SLOTS,
+                          max_len=TP_ENGINE_MAX_LEN, record_logits=True,
+                          device=DEVICE, mesh=mesh)
+    del params
+    with decode_routes(eng, log if log is not None else []):
+        out = eng.run(tp_engine_requests(torch, cfg))
+    eng.close()
+    trace = {u: np.stack(rows) for u, rows in eng.logits_trace.items()}
+    summ = eng.metrics.summary()
+    del eng
+    torch.cuda.empty_cache()
+    return out, trace, summ
+
+
+def tp_engine_rank(rank: int, world: int, coordinator: str, tmp: str) -> None:
+    """One rank of the tp_engine phase on the one card (gloo): (a) fp32 at
+    1 x ``world``, (b) bf16 at 1 x ``world`` with each prefill, chunked
+    stage, decode step, park, resume and activation's launches held to
+    its kernels on this rank's heads (`engine_launch_checks`), its decode
+    steps' walls and model-group bytes, (c) fp32 at ``world`` x 1. Writes
+    ``tmp/tpe{rank}.pt``."""
+    import hashlib
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist import tensor_parallel as tpar
+    from repro_torch.kernels import (common, local_attention,  # noqa: F401
+                                     routing_attention, routing_decode)
+    from repro_torch.launch import distributed
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import InferenceEngine
+    from repro_torch.serve.kvstore import PrefixCache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    distributed.initialize(distributed.LaunchSpec(coordinator, world, rank),
+                           device=DEVICE, backend="gloo")
+    res = dict(rank=rank, launches={}, s={})
+    tp = distributed.make_process_mesh(1, world)
+    for part, mesh in (("a", tp), ("c", distributed.make_process_mesh(
+            world, 1))):
+        log = []
+        common.reset_counters()
+        t0 = time.perf_counter()
+        out, trace, summ = tp_engine_fp32(torch, mesh, log)
+        res["s"][part] = time.perf_counter() - t0
+        res["launches"][part] = common.counters()
+        res[part] = dict(out=out, trace=trace, summary=summ, routes=log,
+                         coords=mesh.coords)
+    cfg = get_config(ARCH)
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    reqs = engine_requests(torch, cfg)
+    reqs = reqs[:8] + [reqs[u] for u in TP_ENGINE_REPEATS]
+    eng = InferenceEngine(cfg, params, kstate, max_slots=ENGINE_SLOTS,
+                          max_len=ENGINE_MAX_LEN, record_logits=True,
+                          device=DEVICE, mesh=tp, prefix_cache=PrefixCache(),
+                          **ENGINE_RUN_A)
+    del params
+    events, total = engine_launch_checks(eng, common.counters)
+    steps = []
+    decode = eng._decode_once
+
+    def timed_decode():
+        tpar.reset_wire_bytes()
+        t = time.perf_counter()
+        decode()
+        steps.append(((time.perf_counter() - t) * 1e3, tpar.wire_bytes()))
+    eng._decode_once = timed_decode
+    common.reset_counters()
+    tpar.reset_wire_bytes()
+    t0 = time.perf_counter()
+    run_reqs = fresh_requests(reqs)
+    drive_engine(torch, eng, run_reqs)
+    res["s"]["b"] = time.perf_counter() - t0
+    eng.close()
+    got = {n: c for n, c in common.counters().items() if c}
+    if got != total:
+        raise AssertionError(f"tp_engine (b) rank {rank}: launches {got}, "
+                             f"the engine's events add up to {total}")
+    h = hashlib.sha256()
+    for r in run_reqs:
+        h.update(repr((r.uid, r.output)).encode())
+        for row in eng.logits_trace[r.uid]:
+            h.update(row.tobytes())
+    walls = sorted(w for w, _ in steps)
+    res["launches"]["b"] = common.counters()
+    res["b"] = dict(digest=h.hexdigest(), events=events,
+                    summary=eng.metrics.summary(),
+                    finished=all(r.state == "FINISHED" for r in run_reqs),
+                    prefix=eng.prefix_cache.stats(),
+                    decode_wall_ms_p50=statistics.median(walls),
+                    decode_wall_ms_p90=walls[int(0.9 * (len(walls) - 1))],
+                    decode_model_bytes=statistics.median(
+                        b for _, b in steps),
+                    decode_steps=len(steps))
+    torch.distributed.destroy_process_group()
+    torch.save(res, tmp / f"tpe{rank}.pt")
+
+
+def engine_streams_gate(ref_out, ref_trace, out, trace, V) -> dict:
+    """Each stream against the reference up to its first differing token
+    (the logits row of that token included): every compared row's largest
+    logit difference, top-1 agreement, the streams equal to the end."""
+    import numpy as np
+    diffs, top1, equal = [], [], 0
+    for uid, ref in ref_out.items():
+        got = out[uid]
+        n = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                 len(ref))
+        equal += n == len(ref) == len(got)
+        a = np.asarray(trace[uid][:n + 1], np.float64)[:, :V]
+        b = np.asarray(ref_trace[uid][:n + 1], np.float64)[:, :V]
+        diffs.extend(np.abs(a - b).max(-1))
+        top1.extend(a.argmax(-1) == b.argmax(-1))
+    return dict(streams=len(ref_out), streams_equal=equal, rows=len(diffs),
+                max_diff=float(np.max(diffs)),
+                median_diff=float(np.median(diffs)),
+                top1=float(np.mean(top1)))
+
+
+def routes_differing(ref_log, log, M: int, m: int, lane0: int) -> int:
+    """Decode routing choices of a rank (its heads' block ``m`` of ``M``,
+    its lanes from global slot ``lane0``) that differ from the 1 x 1
+    run's, over the lanes active at each step."""
+    ref = {e["step"]: e for e in ref_log}
+    n = 0
+    for e in log:
+        r = ref[e["step"]]
+        for c, rc in zip(e["c"], r["c"]):
+            h = rc.shape[1] // M
+            for i in e["active"]:
+                n += int((c[i - lane0] != rc[i, m * h:(m + 1) * h]).sum())
+    return n
+
+
+def tp_engine_phase(torch, card) -> tuple:
+    """The `tp_engine` path: the 1 x 1 fp32 engine here, then TP_RANKS
+    processes of `tp_engine_rank` on the one card. Gates: in (a) and (c)
+    the ranks' tokens and logits rows equal to the bit and every stream
+    within the serving gates of the 1 x 1 engine's up to its first
+    differing token (`engine_streams_gate`); in (b) the ranks' streams
+    equal to the bit (a digest), every request finished, prefix hits,
+    parks and chunked stages ran, the launches exact per event on each
+    rank (raised there); every rank's attention ran the kernels (the
+    launches of (a), (b) and (c) each nonzero). Returns the row and the
+    ranks' launches together."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tpe_"))
+    try:
+        t0 = time.perf_counter()
+        ref_log = []
+        ref_out, ref_trace, ref_summ = tp_engine_fp32(torch, None, ref_log)
+        t_ref = time.perf_counter() - t0
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+        procs = []
+        for r in range(TP_RANKS):
+            with open(tmp / f"tpe{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c",
+                     f"import chip_smoke; chip_smoke.tp_engine_rank({r}, "
+                     f"{TP_RANKS}, {coordinator!r}, {str(tmp)!r})"],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(os.environ)))
+        try:
+            codes = [p.wait(timeout=TP_TIMEOUT_S) for p in procs]
+        finally:
+            stop_dist_ranks(procs)
+        if codes != [0] * TP_RANKS:
+            tails = "\n".join((tmp / f"tpe{r}.log").read_text()[-4000:]
+                              for r in range(TP_RANKS))
+            raise AssertionError(f"tp_engine ranks exited with {codes}:\n"
+                                 f"{tails}")
+        ranks = [torch.load(tmp / f"tpe{r}.pt", weights_only=False)
+                 for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from repro_torch.configs import get_config
+    V = get_config(ARCH).vocab_size
+    fails, row = [], dict(card=card, ref_s=t_ref, ref_summary=ref_summ,
+                          seconds=time.perf_counter() - t0)
+    for part in "ac":
+        rows = [r[part] for r in ranks]
+        same = all(x["out"] == rows[0]["out"]
+                   and all(x["trace"][u].tobytes()
+                           == rows[0]["trace"][u].tobytes()
+                           for u in rows[0]["trace"]) for x in rows)
+        gate = engine_streams_gate(ref_out, ref_trace, rows[0]["out"],
+                                   rows[0]["trace"], V)
+        M = 1 if part == "c" else TP_RANKS
+        gate["decode_routing_differed"] = sum(
+            routes_differing(ref_log, x["routes"], M,
+                             x["coords"]["model"],
+                             x["coords"]["data"] * (TP_ENGINE_SLOTS
+                                                    // (TP_RANKS // M)))
+            for x in rows)
+        gate.update(ranks_equal=same, s=[r["s"][part] for r in ranks],
+                    summary=rows[0]["summary"])
+        row[part] = gate
+        if not (same and gate["top1"] >= MIN_TOP1_FP32
+                and gate["median_diff"] <= MAX_MEDIAN_DIFF_FP32):
+            fails.append(f"({part}) {gate}")
+    b = [r["b"] for r in ranks]
+    row["b"] = [dict(rank=r["rank"], s=r["s"]["b"], **{
+        k: v for k, v in r["b"].items() if k != "summary"},
+        ttft_p50_s=r["b"]["summary"].get("ttft_p50_s"),
+        ttft_p90_s=r["b"]["summary"].get("ttft_p90_s"),
+        parks=r["b"]["summary"]["parks"],
+        decode_steps_engine=r["b"]["summary"]["decode_steps"])
+        for r in ranks]
+    ran = dict(prefix_hits=b[0]["prefix"]["kvstore/prefix_hits"] >= 1,
+               parks=b[0]["summary"]["parks"] >= 1,
+               stages=b[0]["events"].get("prefill_stage", 0) > 0)
+    if not (all(x["digest"] == b[0]["digest"] for x in b)
+            and all(x["finished"] for x in b) and all(ran.values())):
+        fails.append(f"(b) ranks differ, not finished or a feature never "
+                     f"ran: {ran} {row['b']}")
+    launches = {}
+    for r in ranks:
+        for part, counts in r["launches"].items():
+            if not all(counts[n] for n in ("local_attention",
+                                           "routing_fused",
+                                           "routing_decode")):
+                fails.append(f"rank {r['rank']} ({part}) launches {counts}")
+            for n, c in counts.items():
+                launches[n] = launches.get(n, 0) + c
+    row["launches_by_rank"] = [r["launches"] for r in ranks]
+    summary = {k: {m: row[k][m] for m in ("streams_equal", "rows", "top1",
+                                          "median_diff", "max_diff",
+                                          "decode_routing_differed",
+                                          "ranks_equal", "s")}
+               for k in "ac"}
+    summary["b"] = [{k: x[k] for k in ("rank", "s", "ttft_p50_s",
+                                       "decode_wall_ms_p50",
+                                       "decode_wall_ms_p90",
+                                       "decode_model_bytes", "decode_steps",
+                                       "parks")} for x in row["b"]]
+    summary["ref_s"] = t_ref
+    print(f"tp_engine summary [{card}] {json.dumps(summary)}", flush=True)
+    if fails:
+        raise AssertionError(f"tp_engine phase fails: {fails}")
+    row["summary"] = summary
+    return row, launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -5607,6 +6103,16 @@ def main(argv=None) -> int:
     tp_row, launches["tp"] = tp_phase(torch, card, common.counters)
     t = phase("tp", t)
 
+    # since slice 20: remat "save_dots" against "full" at full width
+    # (rt-enwik8 and qwen2-0.5b) and its fp32 routing gate, then the serve
+    # engine on the mesh, TP_RANKS ranks on the card (rt-enwik8 fp32 at
+    # 1 x 2 and 2 x 1 against 1 x 1, bf16 at 1 x 2)
+    common.reset_counters()
+    remat_row, launches["remat"] = remat_phase(torch, card, common.counters)
+    t = phase("remat", t)
+    tpe_row, launches["tp_engine"] = tp_engine_phase(torch, card)
+    t = phase("tp_engine", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -5651,7 +6157,8 @@ def main(argv=None) -> int:
             paper=paper_rows, paper_decode=paper_decode_rows,
             decode_digest=dec_digest, serve_paper=serve_rows,
             serve_engine=engine_row, serve_disagg=disagg_row, obs=obs_row,
-            ckpt_dist=ckpt_row, tp=tp_row, launches=launches, profile=prof),
+            ckpt_dist=ckpt_row, tp=tp_row, remat=remat_row,
+            tp_engine=tpe_row, launches=launches, profile=prof),
             indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

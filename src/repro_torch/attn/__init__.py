@@ -81,12 +81,19 @@ def attend(spec: AttentionSpec, q, k, v, *, state=None, positions=None,
 
 
 def decode_backend(spec: AttentionSpec, impl: Optional[str] = None,
-                   platform: Optional[str] = None) -> Backend:
+                   platform: Optional[str] = None, mesh=None) -> Backend:
     """The backend decode calls for ``spec`` resolve to on ``platform``
     (default: "cuda" when a card is present, else "cpu"); the serve engine
-    records it and reads the pool's cache layouts from it."""
+    records it and reads the pool's cache layouts from it. On a ``mesh``
+    whose model axis holds M > 1 ranks, the backend of a rank's head shard
+    (`head_shard`, which raises `ValueError` where a head count does not
+    divide by M): each rank's decode is a single-device call on its heads,
+    so the kernel backend resolves there as on one device (the JAX package
+    falls back to its reference under a mesh)."""
     if platform is None:
         platform = "cuda" if torch.cuda.is_available() else "cpu"
+    if mesh is not None:
+        spec = head_shard(spec, mesh.size("model"))
     return resolve(spec, decode=True, impl=impl, platform=platform)
 
 

@@ -99,6 +99,20 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     return torch.stack(parts).to(t.device)
 
 
+def broadcast_from(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` (its rank in ``group``) on every rank of the
+    group, on ``t``'s device: every rank passes a tensor of the shape and
+    dtype ``src`` holds, whose values only ``src``'s matter."""
+    if world_size(group) == 1:
+        return t
+    buf = _staged(t, group)
+    root = src if group is None else dist.get_global_rank(group, src)
+    dist.broadcast(buf, root, group=group)
+    if rank(group) == src:
+        _count(t, t.numel() * (world_size(group) - 1))
+    return buf.to(t.device)
+
+
 def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """The fp32 sum of ``t`` over the ranks, in ``t``'s dtype and on its
     device; ``t`` itself at world size 1."""

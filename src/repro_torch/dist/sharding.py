@@ -14,7 +14,8 @@ system is laid out.
       parallelism each model rank holds a slice of the sequence, gathered
       by the function's ``.epilogue`` before the LM head.
   decode caches / slot pools  slot axis (position 1) over the data axes
-      and head axes over "model".
+      and head axes over "model" (`shard_cache` / `gather_cache` make
+      that real: the serve engine on a mesh holds each rank's part).
 
 Rules are name-based over the leaf *path*, the innermost recognized name
 winning: Adam's m/v trees reuse the param names and inherit their layout,
@@ -222,6 +223,20 @@ def replicated(mesh, tree):
     return _map_paths(lambda p, leaf: (), tree)
 
 
+def slot_block(mesh, batch: int) -> Tuple[int, int]:
+    """This rank's slots of a decode cache or slot pool of ``batch``
+    slots, as (lanes, first global slot). The slot axis is cut over the
+    data axes only where ``batch`` divides over them (data rank d then
+    holds slots d * lanes to (d + 1) * lanes - 1); otherwise, and without
+    a mesh, every rank holds all ``batch``. The one rule `cache_sharding`,
+    `serving.init_cache`, the engine's pool and the engine read."""
+    D = 1 if mesh is None else mesh.size(dp_axes(mesh))
+    if D == 1 or batch % D:
+        return batch, 0
+    lanes = batch // D
+    return lanes, mesh.coord("data") * lanes
+
+
 def cache_sharding(mesh, cache, batch: int):
     """Decode caches / engine slot pools: leaves (G, B, ...), slots over the
     data axes and the head axes over "model" where the attention backends
@@ -235,7 +250,7 @@ def cache_sharding(mesh, cache, batch: int):
         shape = _shape(leaf)
         spec: List[Any] = [None] * len(shape)
         if (len(shape) >= 2 and shape[1] == batch
-                and _fits(shape, 1, mesh, dp)):
+                and slot_block(mesh, batch)[0] < batch):
             spec[1] = dp
         ax = head_axes.get(name)
         if (ax is not None and len(shape) > ax
@@ -243,6 +258,64 @@ def cache_sharding(mesh, cache, batch: int):
             spec[ax] = "model"
         return tuple(spec)
     return _map_paths(one, cache)
+
+
+def _cut(leaf, dim: int, n: int, i: int):
+    size = leaf.shape[dim] // n
+    return leaf.narrow(dim, i * size, size)
+
+
+def shard_cache(cache, mesh, batch: int):
+    """This rank's part of a full decode cache or slot pool (leaves (G,
+    B, ...), ``batch`` = B): `cache_sharding`'s placements made real, each
+    head axis cut over "model" into M contiguous blocks (rank m's heads
+    are block m: its ``Hl / M`` local and ``Hr / M`` routing heads, as
+    `attn.head_shard` orders them) and the slot axis, where B divides,
+    over the data axes (`slot_block`'s lanes). A copy."""
+    M = mesh.size("model")
+    lanes, lane0 = slot_block(mesh, batch)
+    pl = cache_sharding(mesh, cache, batch)
+    out = []
+    for path, leaf in tree_paths(cache):
+        for d, ax in enumerate(placement_at(pl, path)):
+            if ax == "model":
+                leaf = _cut(leaf, d, M, mesh.coord("model"))
+            elif ax is not None:
+                leaf = leaf.narrow(d, lane0, lanes)
+        out.append(leaf.clone())
+    return tree_unflatten(cache, out)
+
+
+def gather_cache(shard, mesh, batch: int):
+    """The full cache (``batch`` slots) from every rank's `shard_cache`
+    part: collective over the model group and, where the slots were cut,
+    the data group; every rank gets the whole tree."""
+    from repro_torch.dist import compression as comp
+    from repro_torch.dist import tensor_parallel as tpar
+    M = mesh.size("model")
+    heads = _cache_head_axes()
+    lanes, _ = slot_block(mesh, batch)
+
+    def full(path, leaf):
+        shape = list(_shape(leaf))
+        ax = heads.get(_names(path)[-1] if _names(path) else "")
+        if ax is not None and len(shape) > ax and M > 1:
+            shape[ax] *= M
+        if len(shape) >= 2 and shape[1] == lanes:
+            shape[1] = batch            # (G, B, ...): the slot axis
+        return _Shape(shape)
+    pl = cache_sharding(mesh, _map_paths(full, shard), batch)
+    out = []
+    for path, leaf in tree_paths(shard):
+        for d, ax in enumerate(placement_at(pl, path)):
+            if ax == "model":
+                leaf = tpar.all_gather_dim(leaf, d, mesh)
+            elif ax is not None:
+                rows = comp.all_gather_rows(leaf.contiguous(),
+                                            mesh.group("data"))
+                leaf = torch.cat(list(rows.unbind(0)), d)
+        out.append(leaf)
+    return tree_unflatten(shard, out)
 
 
 def make_constrain_fn(mesh, seq_parallel: bool = False,
@@ -455,6 +528,28 @@ def grads_placements(mesh, grads):
     return params_sharding(mesh, _full_shapes(mesh, grads, _param_dim))
 
 
+def _check_cut(params, placements, mesh) -> None:
+    """Raise where the rule table would leave a param dim it names whole:
+    explicit tensor parallelism cannot mix it with its cut neighbours."""
+    for path, leaf in tree_paths(params):
+        md = _param_dim(path, leaf.dim())
+        if md is not None and placement_at(placements, path)[md] != "model":
+            raise ValueError(f"{'/'.join(map(str, path))}: dim {md} of "
+                             f"{tuple(leaf.shape)} does not divide over a "
+                             f"{mesh.size('model')}-way model axis")
+
+
+def shard_params(params, cfg, mesh):
+    """This rank's shards of a full parameter tree by the rule table,
+    local+routing heads grouped per rank (`shard_state`'s cut of the
+    params; the serve engine's). A copy; the tree itself at M = 1."""
+    if mesh.size("model") <= 1:
+        return params
+    pl = params_sharding(mesh, params)
+    _check_cut(params, pl, mesh)
+    return shard_tree(params, pl, mesh, head_groups(cfg, mesh.size("model")))
+
+
 def shard_state(ts, cfg, mesh):
     """This rank's TrainState from a full one (`shard_tree` by
     `train_state_sharding`, local+routing heads grouped per rank)."""
@@ -463,14 +558,7 @@ def shard_state(ts, cfg, mesh):
         return ts
     pl = train_state_sharding(mesh, ts)
     groups = head_groups(cfg, mesh.size("model"))
-    for path, leaf in tree_paths(ts.params):
-        md = _param_dim(path, leaf.dim())
-        if md is not None and placement_at(pl.params, path)[md] != "model":
-            # the rule table would leave the dim whole, which explicit
-            # tensor parallelism cannot mix with its cut neighbours
-            raise ValueError(f"{'/'.join(map(str, path))}: dim {md} of "
-                             f"{tuple(leaf.shape)} does not divide over a "
-                             f"{mesh.size('model')}-way model axis")
+    _check_cut(ts.params, pl.params, mesh)
     return TrainState(
         params=shard_tree(ts.params, pl.params, mesh, groups),
         kstate=shard_tree(ts.kstate, pl.kstate, mesh),

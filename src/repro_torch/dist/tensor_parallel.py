@@ -79,6 +79,17 @@ def all_gather_dim(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     return torch.cat(list(_gather_rows(t.contiguous(), mesh).unbind(0)), dim)
 
 
+def gather_head_stats(seg_stats, mesh):
+    """Routing-health stats (a list over segments or prefill stages of
+    {layer: obs.RoutingStats}, leaves (G, H / M, ...)) of this rank's
+    routing heads, with the model ranks' heads gathered: the whole
+    model's (G, H, ...), rank order being head order."""
+    if _size(mesh) == 1:
+        return seg_stats
+    return [{li: type(st)(*(all_gather_dim(x, 1, mesh) for x in st))
+             for li, st in seg.items()} for seg in seg_stats]
+
+
 def reduce_scatter_dim(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """This model rank's block (of M along ``dim``) of the sum of the
     ranks' ``t``, summed in fp32 in rank order, in ``t``'s dtype."""

@@ -13,7 +13,10 @@ so the port can continue a JAX training run mid-trajectory; its int8
 error-feedback residuals ((D, *shape) fp32 leaves) come across as this
 rank's row. On a mesh with a model axis (``mesh=``, ``cfg=``) the state
 comes across as this rank's shards, its local+routing heads grouped as
-`dist.sharding.shard_state` groups them.
+`dist.sharding.shard_state` groups them; `cache_from_jax` carries a JAX
+decode cache or slot pool into a rank's part of it
+(`dist.sharding.shard_cache`), so pages can be held against the JAX
+package's on any mesh.
 """
 from __future__ import annotations
 
@@ -41,6 +44,20 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
     """A JAX tree of numpy leaves (``init_model`` params, a cache) -> the
     same tree of tensors on ``device``, dtypes kept."""
     return tree_map(lambda x: _leaf_to_torch(x, device), tree)
+
+
+def cache_from_jax(tree: Any, device="cpu", mesh=None,
+                   batch: int = 1) -> Any:
+    """A JAX decode cache or slot pool (numpy leaves (G, B, ...), ``batch``
+    = B) -> the port's, on a ``mesh`` this rank's part: its heads and,
+    where B divides over the data ranks, its slots. The JAX package
+    stores cluster-page rows at the head dim, the port at the decode
+    kernel's width: the leaves keep the JAX package's widths."""
+    full = params_from_jax(tree, device)
+    if mesh is None:
+        return full
+    from repro_torch.dist.sharding import shard_cache
+    return shard_cache(full, mesh, batch)
 
 
 def kstate_from_jax(tree: Any, device="cpu") -> Any:

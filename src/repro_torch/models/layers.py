@@ -5,10 +5,35 @@ Plain functions on nested dicts of tensors. `init_*` draws from an explicit
 ``torch.Generator`` on the target device, with the JAX package's shapes
 (weights stored (d_in, d_out), applied as ``x @ w``). Matmuls run in the
 parameter dtype; norm statistics and rope angles in fp32.
+
+The weight products of a layer (q, k, v, o, the FFN's up, gate and down)
+go through `dense`, which marks them for remat "save_dots"
+(`models.transformer.save_dots_policy`): the products whose operands share
+no batch axis, the set the JAX package's
+``checkpoint_dots_with_no_batch_dims`` keeps.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
+
+_WEIGHT_PRODUCT = threading.local()
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of a weight ``w`` (d_in, d_out), marked while it runs as a
+    weight product (`in_weight_product`)."""
+    _WEIGHT_PRODUCT.on = True
+    try:
+        return x @ w
+    finally:
+        _WEIGHT_PRODUCT.on = False
+
+
+def in_weight_product() -> bool:
+    """Whether the calling thread is inside `dense`'s product."""
+    return getattr(_WEIGHT_PRODUCT, "on", False)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
@@ -81,16 +106,16 @@ def init_mlp(gen, d: int, d_ff: int, act: str, dtype, device):
 
 
 def apply_mlp(p, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
-    up = x @ p["w_up"]
+    up = dense(x, p["w_up"])
     if act == "swiglu":
-        gate = x @ p["w_gate"]
+        gate = dense(x, p["w_gate"])
         h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
     elif act == "gelu":
         h = torch.nn.functional.gelu(up.float(),
                                      approximate="tanh").to(x.dtype)
     else:
         h = torch.relu(up)
-    return h @ p["w_down"]
+    return dense(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +143,7 @@ def qkv_project(p, x: torch.Tensor, cfg):
     them)."""
     B, N, _ = x.shape
     dh = cfg.head_dim_
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = dense(x, p["wq"]), dense(x, p["wk"]), dense(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, N, -1, dh).transpose(1, 2).contiguous()
@@ -130,7 +155,7 @@ def qkv_project(p, x: torch.Tensor, cfg):
 def out_project(p, o: torch.Tensor) -> torch.Tensor:
     """o: (B,H,N,dh) -> (B,N,d)."""
     B, H, N, dh = o.shape
-    return o.transpose(1, 2).reshape(B, N, H * dh) @ p["wo"]
+    return dense(o.transpose(1, 2).reshape(B, N, H * dh), p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.tensor_parallel import ModelAxis, vocab_lse_target
+from repro_torch.dist.tensor_parallel import (ModelAxis, all_gather_dim,
+                                              vocab_lse_target)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -99,6 +100,18 @@ def mask_vocab_pad(logits: torch.Tensor, cfg: ModelConfig,
     valid = torch.arange(lo, lo + logits.shape[-1],
                          device=logits.device) < cfg.vocab_size
     return logits.masked_fill(~valid, -1e9)
+
+
+def vocab_logits(logits: torch.Tensor, cfg: ModelConfig,
+                 axis: Optional[ModelAxis] = None) -> torch.Tensor:
+    """The whole vocabulary's logits (`mask_vocab_pad`ed) from this rank's
+    vocabulary block (serving on a model axis): the blocks gathered over
+    "model" in fp32, so every model rank holds the same bits and samples
+    the same token."""
+    if axis is None or axis.size <= 1:
+        return mask_vocab_pad(logits, cfg)
+    logits = mask_vocab_pad(logits, cfg, axis.rank * logits.shape[-1])
+    return all_gather_dim(logits.float().contiguous(), -1, axis.mesh)
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,

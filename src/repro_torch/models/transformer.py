@@ -41,7 +41,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import attn as attn_api
 from repro_torch.attn.spec import head_split, spec_for_layer, variant_for_layer
@@ -52,7 +53,34 @@ from repro_torch.obs.routing_stats import stack_stats
 from repro_torch.tree import (tree_leaves, tree_map, tree_stack,
                               tree_unflatten)
 
-REMAT_POLICIES = ("none", "full")
+REMAT_POLICIES = ("none", "full", "save_dots")
+
+# the ops a weight product (`layers.dense`) reaches the dispatcher as: x @ w
+# on a 3-D x folds into one mm, or stays a bmm over an expanded w
+_PRODUCT_OPS = frozenset({torch.ops.aten.mm.default,
+                          torch.ops.aten.addmm.default,
+                          torch.ops.aten.bmm.default})
+
+
+def save_dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of remat "save_dots": keep the
+    output of every product whose operands share no batch axis, the
+    layers' weight products (`layers.dense`: q, k, v, o and the FFN's up,
+    gate and down), and recompute everything else, as the JAX package's
+    ``checkpoint_dots_with_no_batch_dims``: the products with batch axes
+    (attention logits, centroid scores, the k-means contraction), bias
+    adds, norms, the collectives of a model axis and every kernel's output
+    (a Pallas call is not a ``dot_general``, so JAX recomputes the kernels
+    too). The products are picked by `layers.in_weight_product`, not by
+    the op alone: an einsum with a batch axis reaches the dispatcher as a
+    bmm or an mm as well."""
+    if op in _PRODUCT_OPS and L.in_weight_product():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots_contexts():
+    return create_selective_checkpoint_contexts(save_dots_policy)
 
 
 @dataclass(frozen=True)
@@ -225,7 +253,15 @@ def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
     (`torch.utils.checkpoint`, non-reentrant), as the JAX package's
     ``jax.checkpoint`` per scan group: its forward kernels then run twice
     per step (their stats, no-grad outputs of the checkpointed group, are
-    computed again there and dropped). ``drop_seed`` (with
+    computed again there and dropped). ``remat="save_dots"`` checkpoints
+    the group the same way but keeps its weight products
+    (`save_dots_policy`, a selective checkpoint): the recompute reads them
+    instead of running them again, and runs every kernel again as "full"
+    does. The saved outputs are the bits "full" recomputes, so the two
+    give the same loss and gradients. A group's backward runs once under
+    "save_dots" (torch's selective checkpoint hands its saved products
+    over to that backward): a second backward through the same graph
+    (``retain_graph``) raises. ``drop_seed`` (with
     ``cfg.dropout > 0``) turns dropout on; layer ``n`` of the stack draws
     from ``fold_seed(drop_seed, n)``.
 
@@ -234,9 +270,6 @@ def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
     (`dist.sharding.make_constrain_fn`) is applied to the residual stream
     at entry and after each group, as in the JAX package.
     """
-    if remat == "save_dots":
-        raise NotImplementedError(
-            "remat='save_dots' is not ported yet; use 'full' or 'none'")
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}")
     dropout_on = drop_seed is not None and cfg.dropout > 0
@@ -264,12 +297,14 @@ def apply_stack(seg_params, seg_kstate, x, cfg: ModelConfig, *,
         groups, stats = [], []
         for p_group, k_group in zip(_unstack(seg_params[si], G),
                                     _unstack(seg_kstate[si], G)):
-            if remat == "full":
+            if remat != "none":
                 # the layer draws nothing from the default generators, so
                 # their state need not be saved for the recompute
+                kw = ({"context_fn": _save_dots_contexts}
+                      if remat == "save_dots" else {})
                 x, new_k, stats_g = checkpoint(
                     group_fn, x, p_group, k_group, layer,
-                    use_reentrant=False, preserve_rng_state=False)
+                    use_reentrant=False, preserve_rng_state=False, **kw)
             else:
                 x, new_k, stats_g = group_fn(x, p_group, k_group, layer)
             groups.append(new_k)

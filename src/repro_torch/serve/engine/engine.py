@@ -73,8 +73,32 @@ kind, ``kvstore_park``, ``kvstore_resume``, ``session_export``,
 ``session_import``, and ``engine_summary`` at ``close()``. Tier events are
 also counted by kind (``kvstore_events``) on every step. With no sink and
 stats off a step reads nothing back from the card that it did not read
-before. ``mesh`` is not ported (ROADMAP.md item 10) and raises; partial
-prefix reuse is off (item 8): see ``_prefill_into``.
+before. Partial prefix reuse is off (ROADMAP.md item 8): see
+``_prefill_into``.
+
+On a (data, model) mesh (``mesh=``, a `launch.mesh.Mesh`: one process per
+rank, every rank building its engine with the same arguments and stepping
+it through the same calls) the engine serves as the JAX package's engine
+does on its mesh, slots over the data axis and heads over "model". The
+engine takes the whole params and keeps its rank's shards
+(`dist.sharding.shard_params`); the k-means centroids stay whole on every
+rank (each layer reads its heads' rows), as the JAX engine keeps them
+replicated. Each rank's pool holds its heads of ``max_slots / D`` lanes
+(`pool.init_pool`), and its prefills and decode steps run the kernels on
+its ``Hl / M`` local and ``Hr / M`` routing heads as single-device calls
+(`serving`'s mesh paths). The scheduler runs identically on every rank:
+every data rank runs each prefill (the slot's owner keeps the lane), each
+decodes its own lanes, and the sampled tokens (with ``record_logits``,
+the logits rows too) are all-gathered over "data" once per step; the
+logits reach the sampler whole on every model rank, so the ranks' tokens
+are equal to the bit. A park hands the owner's lane to every data rank,
+so parks, resumes and prefix hits keep each rank's shard in its own KV
+store and prefix cache. ``export_session`` gathers the shards into the
+JAX package's blob (written by rank 0), which any mesh or package
+imports; ``import_session`` cuts a blob for the mesh it lands on. The
+JSONL records are written by rank 0 only (pass ``obs_jsonl`` on every
+rank: the page health is gathered over the heads and the slots), and the
+routing stats are the whole model's.
 """
 from __future__ import annotations
 
@@ -82,14 +106,18 @@ import functools
 import time
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import attn as attn_api
 from repro_torch import prng, resolve_device
 from repro_torch.configs.base import ModelConfig, with_overrides
+from repro_torch.dist import compression as comp
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.tensor_parallel import gather_head_stats
 from repro_torch.obs import JsonlSink, pages_health
 from repro_torch.obs import routing_stats as obs_rt
 from repro_torch.obs.trace import span
@@ -101,6 +129,7 @@ from repro_torch.serve.engine.sampling import (SamplingParams,
                                                sample_tokens)
 from repro_torch.serve.engine.scheduler import FCFSScheduler
 from repro_torch.serve.kvstore import KVStore, PrefixCache, StoreConfig
+from repro_torch.serve.kvstore.remote import TransportError
 from repro_torch.serve.serving import (assemble_prefill_cache,
                                        decode_backends, init_cache,
                                        make_prefill_stages, make_serve_step,
@@ -133,9 +162,11 @@ def _fit_lane(lane, like):
     return tree_unflatten(lane, [fit(p, v) for p, v in tree_paths(lane)])
 
 
-def _unported(what: str, item: int, detail: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md item {item}: {detail})")
+def _barrier() -> None:
+    """Wait for every process (a mesh of one process has none to wait
+    for)."""
+    if comp.world_size() > 1:
+        dist.barrier()
 
 
 @dataclass
@@ -246,7 +277,11 @@ class InferenceEngine:
 
     ``params`` and ``kstate`` live on ``device`` (default the card; raises
     without one unless ``device="cpu"``); ``impl`` forces an attention
-    backend for the prefills and decode steps, as in ``serving``.
+    backend for the prefills and decode steps, as in ``serving``. On a
+    ``mesh`` (the module's docstring) ``params`` are the whole model's;
+    a model axis that does not divide a layer's local or routing head
+    count raises `attn.head_shard`'s `ValueError`, and ``max_slots`` must
+    divide over the data ranks.
     """
 
     def __init__(self, cfg: ModelConfig, params, kstate, *, max_slots: int,
@@ -260,9 +295,6 @@ class InferenceEngine:
                  chunked_prefill: Optional[int] = None,
                  prefill_only: bool = False, impl: Optional[str] = None,
                  device="cuda"):
-        if mesh is not None:
-            raise _unported("InferenceEngine(mesh=...)", 10,
-                            "sharded serving over several cards")
         if chunked_prefill is not None and chunked_prefill < 1:
             raise ValueError("chunked_prefill must be >= 1 stage per step")
         if routing_stats:
@@ -271,27 +303,42 @@ class InferenceEngine:
             cfg = with_overrides(
                 cfg, routing=with_overrides(cfg.routing, stats=True))
         self.routing_stats = routing_stats
-        self._sink = (JsonlSink(obs_jsonl, source="engine")
-                      if obs_jsonl else None)
-        self._last_routing: Dict[str, float] = {}
-        self.cfg = cfg
-        self.params = params
-        self.kstate = kstate
-        self.max_slots = max_slots
-        self.max_len = max_len
         self.device = resolve_device(device)
         # every prefill and decode step resolves its attention backends
         # (and with them the pool's cache layout) from the registry; the
-        # resolution is recorded here for observability
+        # resolution is recorded here for observability (on a mesh, a
+        # rank's head shard's, which raises where it does not divide)
         self.attn_backends = decode_backends(cfg, impl=impl,
-                                             platform=self.device.type)
-        self._serve_step = make_serve_step(cfg, impl=impl)
+                                             platform=self.device.type,
+                                             mesh=mesh)
+        self.mesh = mesh
+        # this rank's pool lanes: global slots lane0 .. lane0 + lanes - 1
+        # (init_pool raises where max_slots does not divide over the data
+        # ranks)
+        self._lanes, self._lane0 = shd.slot_block(mesh, max_slots)
+        # on a mesh the JSONL records come from rank 0; every rank takes
+        # part in the page health's gather
+        self._obs = bool(obs_jsonl)
+        self._sink = (JsonlSink(obs_jsonl, source="engine")
+                      if obs_jsonl and (mesh is None or comp.rank() == 0)
+                      else None)
+        self._last_routing: Dict[str, float] = {}
+        self.cfg = cfg
+        self.params = (params if mesh is None
+                       else shd.shard_params(params, cfg, mesh))
+        self.kstate = kstate
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self._serve_step = make_serve_step(cfg, impl=impl, mesh=mesh)
         self._prefill = functools.partial(prefill, cfg=cfg, impl=impl,
-                                          return_stats=routing_stats)
-        self.pool = init_pool(cfg, max_slots, max_len, device=self.device)
+                                          return_stats=routing_stats,
+                                          mesh=mesh)
+        self.pool = init_pool(cfg, max_slots, max_len, device=self.device,
+                              mesh=mesh)
         # a prefill clones the cache it fills, so one fresh B=1 lane serves
         # every admission
-        self._fresh_lane = init_cache(cfg, 1, max_len, device=self.device)
+        self._fresh_lane = init_cache(cfg, 1, max_len, device=self.device,
+                                      mesh=mesh)
         self.slots: List[Optional[_Slot]] = [None] * max_slots
         self.scheduler = FCFSScheduler(token_budget)
         self.metrics = EngineMetrics()
@@ -326,7 +373,8 @@ class InferenceEngine:
         self._prefill_jobs: Dict[int, _PrefillJob] = {}
         if chunked_prefill is not None:
             embed, stages, head = make_prefill_stages(cfg, impl=impl,
-                                                      groups_per_stage=1)
+                                                      groups_per_stage=1,
+                                                      mesh=mesh)
             self._pf_embed = embed
             self._pf_head = head
             self._pf_stages = [(st, st.fn) for st in stages]
@@ -407,8 +455,9 @@ class InferenceEngine:
         uid = s.request.uid
         t0 = time.perf_counter()
         with span("engine/park"):
-            ps = self.kvstore.park(uid, read_slot(self.pool, slot))
-            reset_slot(self.pool, slot)
+            ps = self.kvstore.park(uid, read_slot(self.pool, slot,
+                                                  self.mesh))
+            reset_slot(self.pool, slot, self.mesh)
         dt = time.perf_counter() - t0
         s.request.state = PARKED
         self._parked[uid] = _ParkedMeta(s.request, pos=s.pos,
@@ -434,7 +483,7 @@ class InferenceEngine:
         with span("engine/resume"):
             lane = _fit_lane(self.kvstore.resume(req.uid, device=self.device),
                              self._fresh_lane)
-            write_slot(self.pool, slot, lane)
+            write_slot(self.pool, slot, lane, self.mesh)
         dt = time.perf_counter() - t0
         req.state = DECODE
         self.slots[slot] = _Slot(
@@ -566,8 +615,11 @@ class InferenceEngine:
             "base_key": {"data": [int(k) for k in meta.base_key.tolist()],
                          "dtype": "uint32"},
         }
-        name = self.kvstore.export(uid, name=name, meta=m,
-                                   transport=transport)
+        if self.mesh is None:
+            name = self.kvstore.export(uid, name=name, meta=m,
+                                       transport=transport)
+        else:
+            name = self._export_gathered(uid, name, m, transport)
         self._parked.pop(uid)
         if self.scheduler.has_uid(uid):     # unheld: queued to resume
             self.scheduler.remove(uid)
@@ -578,6 +630,61 @@ class InferenceEngine:
                             metrics={"tokens": float(meta.pos)})
         return name
 
+    def _export_gathered(self, uid: int, name: Optional[str], meta: dict,
+                         transport) -> str:
+        """``export_session`` on a mesh: every rank takes its shard of the
+        lane out of its store, the shards are gathered into the whole
+        lane, and rank 0 writes the blob a one-device engine would write
+        (the JAX package's format)."""
+        transport = (transport if transport is not None
+                     else self.kvstore.config.remote)
+        if transport is None:               # on every rank, before any wait
+            raise ValueError("export needs a transport "
+                             "(StoreConfig.remote or transport=...)")
+        shard = self.kvstore.resume(uid, device=self.device)
+        lane = shd.gather_cache(shard, self.mesh, 1)
+        name = name if name is not None else f"session/{uid}"
+        err = None
+        if comp.rank() == 0:
+            one = KVStore()
+            try:
+                one.park(uid, lane)
+                one.export(uid, name=name, meta=meta, transport=transport)
+            except Exception as e:          # told to every rank below
+                err = e
+            finally:
+                one.close()
+        # rank 0's outcome on every rank: a failed write leaves the
+        # session parked everywhere and raises on every rank together
+        failed = bool(comp.broadcast_from(torch.tensor(
+            [int(err is not None)], dtype=torch.int32, device=self.device),
+            0))
+        if failed:
+            self.kvstore.park(uid, shard)
+            if err is not None:
+                raise err
+            raise RuntimeError(f"session {uid}: rank 0 failed to export "
+                               f"it to {name!r}")
+        return name
+
+    def _import_cut(self, name: str, transport) -> Tuple[int, dict]:
+        """``import_session``'s store import on a mesh: every rank reads the
+        blob, keeps its part of the lane (`dist.sharding.shard_cache`) in
+        its store, and rank 0 deletes the blob once all have read it."""
+        transport = (transport if transport is not None
+                     else self.kvstore.config.remote)
+        uid, m = self.kvstore.import_remote(name, transport=transport,
+                                            consume=False)
+        lane = self.kvstore.resume(uid, device=self.device)
+        self.kvstore.park(uid, shd.shard_cache(lane, self.mesh, 1))
+        _barrier()
+        if comp.rank() == 0:
+            try:
+                transport.delete(name)
+            except (TransportError, KeyError):
+                pass                        # best-effort, as import_remote
+        return uid, m
+
     def import_session(self, name: str, *, transport=None) -> SessionHandle:
         """Adopt a session another engine (this package's or the JAX
         package's) exported: the lane goes into this engine's KV store,
@@ -585,7 +692,8 @@ class InferenceEngine:
         session queues for readmission. Decode continues bit for bit
         where the exporter stopped (counter-based sampling keys make the
         continuation engine-independent)."""
-        uid, m = self.kvstore.import_remote(name, transport=transport)
+        uid, m = (self.kvstore.import_remote(name, transport=transport)
+                  if self.mesh is None else self._import_cut(name, transport))
         if (self.scheduler.has_uid(uid) or uid in self._parked
                 or any(j.request.uid == uid
                        for j in self._prefill_jobs.values())
@@ -626,7 +734,7 @@ class InferenceEngine:
             return
         for i, s in enumerate(self.slots):
             if s is not None and s.request.uid == uid:
-                reset_slot(self.pool, i)
+                reset_slot(self.pool, i, self.mesh)
                 self.slots[i] = None
                 s.request.state = CANCELLED
                 return
@@ -723,7 +831,7 @@ class InferenceEngine:
         the shared tail of monolithic, chunked, and prefix-hit prefill.
         ``t0`` is the admission wall clock (for a chunked job the measured
         prefill time includes the decode steps it interleaved with)."""
-        write_slot(self.pool, slot, lane)
+        write_slot(self.pool, slot, lane, self.mesh)
         tok = self._sample_first(req, last_logits)
         dt = time.perf_counter() - t0
         req.state = DECODE
@@ -776,7 +884,10 @@ class InferenceEngine:
                                       job.chunks)
         last_logits = self._pf_head(self.params, job.x)[:, -1]
         if self.routing_stats:
-            self._emit_prefill_stats(req, job.stats)
+            # the stages' stats are this rank's heads' (a monolithic
+            # prefill returns the whole model's)
+            self._emit_prefill_stats(req, gather_head_stats(job.stats,
+                                                            self.mesh))
         if self.prefix_cache is not None:
             self.prefix_cache.put(req.prompt, lane, last_logits)
         self._activate(slot, req, lane, last_logits, job.t0)
@@ -802,7 +913,7 @@ class InferenceEngine:
         s = self.slots[slot]
         s.request.state = FINISHED
         self.metrics.on_finish(s.request.uid, self.step_count)
-        reset_slot(self.pool, slot)
+        reset_slot(self.pool, slot, self.mesh)
         self.slots[slot] = None
 
     @torch.no_grad()
@@ -811,35 +922,25 @@ class InferenceEngine:
         if not active_ids:
             return
         t0 = time.perf_counter()
-        B, dev = self.max_slots, self.device
-        tokens = torch.zeros((B,), dtype=torch.int64)
-        pos = torch.zeros((B,), dtype=torch.int64)
-        act = torch.zeros((B,), dtype=torch.bool)
-        for i in active_ids:
-            s = self.slots[i]
-            tokens[i], pos[i], act[i] = s.last_token, s.pos, True
-        logits, self.pool = self._serve_step(
-            self.params, self.kstate, self.pool, tokens.to(dev),
-            pos.to(dev), act.to(dev))
-        if all(self.slots[i].request.sampling.temperature <= 0
-               for i in active_ids):
-            # greedy fast path: no sort, no PRNG
-            toks = torch.argmax(logits, dim=-1)
+        # this rank's lanes: global slots lane0 .. lane0 + B - 1 (all of
+        # them without a data axis)
+        B, lane0, dev = self._lanes, self._lane0, self.device
+        local = [i for i in active_ids if lane0 <= i < lane0 + B]
+        greedy = all(self.slots[i].request.sampling.temperature <= 0
+                     for i in active_ids)
+        if local:
+            logits, toks = self._decode_lanes(local, greedy)
         else:
-            temps = torch.zeros((B,), dtype=torch.float32)
-            tks = torch.zeros((B,), dtype=torch.int32)
-            tps = torch.ones((B,), dtype=torch.float32)
-            tok_idx = torch.zeros((B,), dtype=torch.int64)
-            base_keys = torch.zeros((B, 2), dtype=torch.int64)
-            for i in active_ids:
-                s = self.slots[i]
-                sp = s.request.sampling
-                temps[i], tks[i], tps[i] = sp.temperature, sp.top_k, sp.top_p
-                tok_idx[i] = len(s.request.output)
-                base_keys[i] = s.base_key
-            keys = prng.fold_in(base_keys.to(dev), tok_idx.to(dev))
-            toks = sample_tokens(keys, logits, temps.to(dev), tks.to(dev),
-                                 tps.to(dev))
+            logits = torch.zeros((B, self.cfg.padded_vocab),
+                                 dtype=torch.float32, device=dev)
+            toks = torch.zeros((B,), dtype=torch.int64, device=dev)
+        if B < self.max_slots:
+            # every data rank's lanes, in slot order
+            group = self.mesh.group("data")
+            toks = comp.all_gather_rows(toks, group).reshape(-1)
+            if self.record_logits:
+                logits = comp.all_gather_rows(logits.float(), group).reshape(
+                    self.max_slots, -1)
         toks_host = toks.cpu()                  # device sync
         dt = time.perf_counter() - t0
         self.metrics.on_decode_step(len(active_ids), dt)
@@ -858,6 +959,41 @@ class InferenceEngine:
             if self._is_finished(s.request, tok):
                 self._retire(i)
 
+    def _decode_lanes(self, local: List[int], greedy: bool):
+        """One ``serve_step`` over this rank's pool lanes (``local``: the
+        active global slots among them), then sampling: (logits (B, V),
+        tokens (B,) int64, the dtype every data rank gathers), rows of
+        inactive lanes garbage."""
+        B, lane0, dev = self._lanes, self._lane0, self.device
+        tokens = torch.zeros((B,), dtype=torch.int64)
+        pos = torch.zeros((B,), dtype=torch.int64)
+        act = torch.zeros((B,), dtype=torch.bool)
+        for i in local:
+            s = self.slots[i]
+            tokens[i - lane0], pos[i - lane0] = s.last_token, s.pos
+            act[i - lane0] = True
+        logits, self.pool = self._serve_step(
+            self.params, self.kstate, self.pool, tokens.to(dev),
+            pos.to(dev), act.to(dev))
+        if greedy:
+            # greedy fast path: no sort, no PRNG
+            return logits, torch.argmax(logits, dim=-1)
+        temps = torch.zeros((B,), dtype=torch.float32)
+        tks = torch.zeros((B,), dtype=torch.int32)
+        tps = torch.ones((B,), dtype=torch.float32)
+        tok_idx = torch.zeros((B,), dtype=torch.int64)
+        base_keys = torch.zeros((B, 2), dtype=torch.int64)
+        for i in local:
+            s = self.slots[i]
+            sp = s.request.sampling
+            j = i - lane0
+            temps[j], tks[j], tps[j] = sp.temperature, sp.top_k, sp.top_p
+            tok_idx[j] = len(s.request.output)
+            base_keys[j] = s.base_key
+        keys = prng.fold_in(base_keys.to(dev), tok_idx.to(dev))
+        return logits, sample_tokens(keys, logits, temps.to(dev),
+                                     tks.to(dev), tps.to(dev)).long()
+
     def step(self) -> None:
         """One engine iteration: admit (+ prefill), advance any chunked
         prefill stages, then one decode step over the active slots
@@ -874,7 +1010,7 @@ class InferenceEngine:
         self.step_count += 1
         events = self.kvstore.drain_events()
         self.kvstore_events.update(ev["kind"] for ev in events)
-        if self._sink is not None:
+        if self._obs:
             self._emit_tick(events)
 
     def _emit_tick(self, events) -> None:
@@ -885,7 +1021,11 @@ class InferenceEngine:
         (``pages_health`` on the ``rlen`` leaves only: one small host
         read, never the pages). Centroids are frozen in serving, so drift
         is 0; recall is the latest prefill's, the only place the full
-        softmax is sampled."""
+        softmax is sampled. On a mesh every rank gathers the page health
+        and rank 0 writes the records."""
+        health = self._pages_health()
+        if self._sink is None:
+            return
         for ev in events:
             ev = dict(ev)
             self._sink.emit(ev.pop("kind"), step=self.step_count, **ev)
@@ -900,17 +1040,6 @@ class InferenceEngine:
         metrics.update(self.kvstore.stats())
         if self.prefix_cache is not None:
             metrics.update(self.prefix_cache.stats())
-        health = None
-        rlens = [leaf for path, leaf in tree_paths(self.pool)
-                 if path[-1] == "rlen"]
-        if rlens and active.any():
-            # every segment's rlen in one copy, so one wait for the card
-            flat = torch.cat([r.reshape(-1) for r in rlens]).cpu().numpy()
-            cuts = np.cumsum([r.numel() for r in rlens])[:-1]
-            health = pages_health(
-                [{"rlen": h.reshape(r.shape)}
-                 for h, r in zip(np.split(flat, cuts), rlens)],
-                active=active)
         if health is not None:
             metrics.update(health)
             metrics["routing/drift"] = 0.0
@@ -918,6 +1047,25 @@ class InferenceEngine:
                 metrics["routing/recall"] = \
                     self._last_routing["routing/recall"]
         self._sink.emit("engine_tick", metrics=metrics, step=self.step_count)
+
+    def _pages_health(self) -> Optional[Dict[str, float]]:
+        """``pages_health`` of the active lanes' cluster pages, from the
+        ``rlen`` leaves (on a mesh gathered over the heads and the slots
+        first: a collective), or None without pages or active lanes."""
+        active = np.array([s is not None for s in self.slots], bool)
+        rlens = [leaf for path, leaf in tree_paths(self.pool)
+                 if path[-1] == "rlen"]
+        if not rlens or not active.any():
+            return None
+        if self.mesh is not None:
+            rlens = [t["rlen"] for t in shd.gather_cache(
+                [{"rlen": r} for r in rlens], self.mesh, self.max_slots)]
+        # every segment's rlen in one copy, so one wait for the card
+        flat = torch.cat([r.reshape(-1) for r in rlens]).cpu().numpy()
+        cuts = np.cumsum([r.numel() for r in rlens])[:-1]
+        return pages_health(
+            [{"rlen": h.reshape(r.shape)}
+             for h, r in zip(np.split(flat, cuts), rlens)], active=active)
 
     def close(self) -> None:
         """Settle KV transfers (raising a failed background park), write

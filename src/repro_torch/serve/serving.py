@@ -28,6 +28,20 @@ positions, which the flash kernel (row-index causal mask) does not take,
 and the JAX package has no decode kernel for it (its ``full/xla``; the
 port's ``full/torch``). A prefill fills each layer's cache from what that
 layer's attention computed.
+
+On a (data, model) mesh (``mesh=``, a `launch.mesh.Mesh` whose model axis
+holds M ranks) every function runs this rank's part, as the JAX package's
+functions run under its mesh: the params are this rank's shards
+(`dist.sharding.shard_tree` by the rule table), the centroids the whole
+model's (each layer reads its rank's routing heads' rows, `_rank_rows`:
+the JAX engine keeps them replicated), a cache holds the rank's heads
+only (`attn.head_shard`: ``Hl / M`` local and ``Hr / M`` routing heads)
+and, where the slot count divides, its data coordinate's slots. Each
+layer's attention is one single-device call on the rank's heads, so on
+the card the local and fused forward kernels prefill and the decode
+kernel decodes there; the projections are column- and row-parallel over
+the model group (`dist.tensor_parallel.ModelAxis`) and the logits come
+back whole on every rank (`models.model.vocab_logits`).
 """
 from __future__ import annotations
 
@@ -37,26 +51,46 @@ import torch
 
 from repro_torch import attn as attn_api
 from repro_torch import resolve_device
-from repro_torch.attn.spec import spec_for_layer
+from repro_torch.attn.spec import head_shard, spec_for_layer
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import slot_block
+from repro_torch.dist.tensor_parallel import ModelAxis, gather_head_stats
 from repro_torch.models import layers as L
-from repro_torch.models.model import mask_vocab_pad
+from repro_torch.models.model import model_axis, vocab_logits
 from repro_torch.models.transformer import (apply_layer, build_segments,
                                             where_active)
 from repro_torch.obs.routing_stats import stack_stats
 from repro_torch.tree import tree_index, tree_map, tree_stack
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int,
-               device="cuda") -> List[Dict]:
+def _rank_spec(cfg: ModelConfig, variant: str, mesh=None):
+    """The AttentionSpec of this rank's head shard of a layer."""
+    spec = spec_for_layer(cfg, variant)
+    return spec if mesh is None else head_shard(spec, mesh.size("model"))
+
+
+def _rank_rows(kmu, axis: Optional[ModelAxis]):
+    """This rank's routing heads' rows of a layer's whole centroids (Hr, k,
+    dh): block ``axis.rank`` of M, the heads `head_shard` gives it."""
+    if kmu is None or axis is None:
+        return kmu
+    n = kmu.shape[0] // axis.size
+    return kmu.narrow(0, axis.rank * n, n)
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda",
+               mesh=None) -> List[Dict]:
     """Per segment {layer: {leaf: (G, B, ...)}} on ``device`` (default the
-    card; raises without one unless ``device="cpu"``)."""
+    card; raises without one unless ``device="cpu"``). On a ``mesh``, this
+    rank's part (`dist.sharding.shard_cache` of the whole cache): its
+    heads, and B / D slots where B divides over the D data ranks."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
+    B, _ = slot_block(mesh, B)
     out = []
     for pattern, G in build_segments(cfg):
         slot = {str(i): attn_api.init_decode_cache(
-            spec_for_layer(cfg, s.attn), B, max_len, dt, dev)
+            _rank_spec(cfg, s.attn, mesh), B, max_len, dt, dev)
             for i, s in enumerate(pattern)}
         out.append(tree_map(
             lambda x: x[None].expand((G,) + x.shape).clone(), slot))
@@ -66,26 +100,37 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
 # ---------------------------------------------------------------------------
 # serve_step: one token for the whole stack
 # ---------------------------------------------------------------------------
-def _decode_layer(spec, p, kmu, cache, x, cfg, pos, impl):
+def _decode_layer(spec, p, kmu, cache, x, cfg, pos, impl,
+                  axis: Optional[ModelAxis] = None):
+    """One layer of a decode step; with ``axis`` on this rank's shards
+    (the row-parallel products' partial sums added over the model
+    group)."""
+    leave = (lambda t: t) if axis is None else axis.exit
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = L.qkv_project(p["attn"], h, cfg)
-    out = attn_api.attend(spec_for_layer(cfg, spec.attn), q, k, v, state=kmu,
+    out = attn_api.attend(_rank_spec(cfg, spec.attn,
+                                     None if axis is None else axis.mesh),
+                          q, k, v, state=_rank_rows(kmu, axis),
                           cache=cache, pos=pos, impl=impl)
-    x = x + L.out_project(p["attn"], out.out)
+    x = x + leave(L.out_project(p["attn"], out.out))
     h2 = L.apply_norm(p["ln2"], x, cfg.norm)
-    return x + L.apply_mlp(p["ffn"], h2, cfg.act), out.cache
+    return x + leave(L.apply_mlp(p["ffn"], h2, cfg.act)), out.cache
 
 
-def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None):
+def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None,
+                    mesh=None):
     segments = build_segments(cfg)
+    axis = model_axis(mesh)
 
     @torch.no_grad()
     def serve_step(params, kstate, cache, tokens, pos, active=None):
         """tokens: (B,) int; pos: (B,) int -> (logits (B,V), new_cache).
 
         ``active`` (B,) bool, optional: rows where it is False come back
-        with their cache lanes unchanged (their logits are garbage)."""
-        x = L.embed(params["embed"], tokens[:, None])
+        with their cache lanes unchanged (their logits are garbage). On a
+        mesh the logits are the whole vocabulary's, fp32, on every model
+        rank."""
+        x = L.embed(params["embed"], tokens[:, None], axis)
         new_cache = []
         for si, (pattern, G) in enumerate(segments):
             groups = []
@@ -97,7 +142,7 @@ def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None):
                 for i, spec in enumerate(pattern):
                     x, new_c[str(i)] = _decode_layer(
                         spec, p_group[i], k_group.get(str(i)),
-                        c_group[str(i)], x, cfg, pos, impl)
+                        c_group[str(i)], x, cfg, pos, impl, axis)
                 groups.append(new_c)
             new_cache.append(tree_stack(groups))
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
@@ -105,33 +150,38 @@ def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None):
                               cfg.logit_softcap)
         if active is not None:
             new_cache = where_active(active, new_cache, cache, batch_axis=1)
-        return mask_vocab_pad(logits, cfg)[:, 0], new_cache
+        return vocab_logits(logits, cfg, axis)[:, 0], new_cache
 
     return serve_step
 
 
 def decode_backends(cfg: ModelConfig, impl: Optional[str] = None,
-                    platform: Optional[str] = None) -> Dict[str, str]:
+                    platform: Optional[str] = None,
+                    mesh=None) -> Dict[str, str]:
     """variant -> "variant/impl(cache_layout)" for every attention variant
     of the stack, as decode resolves it on ``platform`` (the engine records
-    it; `attn.decode_backend` picks the platform when None)."""
+    it; `attn.decode_backend` picks the platform when None), on a
+    ``mesh`` for a rank's head shard (`ValueError` where the model axis
+    does not divide a head count)."""
     out: Dict[str, str] = {}
     for pattern, _ in build_segments(cfg):
         for s in pattern:
             b = attn_api.decode_backend(spec_for_layer(cfg, s.attn),
-                                        impl=impl, platform=platform)
+                                        impl=impl, platform=platform,
+                                        mesh=mesh)
             out[s.attn] = f"{b.name}({b.layout.name})"
     return out
 
 
 def decode_cache_layouts(cfg: ModelConfig, impl: Optional[str] = None,
-                         platform: Optional[str] = None) -> set:
+                         platform: Optional[str] = None,
+                         mesh=None) -> set:
     """The cache-layout names the decode stack uses (e.g. {"append"},
     {"ring+pages"}). Teacher-forcing a prompt tail over a cached prefix
     writes what a prefill writes only for {"append", "ring"}: cluster
     pages route a prefill by balanced top-k and a decode by argmax."""
     return {attn_api.decode_backend(spec_for_layer(cfg, s.attn), impl=impl,
-                                    platform=platform).layout.name
+                                    platform=platform, mesh=mesh).layout.name
             for pattern, _ in build_segments(cfg) for s in pattern}
 
 
@@ -158,12 +208,16 @@ class PrefillStage(NamedTuple):
 
 
 def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None,
-                        groups_per_stage: Optional[int] = None):
+                        groups_per_stage: Optional[int] = None, mesh=None):
     """``(embed_stage, stages, head_stage)``. ``groups_per_stage=None``
     gives one whole-segment stage per segment (what `prefill` composes);
     ``groups_per_stage=k`` slices each segment's groups into ceil(G / k)
-    stages (the engine's chunked prefill takes k = 1)."""
+    stages (the engine's chunked prefill takes k = 1). On a ``mesh`` the
+    stages run this rank's part (the module's docstring): a stage's
+    stats are its routing heads', the head stage's logits the whole
+    vocabulary's."""
     segments = build_segments(cfg)
+    axis = model_axis(mesh)
 
     def embed_stage(params, batch):
         tokens = batch["tokens"]
@@ -171,7 +225,7 @@ def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None,
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(N, device=tokens.device).expand(B, N)
-        return L.embed(params["embed"], tokens), positions
+        return L.embed(params["embed"], tokens, axis), positions
 
     def make_stage(si, pattern, g0, g1):
         @torch.no_grad()
@@ -184,10 +238,11 @@ def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None,
                 new_c, stats_g = {}, {}
                 for i, spec in enumerate(pattern):
                     x, _, new_c[str(i)], st = apply_layer(
-                        spec, p_group[i], k_group.get(str(i)), x, cfg,
+                        spec, p_group[i], _rank_rows(k_group.get(str(i)),
+                                                     axis), x, cfg,
                         positions=positions, pad_mask=batch.get("pad_mask"),
                         update_state=False, impl=impl,
-                        cache=c_group[str(i)])
+                        cache=c_group[str(i)], axis=axis)
                     if st is not None:
                         stats_g[str(i)] = st
                 groups.append(new_c)
@@ -208,7 +263,7 @@ def make_prefill_stages(cfg: ModelConfig, impl: Optional[str] = None,
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.logits_out(params["embed"], x, cfg.tie_embeddings,
                               cfg.logit_softcap)
-        return mask_vocab_pad(logits, cfg)
+        return vocab_logits(logits, cfg, axis)
 
     return embed_stage, stages, head_stage
 
@@ -230,14 +285,17 @@ def assemble_prefill_cache(stages, chunks) -> List[Dict]:
 
 
 def prefill(params, kstate, cache, batch, cfg: ModelConfig,
-            impl: Optional[str] = None, return_stats: bool = False):
+            impl: Optional[str] = None, return_stats: bool = False,
+            mesh=None):
     """Forward over the prompt ``batch["tokens"]`` (B,N), returning
     (logits (B,N,V), filled cache). ``return_stats`` adds a third element:
     the routing-health stats of the prompt's forward (with
     ``RoutingConfig.stats`` on), a list over segments of {layer:
     obs.RoutingStats} with leaves stacked over groups, the structure the
-    train stack returns."""
-    embed_stage, stages, head_stage = make_prefill_stages(cfg, impl=impl)
+    train stack returns. On a ``mesh`` the cache is this rank's part and
+    the stats the whole model's (the ranks' heads gathered)."""
+    embed_stage, stages, head_stage = make_prefill_stages(cfg, impl=impl,
+                                                          mesh=mesh)
     with torch.no_grad():
         x, positions = embed_stage(params, batch)
     new_cache, seg_stats = [], []
@@ -248,5 +306,5 @@ def prefill(params, kstate, cache, batch, cfg: ModelConfig,
         seg_stats.append(st_g)
     logits = head_stage(params, x)
     if return_stats:
-        return logits, new_cache, seg_stats
+        return logits, new_cache, gather_head_stats(seg_stats, mesh)
     return logits, new_cache

@@ -114,7 +114,7 @@ def make_loss_fn(run: RunConfig, impl: Optional[str] = None,
         if rstats is not None and axis is not None:
             # each model rank computed its routing heads' stats: gather
             # them along the head axis (rank order is head order)
-            rstats = _gather_heads(rstats, axis.mesh)
+            rstats = tpar.gather_head_stats(rstats, axis.mesh)
         if rstats is not None:
             # routing-health stats (RoutingConfig.stats): model-wide
             # scalars ("routing/entropy", ...) and per-layer detail
@@ -125,14 +125,6 @@ def make_loss_fn(run: RunConfig, impl: Optional[str] = None,
         return loss, (new_k, metrics)
 
     return loss_fn
-
-
-def _gather_heads(seg_stats, mesh):
-    """The stack's routing-health stats (a list over segments of {layer:
-    RoutingStats}, leaves (G, H/M, ...)) with the model ranks' heads
-    gathered: the whole model's (G, H, ...)."""
-    return [{li: type(st)(*(tpar.all_gather_dim(x, 1, mesh) for x in st))
-             for li, st in seg.items()} for seg in seg_stats]
 
 
 def value_and_grad(loss_fn, cfg: Optional[ModelConfig] = None):

@@ -21,7 +21,8 @@
   equal a B=1 prefill + decode's, logits within 2e-5; chunked equals
   unchunked bit for bit.
 * EOS, the token budget, submit validation, the SessionHandle lifecycle,
-  the default device and the NotImplementedError of each unported knob
+  the default device and the ValueError of a mesh that does not divide
+  the heads
   (export and import are tested in `test_torch_disagg.py`, the
   observability knobs in `test_torch_obs_engine.py`).
 """
@@ -538,10 +539,15 @@ def test_prefill_only_parks_after_the_first_token(model):
 
 @pytest.mark.parametrize("knob", ["mesh"])
 def test_unported_engine_knobs_raise(model, knob):
-    item = {"mesh": 10}[knob]
-    match = f"ROADMAP.md item {item}"
-    value = {"mesh": object()}[knob]
-    with pytest.raises(NotImplementedError, match=match):
+    """What stays refused of ``mesh``: a model axis that does not divide
+    the layers' local and routing head counts (reduced rt-enwik8: 2 + 2
+    heads over 3 ranks) raises `attn.head_shard`'s `ValueError` before
+    anything is built (the mesh itself is ported:
+    `test_torch_engine_mesh.py`)."""
+    from repro_torch.launch.mesh import Mesh
+    value = {"mesh": Mesh({"data": 1, "model": 3},
+                          {"data": 0, "model": 0})}[knob]
+    with pytest.raises(ValueError, match="do not divide over a 3-way model"):
         _engine(model, max_slots=1, **{knob: value})
 
 
