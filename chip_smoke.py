@@ -283,7 +283,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
    kernels on the rank's heads; TTFT, the decode-step wall p50 / p90 and
    the bytes per rank per decode step through the model group. (c) fp32
    at 2 x 1, as (a), the lanes over the data axis;
-9. print the per-kernel JSON line, then the device JSON line last.
+9. since slice 21, the ssm and hybrid families (`families_phase`): the
+   local kernels' dh-256 instances (forward on the tensor cores in bf16,
+   dq and dk/dv on FMA tiles, fp32 on FMA tiles) at recurrentgemma-9b's
+   attention shape (B 1, 16 query heads on 1 KV head, N 4096, w 2048) in
+   bf16 and fp32 against their plain versions under the dh-192 rows'
+   limits, timed with `graph_ms`, SDPA and the bound, and at the ragged
+   `RG_LOCAL_EDGES`; mamba2-780m's chunked SSD against its step
+   recurrence at one layer's full-width shape; mamba2-780m (48 layers)
+   served 2 x 4096 + 16 (no kernel: every launch count 0; its fp32 decode
+   against the teacher-forced prefill) and trained 3 steps of 2 x 4096
+   (Adam, remat "full"); recurrentgemma-9b served at full depth (38
+   layers) 1 x 4096 + 16 (exactly 12 local launches per prefill, none per
+   decode step; its fp32 kernel path against the plain path), its fp32
+   train gate at one pattern group plus the tail, and 3 bf16 Adafactor
+   steps of 1 x 4096 at RG_TRAIN_GROUPS groups plus the tail, exact local
+   launches per step (each forward twice under remat "full");
+10. print the per-kernel JSON line (since slice 21 with the dh-256
+   instances' rows beside the thirteen kernels'), then the device JSON
+   line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
    rt-cifar10 train step on each of its two kernel paths and of one
@@ -573,6 +591,48 @@ TP_FULL_LOSS_REL_TOL = 1e-4
 DIST_MEAN_REL_TOL = 0.02
 # fp32 rounding of q * scale beside the half-step bound on a residual
 DIST_RESIDUAL_SLACK = 1e-4
+# slice 21: the ssm and hybrid families at full width (random weights from
+# seed 0, bf16; markov batches over min(V, 512) tokens).
+# mamba2-780m (48 SSD layers, d 1536, 48 heads of 64, state 128, chunk 256;
+# no attention, so no kernel): served 2 x 4096 + 16 tokens, its fp32 decode
+# against the prefill of prompt + tokens (teacher forcing) under the full
+# models' serving limits (MIN_TOP1_FP32, MAX_MEDIAN_DIFF_FULL_FP32); trained
+# FAMILY_STEPS steps of B 2 x 4096 (Adam, vaswani schedule, remat "full");
+# its chunked SSD held to the step recurrence at one layer's shape, B 2 x
+# 4096 in fp32, within SSD_REL_TOL of the largest value (the JAX package's
+# own 1e-3 for that comparison, tests/test_models.py)
+MAMBA_ARCH = "mamba2-780m"
+MAMBA_SERVE = (2, 4096, 16)
+MAMBA_BATCH, MAMBA_SEQ = 2, 4096
+SSD_REL_TOL = 1e-3
+# recurrentgemma-9b (d 4096, 16 heads of dh 256 on 1 KV head, local window
+# 2048, lru width 4096, vocab 256000): served at full depth (38 layers) 1 x
+# 4096 + 16 tokens, the local forward's dh-256 instance in each of its 12
+# attention layers, its fp32 kernel path against the plain path under the
+# serving limits; its fp32 train step (kernel path against plain, loss and
+# gradients under qwen2's train limits, MAX_*_FULL) at one group of the
+# pattern plus the tail (5 layers: the depth at which fp32 weights and
+# gradients fit beside the plain path); then FAMILY_STEPS bf16 steps of B 1
+# x 4096 with Adafactor at RG_TRAIN_GROUPS groups of (rglru, rglru, attn)
+# plus the tail, in a process of its own (`train_family_apart`): 32 of 38
+# layers. Adafactor's update holds the old and the new weights and the
+# clipped gradients at once; the full 12 groups run out of the card's
+# memory, 11 peak at 76.4 GiB of its 79.2 (too near to hold from run to
+# run), 10 at 71.6 (PERF.md)
+RG_ARCH = "recurrentgemma-9b"
+RG_SERVE = (1, 4096, 16)
+RG_BATCH, RG_SEQ = 1, 4096
+RG_GATE_GROUPS = 1
+RG_TRAIN_GROUPS = 10
+FAMILY_STEPS = 3
+FAMILY_TIMEOUT_S = 600
+# the local kernels' dh-256 instances at the ragged shapes of LOCAL_EDGES
+# (N of 1, 129, 200 and 3072, w of 63, 128 and 2048, GQA 4:1 and 16:1, a
+# pad mask whose last rows keep no key)
+RG_LOCAL_EDGES = ((1, 4, 1, 1, 63, 256, True, False),
+                  (1, 4, 2, 129, 63, 256, False, False),
+                  (1, 16, 1, 200, 128, 256, True, False),
+                  (1, 4, 1, 3072, 2048, 256, True, True))
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -725,11 +785,15 @@ _ENGINE = ("serve_engine", "serve_disagg", "obs")
 # and since slice 20 the local, fused and flash kernels train under remat
 # "save_dots" ("remat"), and the local, fused and decode kernels serve on
 # each rank's heads of the mesh engine ("tp_engine")
+# and since slice 21 the local kernels' dh-256 instances serve and train
+# recurrentgemma-9b ("serve_rg", "train_rg"; mamba2-780m's "serve_mamba"
+# and "train_mamba" launch no kernel)
 _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
               "train_gathered", "fit_gathered", *_PAPER, *_SERVE_PAPER,
-              *_ENGINE, "ckpt_dist", "tp", "remat", "tp_engine")
+              *_ENGINE, "ckpt_dist", "tp", "remat", "tp_engine",
+              "serve_rg", "train_rg")
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
-              *_PAPER, "obs", "ckpt_dist", "tp", "remat")
+              *_PAPER, "obs", "ckpt_dist", "tp", "remat", "train_rg")
 _FLASH = ("train_full", "launch", "ckpt_launch", "tp", "remat")
 _GATHERED = ("train_gathered", "fit_gathered")
 KERNELS = {
@@ -2781,9 +2845,10 @@ def profiled(torch, fn, top: int = 15, spans: str = None) -> dict:
                     for e in dev[:top]])
 
 
-def profile(torch, cfg, params, kstate, prompts):
+def profile(torch, cfg, params, kstate, prompts, profiler=None):
     """Device time by operation over one kernel-path prefill of
-    ``prompts`` and, separately, one decode step after it."""
+    ``prompts`` and, separately, one decode step after it, each read by
+    ``profiler`` (`profiled` unless given)."""
     from repro_torch.serve import serving
     B, N = prompts.shape
     cache = serving.init_cache(cfg, B, N + 2, device=DEVICE)
@@ -2797,8 +2862,9 @@ def profile(torch, cfg, params, kstate, prompts):
     def decode():
         step(params, kstate, res["cache"], res["logits"][:, -1].argmax(-1),
              torch.full((B,), N, device=DEVICE))
-    return {"prefill": profiled(torch, prefill),
-            "decode_step": profiled(torch, decode)}
+    profiler = profiler or profiled
+    return {"prefill": profiler(torch, prefill),
+            "decode_step": profiler(torch, decode)}
 
 
 # ---------------------------------------------------------------------------
@@ -3178,10 +3244,12 @@ def full_train_gate_bf16(torch, cfg, params, kstate, batch):
 
 def layer_counts(cfg) -> dict:
     """How many layers of ``cfg`` have local heads, routing heads and full
-    attention (a local+routing layer counts in the first two)."""
-    from repro_torch.attn.spec import spec_for_layer, variant_for_layer
-    variants = [spec_for_layer(cfg, variant_for_layer(cfg, i)).variant
-                for i in range(cfg.num_layers)]
+    attention (a local+routing layer counts in the first two); a layer
+    with no attention (an ssd or rglru layer, since slice 21) in none."""
+    from repro_torch.attn.spec import spec_for_layer
+    from repro_torch.models.transformer import per_layer_specs
+    variants = [spec_for_layer(cfg, s.attn).variant
+                for s in per_layer_specs(cfg) if s.kind == "attn"]
     return {"local": sum("local" in v for v in variants),
             "routing": sum("routing" in v for v in variants),
             "full": sum(v == "full" for v in variants)}
@@ -3477,19 +3545,22 @@ def train_paper(torch, run, path, counts, gate_limits=None):
     return row, launches
 
 
-def serve_model(torch, path, cfg, request, counts):
+def serve_model(torch, path, cfg, request, counts, profiler=None):
     """Serve ``cfg`` at full width and depth (random weights from seed 0,
     bf16; a prompt of random tokens from seed 1): `request` through `serve`
     on the kernel path, launch counts set to 0 just before and read just
     after, exact per prefill and per step; then one prefill and one decode
     step under the profiler (`profile`: device busy ms). Then the fp32 gate
     on the same prompt and weights: a
-    routing model's kernel path against its plain path (impl="torch")
-    teacher-forced with the kernel path's tokens, under the serving gates
-    (MIN_TOP1_FP32, MAX_MEDIAN_DIFF_FP32; each routes on its own, the
-    routing calls whose membership differed are counted); a full model's
-    decode steps against the prefill logits of prompt + tokens
-    (MAX_MEDIAN_DIFF_FULL_FP32). Returns (row, launches)."""
+    model whose layers run the local or fused kernels has its kernel path
+    held against its plain path (impl="torch") teacher-forced with the
+    kernel path's tokens, under the serving gates (MIN_TOP1_FP32,
+    MAX_MEDIAN_DIFF_FP32; each routes on its own, the routing calls whose
+    membership differed are counted); a model that runs none (a full
+    model, and since slice 21 mamba2-780m) its decode steps against the
+    prefill logits of prompt + tokens (MAX_MEDIAN_DIFF_FULL_FP32).
+    ``profiler`` reads the profiled prefill and decode step (`profile`).
+    Returns (row, launches)."""
     from repro_torch.configs import with_overrides
     from repro_torch.kernels import common
     from repro_torch.models.model import init_model
@@ -3506,7 +3577,7 @@ def serve_model(torch, path, cfg, request, counts):
     common.reset_counters()
     kr = serve(torch, cfg, params, kstate, prompts, T, counts=counts)
     launches = common.counters()
-    prof = profile(torch, cfg, params, kstate, prompts)
+    prof = profile(torch, cfg, params, kstate, prompts, profiler)
     row = dict(model=cfg.name, batch=B, prompt=N, new_tokens=T,
                prefill_ms=kr["prefill_ms"], prefill_tok_s=kr["prefill_tok_s"],
                decode_ms_per_token=kr["decode_ms_per_token"],
@@ -3524,7 +3595,8 @@ def serve_model(torch, path, cfg, request, counts):
     calls = []
     with membership_recorded(calls):
         k32 = serve(torch, cfg32, params32, kstate, prompts, T)
-    if layer_counts(cfg)["full"] == cfg.num_layers:
+    layers = layer_counts(cfg)
+    if layers["local"] == layers["routing"] == 0:
         tokens = torch.cat([prompts, k32["tokens"]], 1)
         cache = serving.init_cache(cfg32, B, N + T, device=DEVICE)
         logits, _ = serving.prefill(params32, kstate, cache,
@@ -5676,6 +5748,447 @@ def tp_engine_phase(torch, card) -> tuple:
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# Since slice 21: the ssm and hybrid families (mamba2-780m, recurrentgemma-9b)
+# and the local kernels' dh-256 instances
+# ---------------------------------------------------------------------------
+def check_local_gqa(torch, B, H, Hkv, N, w, dh, dtype, gen) -> dict:
+    """The local forward, dq and dk/dv at one causal GQA shape (H query
+    heads on Hkv kv heads; dk and dv per query head, as the kernel writes
+    them), each against its plain version in fp32 on the same inputs: the
+    forward's largest value (OUT_REL_TOL), every row (ROW_REL_TOL) and lse
+    (LSE_TOL); dq, dk and dv within BWD_REL_TOL of their largest values and
+    every row under the window mask within BWD_ROW_REL_TOL
+    (`local_grad_row_errs`), the limits of the dh-192 rows. Each timed
+    (`time_ms`, `graph_ms`; `timings`) beside its plain version and SDPA
+    with the band mask (the backward's: dq, dk and dv in one call), with
+    its bound (pairs of this window; dk and dv written per query head).
+    Returns the three rows."""
+    from repro_torch.core import local as ref
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import local_attention as K
+    mk = dict(generator=gen, device=DEVICE, dtype=dtype)
+    q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+    shape = f"B{B} H{H} Hkv{Hkv} N{N} dh{dh} w{w} {str(dtype)[6:]}"
+    out, lse = K.local_attention(q, k, v, w)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = K.local_attention_plain(q.float(), k.float(),
+                                               v.float(), w)
+    err, lerr = max_err(out, ref_out), max_err(lse, ref_lse)
+    row_err = row_rel_err(out, ref_out)
+    if not (out_ok(out, ref_out) and lerr <= LSE_TOL
+            and row_err <= ROW_REL_TOL):
+        raise AssertionError(f"local_attention at {shape} disagrees with "
+                             f"its plain version: out {err}, lse {lerr}, "
+                             f"row {row_err}")
+    mask = local_mask(torch, N, w)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = local_pairs(torch, B, H, N, w)
+    rows = {"local_attention": dict(
+        max_abs_err=err, lse_err=lerr, out_rel_err=rel_err(out, ref_out),
+        row_rel_err=row_err,
+        **timings(torch, lambda: K.local_attention(q, k, v, w),
+                  lambda: K.local_attention_plain(q, k, v, w),
+                  lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True),
+                  *bound_ms(nbytes(q, k, v, out, lse), 4 * dh * pairs)),
+        shape=shape)}
+    del ref_out, ref_lse
+    dsum = row_dot(do, out)
+    args = (q, k, v, do, lse, dsum, w)
+    args32 = (q.float(), k.float(), v.float(), do.float(), lse, dsum, w)
+    dq = K.local_attention_bwd_dq(*args)
+    dk, dv = K.local_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    refs = (ref.local_attention_bwd_dq(*args32),
+            *ref.local_attention_bwd_dkv(*args32))
+    grads = (dq, dk, dv)
+    grad_row = local_grad_row_errs(grads, refs, mask)
+    if max(grad_row) > BWD_ROW_REL_TOL or not all(
+            out_ok(g, r, BWD_REL_TOL) for g, r in zip(grads, refs)):
+        raise AssertionError(f"a local backward kernel at {shape} disagrees "
+                             f"with its plain version: rows {grad_row}")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, attn_mask=mask, enable_gqa=True)
+
+    def library():
+        torch.autograd.grad(o, leaves, do, retain_graph=True)
+    n_in = nbytes(q, k, v, do, lse, dsum)
+    for name, part, fn, plain, out_bytes, flops in (
+            ("local_attention_bwd_dq", slice(0, 1),
+             lambda: K.local_attention_bwd_dq(*args),
+             lambda: ref.local_attention_bwd_dq(*args), nbytes(dq),
+             6 * dh * pairs),
+            ("local_attention_bwd_dkv", slice(1, 3),
+             lambda: K.local_attention_bwd_dkv(*args),
+             lambda: ref.local_attention_bwd_dkv(*args), nbytes(dk, dv),
+             8 * dh * pairs)):
+        rows[name] = dict(
+            max_abs_err=max(max_err(g, r) for g, r in zip(grads[part],
+                                                          refs[part])),
+            grad_rel_err=[rel_err(g, r) for g, r in zip(grads[part],
+                                                          refs[part])],
+            grad_row_rel_err=grad_row[part],
+            **timings(torch, fn, plain, library,
+                      *bound_ms(n_in + out_bytes, flops)),
+            shape=shape)
+    # the (B, H, N, dh) fp32 dk and dv per query head that `group_sum`
+    # reduces onto the kv heads
+    rows["local_attention_bwd_dkv"]["per_query_head_mb"] = (
+        nbytes(dk, dv) / 2 ** 20)
+    del o, leaves
+    return rows
+
+
+def timings(torch, fn, plain, library, b_ms, b_by) -> dict:
+    """A row's times: ``fn`` (`time_ms` and `graph_ms`), its plain
+    version and the library call (`time_ms`), its bound and its share of
+    it. A call of over a millisecond is timed over 5 calls, not 20 (the
+    host's part of it is negligible there; the FMA instances' dq and dk/dv
+    take 12-45 ms)."""
+    ms = time_ms(fn)
+    iters = 5 if ms > 1.0 else 20
+    g_ms = graph_ms(torch, fn, iters=iters)
+    return dict(ms=ms, graph_ms=g_ms,
+                plain_ms=time_ms(plain, iters=iters),
+                library_ms=time_ms(library, iters=iters), bound_ms=b_ms,
+                bound_by=b_by, bound_share=b_ms / g_ms)
+
+
+def device_busy(torch, fn, top: int = 5) -> dict:
+    """`profiled`'s device readings of ``fn`` (busy ms, launches, the
+    ``top`` device ops by time) from a trace of the device's activity
+    alone: the families' steps launch 10^4-10^5 small kernels (the SSD
+    and RG-LRU chunk loops), and `profiled`'s host events (every aten op
+    and autograd node beside them) take minutes to record and sum (a
+    mamba2-780m train step: ~165 s; the two agree on the device's time,
+    PERF.md)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith(PORT_SPANS)),
+                 key=lambda e: -e.self_device_time_total)
+    return dict(
+        device_busy_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+        device_launches=sum(e.count for e in dev),
+        device_ops=[dict(name=e.key, calls=e.count,
+                         device_ms=e.self_device_time_total / 1e3)
+                    for e in dev[:top]])
+
+
+def local_dh256_smem(torch) -> dict:
+    """Dynamic shared memory per block of the local kernels' dh-192 and
+    dh-256 instances in bf16 and fp32 (forward, dq, dk/dv), as their C
+    entry points compute it."""
+    import ctypes
+    from repro_torch.kernels import common
+    fwd = common.load("local_attention", "local_fwd_smem_bytes",
+                      [ctypes.c_int, ctypes.c_int])
+    bwd = common.load("local_attention_bwd", "local_bwd_smem_bytes",
+                      [ctypes.c_int, ctypes.c_int, ctypes.c_int])
+    return {f"dh{dh} {name}": dict(forward=fwd(dh, code),
+                                   dq=bwd(dh, code, 0), dkv=bwd(dh, code, 1))
+            for dh in (192, 256) for name, code in (("fp32", 0), ("bf16", 1))}
+
+
+def ssd_gate(torch) -> dict:
+    """mamba2-780m's chunked SSD (`ssd_chunked`, chunk 256) against its
+    step recurrence (`ssd_naive`) at one layer's full-width shape, B 2 x
+    4096, 48 heads of 64, state 128, in fp32: inputs drawn as a layer makes
+    them (dt = softplus(x + dt_bias), A = -exp(A_log) of the init, B and C
+    through a silu). y and the final state within SSD_REL_TOL of their
+    largest values."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    s = ssm.ssm_spec(get_config(MAMBA_ARCH))
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    mk = dict(generator=gen, device=DEVICE)
+    B, S = MAMBA_BATCH, MAMBA_SEQ
+    xh = torch.randn((B, S, s.nheads, s.headdim), **mk)
+    dt = F.softplus(torch.randn((B, S, s.nheads), **mk) - 2.0)
+    A = -torch.linspace(1.0, 16.0, s.nheads, device=DEVICE)
+    Bm, Cm = (F.silu(torch.randn((B, S, s.nstate), **mk)) for _ in range(2))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        y, st = ssm.ssd_chunked(xh, dt, A, Bm, Cm, s.chunk)
+        torch.cuda.synchronize()
+        chunked_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        y_ref, st_ref = ssm.ssd_naive(xh, dt, A, Bm, Cm)
+        torch.cuda.synchronize()
+        naive_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(shape=f"B{B} S{S} H{s.nheads} P{s.headdim} N{s.nstate} "
+                     f"chunk {s.chunk}",
+               y_rel_err=rel_err(y, y_ref), state_rel_err=rel_err(st, st_ref),
+               y_row_rel_err=row_rel_err(y, y_ref), chunked_ms=chunked_ms,
+               naive_ms=naive_ms, limit=SSD_REL_TOL)
+    if max(out["y_rel_err"], out["state_rel_err"]) > SSD_REL_TOL:
+        raise AssertionError(f"the chunked SSD disagrees with its step "
+                             f"recurrence: {out}")
+    return out
+
+
+def local_first_query_head_only(q, k, v, out, lse, do, window: int,
+                                causal=True, pad_mask=None):
+    """The local backward with each kv head's dk/dv taken from the first
+    query head of its GQA group instead of the group's sum: the hybrid
+    gate's negative control."""
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import local_attention as KL
+    dsum = row_dot(do, out)
+    dq = KL.local_attention_bwd_dq(q, k, v, do, lse, dsum, window, causal,
+                                   pad_mask)
+    dk, dv = KL.local_attention_bwd_dkv(q, k, v, do, lse, dsum, window,
+                                        causal, pad_mask)
+    B, H, N, dh = dk.shape
+    Hkv = k.shape[1]
+    return (dq, dk.reshape(B, Hkv, H // Hkv, N, dh)[:, :, 0],
+            dv.reshape(B, Hkv, H // Hkv, N, dh)[:, :, 0])
+
+
+def family_config(arch, groups=None, **over):
+    """``arch``'s full config, cut to ``groups`` groups of its hybrid
+    pattern plus its tail when given."""
+    from repro_torch.configs import get_config, with_overrides
+    cfg = get_config(arch)
+    if groups is not None:
+        pat = len(cfg.hybrid_pattern)
+        tail = cfg.num_layers % pat
+        over["num_layers"] = groups * pat + tail
+    return with_overrides(cfg, **over)
+
+
+def hybrid_train_gate(torch, cfg, batch) -> dict:
+    """The hybrid family's fp32 train step (dropout 0, random fp32 weights
+    from seed 0), as qwen2's `full_train_gate`: the kernel path against
+    the plain path (loss and the median leaf gradient difference), on one
+    forward graph the backward kernels against the plain backward (the
+    largest leaf difference), both under MAX_*_FULL, and the kernel path
+    against itself; the control on a forward of its own (memory). Its
+    negative control, `local_first_query_head_only`,
+    reaches only the layers up to the attention layer (the tail's leaves
+    do not see it), so it must exceed the largest-leaf limit on both
+    readings; its median is reported."""
+    from repro_torch.kernels import local_attention as KL
+    from repro_torch.models.model import init_model
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    B, S1 = batch["tokens"].shape
+    run = full_run_config(cfg, B, S1 - 1)
+    params32, kstate = init_model(cfg, seed=0, device=DEVICE)
+
+    def step(impl):
+        vg = value_and_grad(make_loss_fn(run, impl=impl))
+        (loss, _), grads = vg(params32, kstate, batch, None)
+        torch.cuda.synchronize()
+        return float(loss), grads
+
+    # an fp32 gradient tree of this cut is ~11 GB (the two 256000-row
+    # embeddings take 8.4 of it): at most three are alive at a time, so
+    # the control runs on a forward of its own (the forward kernels
+    # repeat bit for bit)
+    lp, gp = step("torch")
+    lk, gk = step(None)
+    out = dict(loss_kernel=lk, loss_plain=lp, loss_diff=abs(lk - lp),
+               **grad_agreement(gk, gp))
+    out["repeat"] = grad_agreement(step(None)[1], gk)
+    del gk
+    g_kernels, g_plain_bwd = one_graph_grads(
+        torch, run, params32, kstate, batch, [
+            contextlib.nullcontext(),
+            swapped(KL, "local_attention_bwd", KL.local_attention_bwd_plain)])
+    out["backward"] = grad_agreement(g_kernels, g_plain_bwd)
+    del g_kernels
+    (g_broken,) = one_graph_grads(
+        torch, run, params32, kstate, batch,
+        [swapped(KL, "local_attention_bwd", local_first_query_head_only)])
+    out.update(first_head_only=grad_agreement(g_broken, gp),
+               first_head_only_backward=grad_agreement(g_broken,
+                                                       g_plain_bwd),
+               layers=cfg.num_layers, shape=f"B{B} x {S1 - 1}")
+    del g_broken, g_plain_bwd, gp
+    if (out["loss_diff"] > MAX_LOSS_DIFF_FULL
+            or out["grad_rel_median"] > MAX_GRAD_MEDIAN_FULL
+            or out["backward"]["grad_rel_max"] > MAX_BWD_GRAD_FULL):
+        raise AssertionError(f"fp32 kernel and plain {cfg.name} train "
+                             f"steps disagree: {out}")
+    if (out["first_head_only"]["grad_rel_max"] <= MAX_BWD_GRAD_FULL
+            or out["first_head_only_backward"]["grad_rel_max"]
+            <= MAX_BWD_GRAD_FULL):
+        raise AssertionError(f"the {cfg.name} fp32 gates pass a broken "
+                             f"backward: {out}")
+    return out
+
+
+def train_family(torch, run, path, counts) -> tuple:
+    """FAMILY_STEPS bf16 steps of ``run`` (random weights from seed 0, the
+    optimizer state fresh and the step at the schedule's peak, as `train`
+    starts; markov batches over min(V, 512) tokens) through
+    `make_train_step`, holding only the live train state (a 9-B-parameter
+    model has no room for a second copy of its weights): the exact
+    launches of ``path``, the loss finite and falling, then one more step
+    under the profiler for its busy time (`device_busy`). Returns (row,
+    launches)."""
+    from repro_torch.kernels import common
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.train_step import TrainState, make_train_step
+    cfg, tc = run.model, run.train
+    batches = train_batches(torch, min(cfg.vocab_size, FULL_VOCAB),
+                            tc.global_batch, tc.seq_len, FAMILY_STEPS + 1)
+    torch.cuda.reset_peak_memory_stats()
+    ts = TrainState(*init_model(cfg, seed=0, device=DEVICE), None,
+                    tc.warmup_steps)
+    ts = ts._replace(opt_state=make_optimizer(tc)[0](ts.params))
+    step_fn = make_train_step(run)
+    torch.cuda.synchronize()
+    common.reset_counters()
+    losses, times = [], []
+    for batch in batches[:FAMILY_STEPS]:
+        t0 = time.perf_counter()
+        ts, metrics = step_fn(ts, batch)
+        losses.append(float(metrics["loss"]))     # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: counts().get(n, 0) for n in KERNELS}
+    check_launches(path, launches,
+                   expected_launches(path, run, FAMILY_STEPS))
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{path} loss not finite and falling: "
+                             f"{losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_busy(torch, lambda: float(step_fn(ts, batches[-1])[1][
+        "loss"]))
+    step_ms = statistics.median(times[1:])
+    row = dict(model=cfg.name, layers=cfg.num_layers,
+               optimizer=tc.optimizer, remat=tc.remat,
+               shape=f"B{tc.global_batch} x {tc.seq_len}", losses=losses,
+               step_ms=times, median_step_ms=step_ms,
+               tokens_per_s=tc.global_batch * tc.seq_len / step_ms * 1e3,
+               peak_mem_gib=peak, launches=launches,
+               grad_norm=float(metrics["grad_norm"]), lr=metrics["lr"],
+               busy_ms=prof["device_busy_ms"],
+               busy_launches=prof["device_launches"],
+               busy_top_ops=prof["device_ops"][:5])
+    print(f"{path} {json.dumps(row)}", flush=True)
+    return row, launches
+
+
+def families_phase(torch, card, counts) -> tuple:
+    """Slice 21: the local kernels' dh-256 instances at recurrentgemma-9b's
+    attention shape (B 1, 16 heads on 1 KV head, N 4096, w 2048) in bf16
+    and fp32 (`check_local_gqa`) and in bf16 at RG_LOCAL_EDGES, with their
+    shared memory; mamba2-780m's chunked SSD against its step recurrence
+    (`ssd_gate`); then both models served (`serve_model`: exact launches,
+    busy ms, the fp32 gate) and trained (`train_family`) at full width,
+    recurrentgemma-9b's fp32 train gate (`hybrid_train_gate`) before its
+    bf16 steps. Returns (row, kernel rows of the dh-256 instances in bf16,
+    launches per path)."""
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    kern = {str(dt)[6:]: check_local_gqa(torch, RG_BATCH, 16, 1, RG_SEQ,
+                                         2048, 256, dt, gen)
+            for dt in (torch.bfloat16, torch.float32)}
+    for rows in kern.values():
+        print_rows(rows)
+    edges = dict(local=check_local_edges(torch, gen, RG_LOCAL_EDGES),
+                 local_bwd=check_local_bwd_edges(torch, gen, RG_LOCAL_EDGES))
+    print(f"dh-256 local edges {json.dumps(edges)}", flush=True)
+    smem = local_dh256_smem(torch)
+    print(f"dh-256 local smem {json.dumps(smem)}", flush=True)
+    ssd = ssd_gate(torch)
+    print(f"ssd gate {json.dumps(ssd)}", flush=True)
+    t = phase("families: dh-256 kernels, ssd gate", t)
+    launches, row = {}, dict(kernels=kern, edges=edges, smem=smem, ssd=ssd)
+    for path, arch, request in (("serve_mamba", MAMBA_ARCH, MAMBA_SERVE),
+                                ("serve_rg", RG_ARCH, RG_SERVE)):
+        row[path], launches[path] = serve_model(
+            torch, path, family_config(arch), request, counts, device_busy)
+        torch.cuda.empty_cache()
+        t = phase(f"families: {path}", t)
+    gcfg = family_config(RG_ARCH, RG_GATE_GROUPS, dtype="float32")
+    gbatch = train_batches(torch, min(gcfg.vocab_size, FULL_VOCAB), RG_BATCH,
+                           RG_SEQ, 1)[0]
+    row["train_rg_gate"] = hybrid_train_gate(torch, gcfg, gbatch)
+    print(f"train_rg fp32 gate {json.dumps(row['train_rg_gate'])}",
+          flush=True)
+    torch.cuda.empty_cache()
+    t = phase("families: train_rg fp32 gate", t)
+    row["train_mamba"], launches["train_mamba"] = train_family(
+        torch, family_run("train_mamba"), "train_mamba", counts)
+    torch.cuda.empty_cache()
+    t = phase("families: train_mamba", t)
+    row["train_rg"], launches["train_rg"] = train_family_apart(
+        torch, "train_rg")
+    phase("families: train_rg", t)
+    return row, kern["bfloat16"], launches
+
+
+def family_run(path):
+    """The run config of a family's train path: mamba2-780m at full depth
+    (Adam, the TrainConfig defaults), recurrentgemma-9b at
+    RG_TRAIN_GROUPS groups plus the tail (Adafactor)."""
+    from repro_torch.configs.base import RunConfig, TrainConfig
+    if path == "train_mamba":
+        return RunConfig(model=family_config(MAMBA_ARCH), train=TrainConfig(
+            global_batch=MAMBA_BATCH, seq_len=MAMBA_SEQ))
+    return RunConfig(model=family_config(RG_ARCH, RG_TRAIN_GROUPS),
+                     train=TrainConfig(global_batch=RG_BATCH, seq_len=RG_SEQ,
+                                       optimizer="adafactor"))
+
+
+def train_family_process(path: str, out: str) -> None:
+    """`train_family` of ``path`` in a process of its own (every wrapper's
+    counter registered, TF32 off, as in `main`); writes (row, launches)
+    to ``out``."""
+    import torch
+    from repro_torch.kernels import (common, flash_attention,  # noqa: F401
+                                     local_attention, routing_attention,
+                                     routing_decode, routing_gathered)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    row, launches = train_family(torch, family_run(path), path,
+                                 common.counters)
+    Path(out).write_text(json.dumps([row, launches]))
+
+
+def train_family_apart(torch, path) -> tuple:
+    """`train_family_process` of ``path`` in a fresh process on the card
+    (this process's cached blocks handed back first), its allocator on
+    expandable segments: recurrentgemma-9b's steps peak at ~72 GiB of the
+    card's 80 (PERF.md), more than the blocks that the earlier phases
+    leave fragmented in this process, or the allocator's own segments,
+    allow. Returns its (row, launches)."""
+    import os
+    import tempfile
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / f"{path}.json"
+        # expandable segments: the steps' largest transients (the 256000 x
+        # 4096 embeddings' fp32 copies in Adafactor's update, 3.9 GiB
+        # each) otherwise find no block among the freed ones
+        env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_"
+                   "segments:True")
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+             f"train_family_process({path!r}, {str(out)!r})"],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=FAMILY_TIMEOUT_S)
+        print(proc.stdout[-4000:], end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"{path} in its own process failed "
+                                 f"({proc.returncode}): "
+                                 f"{proc.stderr[-4000:]}")
+        row, launches = json.loads(out.read_text())
+    return row, launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -6113,6 +6626,13 @@ def main(argv=None) -> int:
     tpe_row, launches["tp_engine"] = tp_engine_phase(torch, card)
     t = phase("tp_engine", t)
 
+    # since slice 21: the ssm and hybrid families at full width, and the
+    # local kernels' dh-256 instances at recurrentgemma-9b's shape
+    fam_row, kern256, fam_launches = families_phase(torch, card,
+                                                    common.counters)
+    launches.update(fam_launches)
+    t = phase("families", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -6130,6 +6650,19 @@ def main(argv=None) -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"]))
+    # the dh-256 instances (slice 21), launched by recurrentgemma-9b's paths
+    for name, row in kern256.items():
+        meta = KERNELS[name]
+        paths = [p for p in meta["paths"] if p.endswith("_rg")]
+        kernels.append(dict(
+            name=f"{name} dh256", route=meta["route"], source=meta["source"],
+            replaces=meta["replaces"],
+            launches=sum(launches[p][name] for p in paths),
+            launches_by_path={p: launches[p][name] for p in paths},
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            graph_ms=row["graph_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], shape=row["shape"]))
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -6158,7 +6691,8 @@ def main(argv=None) -> int:
             decode_digest=dec_digest, serve_paper=serve_rows,
             serve_engine=engine_row, serve_disagg=disagg_row, obs=obs_row,
             ckpt_dist=ckpt_row, tp=tp_row, remat=remat_row,
-            tp_engine=tpe_row, launches=launches, profile=prof),
+            tp_engine=tpe_row, families=fam_row, launches=launches,
+            profile=prof),
             indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

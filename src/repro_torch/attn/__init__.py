@@ -101,11 +101,12 @@ def _layout(spec: AttentionSpec, platform: str):
     """The cache layout of the decode backend that resolves on
     ``platform`` (the plain and the kernel backend of a variant share
     one). On the card, a head dim wider than its decode kernel takes
-    raises: serving does not fall back to the plain backend."""
+    raises `BackendResolutionError` (a `ValueError`): serving does not
+    fall back to the plain backend."""
     b = resolve(spec, decode=True, platform=platform)
     top = b.caps.decode_max_head_dim
     if platform == "cuda" and top is not None and spec.head_dim > top:
-        raise ValueError(
+        raise BackendResolutionError(
             f"{b.name}: decode on the card at head_dim {spec.head_dim}: its "
             f"kernel's widest instance is {top}")
     return b.layout

@@ -78,6 +78,7 @@ from repro_torch.core.kmeans import KMeansState, normalize_routing
 from repro_torch.core.local import local_attention
 from repro_torch.core.routing import routed_attention
 from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.kernels.common import PADDED_HEAD_DIMS
 from repro_torch.kernels import local_attention as local_kernel
 from repro_torch.kernels import routing_decode as decode_kernel
 from repro_torch.models import layers as L
@@ -444,18 +445,21 @@ _CAPS = dict(supports_pad_mask=True, supports_positions=True,
 
 
 def _register(variant, impl, apply, priority=0, decode=None, layout=None,
-              decode_max_head_dim=None):
+              decode_max_head_dim=None, max_head_dim=None):
     """A backend of the paper's variants: every impl but ``torch`` runs
     kernels (needs_cuda); a backend with a decode path owns ``layout``;
     one whose decode runs the paged decode kernel takes head dims up to
-    its widest instance (``decode_max_head_dim``)."""
+    its widest instance (``decode_max_head_dim``), one whose apply runs
+    the local-window or fused routing kernels up to theirs
+    (``max_head_dim``: 256 for the local kernels alone, 192 with the fused
+    routing kernels)."""
     registry.register(Backend(
         variant=variant, impl=impl, apply=apply, decode=decode,
         layout=layout, priority=priority,
         caps=Capabilities(supports_decode=decode is not None,
                           needs_cuda=impl != "torch",
                           decode_max_head_dim=decode_max_head_dim,
-                          **_CAPS)))
+                          max_head_dim=max_head_dim, **_CAPS)))
 
 
 _local_torch = _make_local_apply(kernel=False)
@@ -468,13 +472,16 @@ _decode_kernel = _make_routing_decode(decode_kernel.paged_routing_decode)
 
 # cuda_gathered: priority 0, registered after torch (which wins the tie)
 # and without decode, so auto-selection never takes it
+_LOCAL_MAX = local_kernel.WIDTHS[-1]
+_FUSED_MAX = PADDED_HEAD_DIMS[-1]
 _register("local", "torch", _local_torch, 0, _local_decode, RING_LAYOUT)
-_register("local", "cuda", _local_cuda, 10, _local_decode, RING_LAYOUT)
-_register("local", "cuda_gathered", _local_cuda)
+_register("local", "cuda", _local_cuda, 10, _local_decode, RING_LAYOUT,
+          max_head_dim=_LOCAL_MAX)
+_register("local", "cuda_gathered", _local_cuda, max_head_dim=_LOCAL_MAX)
 
 _register("routing", "torch", _routing_torch, 0, _decode_plain, PAGES_LAYOUT)
 _register("routing", "cuda", _routing_fused, 20, _decode_kernel,
-          PAGES_LAYOUT, decode_kernel.MAX_HEAD_DIM)
+          PAGES_LAYOUT, decode_kernel.MAX_HEAD_DIM, _FUSED_MAX)
 _register("routing", "cuda_gathered", _routing_gathered)
 
 _register("local+routing", "torch",
@@ -483,6 +490,6 @@ _register("local+routing", "torch",
 _register("local+routing", "cuda",
           _make_mixed_apply(_local_cuda, _routing_fused), 20,
           _make_mixed_decode(_decode_kernel), MIXED_LAYOUT,
-          decode_kernel.MAX_HEAD_DIM)
+          decode_kernel.MAX_HEAD_DIM, _FUSED_MAX)
 _register("local+routing", "cuda_gathered",
           _make_mixed_apply(_local_cuda, _routing_gathered))

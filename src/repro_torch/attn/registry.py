@@ -71,6 +71,9 @@ class Capabilities:
     ``decode_max_head_dim``: the widest head dim the decode path's kernel
     takes on the card (None: any); a narrower one runs zero-padded to one
     of its widths.
+    ``max_head_dim``: the same for the apply path's kernels: a call on the
+    card at a wider head dim raises `BackendResolutionError` when it
+    resolves, before any launch, and never falls back to another backend.
     """
 
     supports_decode: bool = False
@@ -79,6 +82,7 @@ class Capabilities:
     supports_grad: bool = False
     needs_cuda: bool = False
     decode_max_head_dim: Optional[int] = None
+    max_head_dim: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -194,7 +198,23 @@ def resolve(spec: AttentionSpec, *, decode: bool = False,
             needs_grad: bool = False, impl: Optional[str] = None,
             platform: str = "cpu") -> Backend:
     """Pick the backend for a call on ``platform`` tensors, or raise.
-    ``impl`` forces one; a capability it lacks is an error."""
+    ``impl`` forces one; a capability it lacks is an error. An apply call
+    on the card at a head dim wider than the picked backend's kernels take
+    (``max_head_dim``) raises rather than picking another."""
+    b = _pick(spec, decode=decode, padded=padded, positioned=positioned,
+              needs_grad=needs_grad, impl=impl, platform=platform)
+    top = b.caps.max_head_dim
+    if (not decode and platform == "cuda" and top is not None
+            and spec.head_dim > top):
+        raise BackendResolutionError(
+            f"{b.name} at head_dim {spec.head_dim} on the card: its "
+            f"kernels' widest instance is {top}")
+    return b
+
+
+def _pick(spec: AttentionSpec, *, decode: bool, padded: bool,
+          positioned: bool, needs_grad: bool, impl: Optional[str],
+          platform: str) -> Backend:
     kw = dict(decode=decode, padded=padded, positioned=positioned,
               needs_grad=needs_grad, platform=platform)
     if impl is not None:

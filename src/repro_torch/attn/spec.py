@@ -173,7 +173,11 @@ def spec_for_layer(cfg: ModelConfig, variant: str) -> AttentionSpec:
 
 def specs_for_model(cfg: ModelConfig) -> Tuple[AttentionSpec, ...]:
     """The distinct AttentionSpecs of the model's stack, in layer order
-    (`dist.sharding.make_constrain_fn` validates them)."""
+    (`dist.sharding.make_constrain_fn` validates them); none for the ssm
+    family, which has no attention. A hybrid model's are its attention
+    layers' (variant_for_layer of every layer, as the JAX package's)."""
+    if cfg.family == "ssm":
+        return ()
     out = []
     for i in range(cfg.num_layers):
         s = spec_for_layer(cfg, variant_for_layer(cfg, i))

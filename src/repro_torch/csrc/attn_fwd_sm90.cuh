@@ -5,11 +5,12 @@
 //
 // A block of 256 threads owns 128 query rows of one plane, 64 per
 // warpgroup; TMA loads its Q once and walks key tiles of 128 rows (64 at
-// dh 192: `fwd_keys`) through a ring of two K/V stages (`sm90::Ring`),
+// dh 192 and 256: `fwd_keys`) through a ring of two K/V stages (`sm90::Ring`),
 // from 3-D tensor maps (dh, rows, planes): rows past a plane's end arrive
 // as zeros, never as the next plane's rows. At dh 128 a tile is two boxes
-// of 64 columns, at dh 192 three. Per tile S = Q K^T is one SS wgmma chain
-// (m64n128k16, m64n64k16 at dh 192; K a K-major operand); the
+// of 64 columns, at dh 192 three, at dh 256 four. Per tile S = Q K^T is
+// one SS wgmma chain (m64n128k16, m64n64k16 at dh 192 and 256; K a
+// K-major operand); the
 // online softmax runs in fp32 on the accumulator registers (a row's max
 // and sum over the 4 threads of a quad); P, zero where masked and rounded
 // to bf16 in registers (`pack_a`), is the A operand of the RS wgmma chain
@@ -65,10 +66,11 @@ namespace sm90 {
 constexpr int FWD_ROWS = 128;   // query rows per block: two warpgroups of 64
 constexpr int FWD_KEYS = 128;   // key rows per tile
 
-// Key rows per tile at head dim DH: FWD_KEYS, but 64 at dh 192, where the
-// Q tile and two stages of 128-row K and V tiles would take 240 KB of
-// shared memory (the block has 227 KB); 64-row tiles take 144 KB, and the
-// score and P fragments shrink by half beside the 96 registers of O.
+// Key rows per tile at head dim DH: FWD_KEYS, but 64 at dh 192 and 256,
+// where the Q tile and two stages of 128-row K and V tiles would take 240
+// and 320 KB of shared memory (the block has 227 KB); 64-row tiles take
+// 144 and 192 KB, and the score and P fragments shrink by half beside the
+// 96 and 128 registers of O.
 template <int DH>
 __host__ __device__ constexpr int fwd_keys() {
   return DH > 128 ? 64 : FWD_KEYS;

@@ -21,13 +21,16 @@
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64, 128 and 192): `local_fwd_wgmma`, on the tensor cores with
-// the flash forward's body (attn_fwd_sm90.cuh: 128 query rows a block, Q
-// loaded once by TMA, 128-row K/V tiles through a ring (64-row at dh 192,
-// to fit shared memory), S = Q K^T and O += P V by wgmma, P rounded to
-// bf16 once). The dh-192 instance serves any head dim over 128 (rt-pg19's
-// 129): the wrapper pads q, k and v with zero columns and passes the true
-// head dim's scale, which every instance takes from the caller. The TPU
+// bf16 (dh 64, 128, 192 and 256): `local_fwd_wgmma`, on the tensor cores
+// with the flash forward's body (attn_fwd_sm90.cuh: 128 query rows a
+// block, Q loaded once by TMA, 128-row K/V tiles through a ring (64-row at
+// dh 192 and 256, to fit shared memory), S = Q K^T and O += P V by wgmma,
+// P rounded to bf16 once; at dh 256, recurrentgemma-9b's, O is a 64 x 256
+// fp32 accumulator a warpgroup, 128 registers a thread, and P V one
+// m64n256k16 chain). The dh-192 instance serves any head dim over 128
+// (rt-pg19's 129), the dh-256 one any over 192: the wrapper pads q, k and
+// v with zero columns and passes the true head dim's scale, which every
+// instance takes from the caller. The TPU
 // kernel takes one softmax over the whole (w x 2w) score tile in VMEM;
 // here the block walks only its rows' window, from the window start of
 // its first row, rounded down to a tile, to its causal end (non-causal:
@@ -43,7 +46,8 @@
 // fp32: `local_fwd_kernel`, fp32 FMAs from shared memory with the online
 // softmax of `FlashTile` (common.cuh): a block of 64 queries walks its key
 // range in tiles of 32. It keeps full fp32 products, as PyTorch's fp32
-// matmul does (no TF32).
+// matmul does (no TF32). At dh 256 its tile takes ~141 KB of dynamic
+// shared memory (`local_fwd_smem_bytes`).
 #include "attn_fwd_sm90.cuh"
 #include "common.cuh"
 
@@ -226,8 +230,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B,H,N,dh), k/v (B,Hkv,N,dh), kvalid (B,N) uint8 or null; o like q,
-// lse (B,H,N) fp32. dtype: 0 fp32, 1 bf16; dh 64, 128 or 192 (any other
-// head dim comes zero-padded to one of them); scale the softmax scale,
+// lse (B,H,N) fp32. dtype: 0 fp32, 1 bf16; dh 64, 128, 192 or 256 (any
+// other head dim comes zero-padded to one of them); scale the softmax scale,
 // 1 / sqrt of the true head dim. Returns a cudaError_t code.
 extern "C" int local_attention_fwd(const void* q, const void* k,
                                    const void* v, const uint8_t* kvalid,
@@ -245,6 +249,23 @@ extern "C" int local_attention_fwd(const void* q, const void* k,
   LOCAL_FWD(128)
   LOCAL_FWD(64)
   LOCAL_FWD(192)
+  LOCAL_FWD(256)
 #undef LOCAL_FWD
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory per block of the forward at head dim dh in dtype
+// (0 fp32, 1 bf16); 0 for a head dim it has no instance of.
+extern "C" int local_fwd_smem_bytes(int dh, int dtype) {
+#define LOCAL_FWD_SMEM(DH)                                                   \
+  if (dh == DH)                                                              \
+    return static_cast<int>(                                                 \
+        dtype == 1 ? sm90::aligned_smem_bytes<sm90::FwdSmemH<DH>>()          \
+                   : sizeof(rt::FlashSmem<DH>));
+  LOCAL_FWD_SMEM(64)
+  LOCAL_FWD_SMEM(128)
+  LOCAL_FWD_SMEM(192)
+  LOCAL_FWD_SMEM(256)
+#undef LOCAL_FWD_SMEM
+  return 0;
 }

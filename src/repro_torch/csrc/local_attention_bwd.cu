@@ -60,6 +60,19 @@
 // shared memory (attn_bwd.cuh): one block per 64 query rows (dq) or 64 key
 // rows (dk/dv), tiles of 32 over the same windows. They keep full fp32
 // products, as PyTorch's fp32 matmul does (no TF32).
+//
+// dh 256 (recurrentgemma-9b's local-attention layers; the dh-192
+// instances above serve head dims up to 192, the dh-256 ones any over
+// that, zero-padded) runs these FMA kernels in both dtypes, bf16 rows
+// converted to fp32 as they are loaded. The tensor-core bodies do not hold
+// that width: the dq body's owned Q and dO tiles and two stages of 64-row K
+// and V tiles would take 256 KB of shared memory (the block has 227 KB),
+// and the dk/dv body's 64 x 256 fp32 accumulator is 128 registers a thread
+// before S, dP and the hi + lo fragments (at dh 192 it reads 244-255 of
+// the 255 a thread may hold). The FMA tiles take ~207 KB (dq) and ~215 KB
+// (dk/dv) of shared memory there (`local_bwd_smem_bytes`); dk/dv keeps its
+// 2 x 4 x 32 fp32 accumulators a thread, more than the registers hold, so
+// part of them lives in local memory.
 #include "attn_bwd.cuh"
 #include "attn_bwd_sm90.cuh"
 
@@ -443,9 +456,9 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q/do (B,H,N,dh), k/v (B,Hkv,N,dh), lse/dsum (B,H,N) fp32, kvalid (B,N)
-// uint8 or null; dq (B,H,N,dh) fp32. dtype: 0 fp32, 1 bf16; dh 64, 128 or
-// 192 (any other head dim comes zero-padded to one of them); scale the
-// softmax scale, 1 / sqrt of the true head dim. Returns a cudaError_t
+// uint8 or null; dq (B,H,N,dh) fp32. dtype: 0 fp32, 1 bf16; dh 64, 128,
+// 192 or 256 (any other head dim comes zero-padded to one of them); scale
+// the softmax scale, 1 / sqrt of the true head dim. Returns a cudaError_t
 // code.
 extern "C" int local_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dO,
@@ -466,6 +479,13 @@ extern "C" int local_attention_bwd_dq(const void* q, const void* k,
   LOCAL_DQ(64)
   LOCAL_DQ(192)
 #undef LOCAL_DQ
+  // dh 256: the FMA tile in both dtypes (see the top of this file)
+  if (dh == 256 && dtype == 1)
+    return launch_dq<__nv_bfloat16, 256>(q, k, v, dO, lse, dsum, kvalid, dq,
+                                         B, H, Hkv, N, w, causal, scale, s);
+  if (dh == 256 && dtype == 0)
+    return launch_dq<float, 256>(q, k, v, dO, lse, dsum, kvalid, dq, B, H,
+                                 Hkv, N, w, causal, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -489,5 +509,35 @@ extern "C" int local_attention_bwd_dkv(const void* q, const void* k,
   LOCAL_DKV(64)
   LOCAL_DKV(192)
 #undef LOCAL_DKV
+  // dh 256: the FMA tile in both dtypes (see the top of this file)
+  if (dh == 256 && dtype == 1)
+    return launch_dkv<__nv_bfloat16, 256>(q, k, v, dO, lse, dsum, kvalid, dk,
+                                          dv, B, H, Hkv, N, w, causal, scale,
+                                          s);
+  if (dh == 256 && dtype == 0)
+    return launch_dkv<float, 256>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B,
+                                  H, Hkv, N, w, causal, scale, s);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory per block of the dq (which 0) or dk/dv (which 1)
+// kernel at head dim dh in dtype (0 fp32, 1 bf16); 0 for a head dim it has
+// no instance of.
+extern "C" int local_bwd_smem_bytes(int dh, int dtype, int which) {
+#define LOCAL_BWD_SMEM(DH)                                                   \
+  if (dh == DH && dtype == 1)                                                \
+    return static_cast<int>(                                                 \
+        which == 0 ? sm90::aligned_smem_bytes<sm90::DqSmemH<DH>>()           \
+                   : sm90::aligned_smem_bytes<sm90::DkvSmemH<DH>>());        \
+  if (dh == DH)                                                              \
+    return static_cast<int>(which == 0 ? sizeof(rt::DqSmem<DH>)              \
+                                       : sizeof(rt::DkvSmem<DH>));
+  LOCAL_BWD_SMEM(64)
+  LOCAL_BWD_SMEM(128)
+  LOCAL_BWD_SMEM(192)
+#undef LOCAL_BWD_SMEM
+  if (dh == 256)
+    return static_cast<int>(which == 0 ? sizeof(rt::DqSmem<256>)
+                                       : sizeof(rt::DkvSmem<256>));
+  return 0;
 }

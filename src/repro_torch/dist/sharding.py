@@ -382,12 +382,19 @@ def head_groups(cfg, tp: int) -> Dict[Tuple[int, int], Tuple[list, list]]:
     ``(q_order, kv_order)``, each a list of full-model head indices, rank
     0's ``Hl / tp`` local heads then its ``Hr / tp`` routing heads, then
     rank 1's, ... Other variants cut their heads contiguously (absent).
-    Raises `ValueError` where a head count does not divide by ``tp``."""
+    Raises `ValueError` where a head count does not divide by ``tp``, and
+    `NotImplementedError` for the ssm and hybrid families, whose recurrent
+    mixers have no model-axis cut yet (ROADMAP item 12b)."""
     from repro_torch.attn.spec import head_shard, head_split, spec_for_layer
     from repro_torch.models.transformer import build_segments
     out = {}
     if tp <= 1:
         return out
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"a model axis of {tp} on the {cfg.family} family: its "
+            f"recurrent mixers have no tensor-parallel cut yet (ROADMAP "
+            f"item 12b)")
     for si, (pattern, _) in enumerate(build_segments(cfg)):
         for i, ls in enumerate(pattern):
             spec = spec_for_layer(cfg, ls.attn)

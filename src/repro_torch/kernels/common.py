@@ -31,10 +31,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (64, 128)
-# the widths of the local-window, fused routing and paged decode kernels: a
-# head dim up to one of them runs zero-padded to it (`pad_heads`); the flash
-# and gathered kernels take SUPPORTED_HEAD_DIMS only
+# the widths of the fused routing and paged decode kernels: a head dim up
+# to one of them runs zero-padded to it (`pad_heads`); the flash and
+# gathered kernels take SUPPORTED_HEAD_DIMS only
 PADDED_HEAD_DIMS = (64, 128, 192)
+# the local-window kernels' widths: those and 256 (recurrentgemma-9b's head
+# dim), which the fused routing and decode kernels do not take
+LOCAL_HEAD_DIMS = PADDED_HEAD_DIMS + (256,)
 # element-type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -178,14 +181,17 @@ def head_dim_ok(what: str, dh: int) -> None:
             f"(supported: {SUPPORTED_HEAD_DIMS})")
 
 
-def padded_head_dim(what: str, dh: int) -> int:
-    """The kernel width a head dim ``dh`` runs at: the first of
-    PADDED_HEAD_DIMS that holds it."""
-    for width in PADDED_HEAD_DIMS:
+def padded_head_dim(what: str, dh: int,
+                    widths: Tuple[int, ...] = PADDED_HEAD_DIMS) -> int:
+    """The kernel width a head dim ``dh`` runs at: the first of ``widths``
+    (the kernel family's instances: PADDED_HEAD_DIMS for the fused routing
+    and decode kernels, LOCAL_HEAD_DIMS for the local-window ones) that
+    holds it."""
+    for width in widths:
         if dh <= width:
             return width
     raise ValueError(f"{what}: head_dim {dh} is wider than the kernels' "
-                     f"widest instance ({PADDED_HEAD_DIMS[-1]})")
+                     f"widest instance ({widths[-1]})")
 
 
 def head_scale(dh: int) -> float:
@@ -195,14 +201,15 @@ def head_scale(dh: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
 
 
-def pad_heads(what: str, dh: int,
-              *tensors: Optional[torch.Tensor]) -> Tuple:
-    """``tensors`` (..., dh) with zero columns up to `padded_head_dim`
-    (None passes through; at a kernel width they are returned as they
-    are). Zero columns leave every dot product, so every score and every
-    softmax, unchanged, provided the scale stays `head_scale` of the true
-    dh; the outputs' extra columns are zero and `unpad_heads` cuts them."""
-    width = padded_head_dim(what, dh)
+def pad_heads(what: str, dh: int, *tensors: Optional[torch.Tensor],
+              widths: Tuple[int, ...] = PADDED_HEAD_DIMS) -> Tuple:
+    """``tensors`` (..., dh) with zero columns up to `padded_head_dim` of
+    ``widths`` (None passes through; at a kernel width they are returned
+    as they are). Zero columns leave every dot product, so every score and
+    every softmax, unchanged, provided the scale stays `head_scale` of the
+    true dh; the outputs' extra columns are zero and `unpad_heads` cuts
+    them."""
+    width = padded_head_dim(what, dh, widths)
     if width == dh:
         return tensors
     return tuple(None if t is None else F.pad(t, (0, width - dh))

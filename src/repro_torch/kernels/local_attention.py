@@ -19,11 +19,13 @@ bodies the flash and gathered backwards run (``csrc/attn_bwd_sm90.cuh``),
 P and dS fed to their products as hi + lo bf16 pairs. In fp32 they run the
 FMA tiles `FlashTile`, `DqTile` and `DkvTile`. TMA needs 16-byte aligned
 bases and row strides: the wrappers take contiguous, 16-byte aligned
-tensors (checked), and the kernels' widths dh 64, 128 or 192 give rows of
-128, 256 or 384 bytes in bf16. Any other head dim up to 192 (rt-pg19's
-129) runs zero-padded to the next width (`common.pad_heads`, on both
-devices), with the scale of the true head dim, and the outputs are cut
-back to it.
+tensors (checked), and the kernels' widths dh 64, 128, 192 or 256 give
+rows of 128, 256, 384 or 512 bytes in bf16. Any other head dim up to 256
+(rt-pg19's 129) runs zero-padded to the next width (`common.pad_heads`,
+on both devices), with the scale of the true head dim, and the outputs
+are cut back to it. At dh 256 (recurrentgemma-9b's local-attention
+layers) the bf16 forward runs the tensor-core body, dq and dk/dv run the
+FMA tiles on bf16 inputs (``csrc/local_attention_bwd.cu``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
 from repro_torch.obs.trace import span
 
+# the kernels' head-dim instances (`common.LOCAL_HEAD_DIMS`)
+WIDTHS = C.LOCAL_HEAD_DIMS
 LAUNCHES = C.counter("local_attention")
 LAUNCHES_BWD_DQ = C.counter("local_attention_bwd_dq")
 LAUNCHES_BWD_DKV = C.counter("local_attention_bwd_dkv")
@@ -94,7 +98,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(what, q, k, v, pad_mask)
     B, H, N, dh = q.shape
     scale = C.head_scale(dh)
-    q, k, v = C.pad_heads(what, dh, q, k, v)
+    q, k, v = C.pad_heads(what, dh, q, k, v, widths=WIDTHS)
     if q.device.type == "cpu":
         out, lse = local_attention_plain(q, k, v, window, causal, pad_mask,
                                          scale)
@@ -134,7 +138,7 @@ def local_attention_bwd_dq(q, k, v, do, lse, dsum, window: int,
     _check_bwd(what, q, k, v, do, lse, dsum, pad_mask)
     B, H, N, dh = q.shape
     scale = C.head_scale(dh)
-    q, k, v, do = C.pad_heads(what, dh, q, k, v, do)
+    q, k, v, do = C.pad_heads(what, dh, q, k, v, do, widths=WIDTHS)
     if q.device.type == "cpu":
         return C.unpad_heads(dh, ref.local_attention_bwd_dq(
             q, k, v, do, lse, dsum, window, causal, pad_mask, scale))[0]
@@ -160,7 +164,7 @@ def local_attention_bwd_dkv(q, k, v, do, lse, dsum, window: int,
     _check_bwd(what, q, k, v, do, lse, dsum, pad_mask)
     B, H, N, dh = q.shape
     scale = C.head_scale(dh)
-    q, k, v, do = C.pad_heads(what, dh, q, k, v, do)
+    q, k, v, do = C.pad_heads(what, dh, q, k, v, do, widths=WIDTHS)
     if q.device.type == "cpu":
         return C.unpad_heads(dh, *ref.local_attention_bwd_dkv(
             q, k, v, do, lse, dsum, window, causal, pad_mask, scale))

@@ -1,1 +1,2 @@
-"""Model stack of the port (dense family): layers, transformer, model."""
+"""Model stack of the port (the dense, ssm and hybrid families): layers,
+the SSD and RG-LRU mixers, transformer, model."""

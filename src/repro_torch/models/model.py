@@ -7,10 +7,14 @@ shapes and tree layout (``params["embed"]``, ``params["final_norm"]``,
 centroids per segment. It draws from a ``torch.Generator``, so its numbers
 differ from the JAX package's ``init_model``; tests carry JAX weights
 across with `repro_torch.interop` instead. `apply_model` returns (logits,
-new_kstate): the dense family has no auxiliary losses, so the JAX
-package's third output (MoE aux terms, all zero here) is left out; with
-``return_stats=True`` the third element is the routing-health stats the
-JAX package carries in that aux dict.
+new_kstate): the families ported (dense, ssm, hybrid) have no auxiliary
+losses, so the JAX package's third output (MoE aux terms, all zero here)
+is left out; with ``return_stats=True`` the third element is the
+routing-health stats the JAX package carries in that aux dict. The ssm
+family (mamba2-780m: tied embeddings, no positions) and the hybrid family
+(recurrentgemma-9b: untied embeddings, rope on its local-attention layers,
+gelu) run through the same functions; their layers are
+`models.transformer`'s.
 
 Batch dict keys: ``tokens`` (B,S) int, optional ``positions`` (B,S) int
 and ``pad_mask`` (B,S) bool.

@@ -1,12 +1,20 @@
-"""Transformer stack of the port, dense family (port of the ``attn``-layer
-part of the JAX package's ``models/transformer.py``).
+"""Transformer stack of the port, the dense, ssm and hybrid families (port
+of the ``attn``, ``ssd`` and ``rglru`` layers of the JAX package's
+``models/transformer.py``; its moe, vlm and encoder families are ROADMAP
+item 12b's later entries and raise `NotImplementedError`).
 
 The stack is a list of *segments*; each is a repeating pattern of layer
-specs run ``n_groups`` times. Parameters, centroids and caches keep the JAX
+specs run ``n_groups`` times (the hybrid family's period is its pattern:
+recurrentgemma-9b's 38 layers are 12 groups of (rglru, rglru, attn) and a
+tail of (rglru, rglru)). Parameters, centroids and caches keep the JAX
 layout: every leaf of a segment is stacked over its groups on a leading
 (G, ...) axis, and the JAX ``lax.scan`` over groups is a Python loop here.
-A layer is norm -> self-attention -> dropout -> residual -> norm -> FFN ->
-dropout -> residual.
+Layer kinds:
+  attn    norm -> self-attention -> dropout -> residual -> norm -> FFN ->
+          dropout -> residual
+  ssd     norm -> mamba2 SSD mixer -> residual (no FFN; `models.ssm`)
+  rglru   norm -> RG-LRU mixer -> residual -> norm -> FFN -> dropout ->
+          residual (the Griffin block; `models.rglru`)
 
 Dropout draws from a generator seeded per (step seed, layer, site) inside
 the layer, as the JAX package folds its key in: `torch.utils.checkpoint`
@@ -49,6 +57,8 @@ from repro_torch.attn.spec import head_split, spec_for_layer, variant_for_layer
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kmeans import init_kmeans
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.obs.routing_stats import stack_stats
 from repro_torch.tree import (tree_leaves, tree_map, tree_stack,
                               tree_unflatten)
@@ -65,15 +75,17 @@ _PRODUCT_OPS = frozenset({torch.ops.aten.mm.default,
 def save_dots_policy(ctx, op, *args, **kwargs):
     """The selective-checkpoint policy of remat "save_dots": keep the
     output of every product whose operands share no batch axis, the
-    layers' weight products (`layers.dense`: q, k, v, o and the FFN's up,
-    gate and down), and recompute everything else, as the JAX package's
-    ``checkpoint_dots_with_no_batch_dims``: the products with batch axes
-    (attention logits, centroid scores, the k-means contraction), bias
-    adds, norms, the collectives of a model axis and every kernel's output
-    (a Pallas call is not a ``dot_general``, so JAX recomputes the kernels
-    too). The products are picked by `layers.in_weight_product`, not by
-    the op alone: an einsum with a batch axis reaches the dispatcher as a
-    bmm or an mm as well."""
+    layers' weight products (`layers.dense`: q, k, v, o, the FFN's up,
+    gate and down, the mixers' in_proj, out_proj, w_in, w_gate_branch,
+    w_out and the RG-LRU's gate products w_a and w_x), and recompute
+    everything else (the SSD and RG-LRU scans among it), as the JAX
+    package's ``checkpoint_dots_with_no_batch_dims``: the products with
+    batch axes (attention logits, centroid scores, the k-means
+    contraction), bias adds, norms, the collectives of a model axis and
+    every kernel's output (a Pallas call is not a ``dot_general``, so JAX
+    recomputes the kernels too). The products are picked by
+    `layers.in_weight_product`, not by the op alone: an einsum with a
+    batch axis reaches the dispatcher as a bmm or an mm as well."""
     if op in _PRODUCT_OPS and L.in_weight_product():
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -85,31 +97,52 @@ def _save_dots_contexts():
 
 @dataclass(frozen=True)
 class LayerSpec:
-    kind: str                 # attn (the only kind ported so far)
-    attn: str = "full"        # attention variant of the layer
+    kind: str                 # attn | ssd | rglru
+    attn: str = "full"        # attention variant of an attn layer
+
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+_HYBRID_PATTERN = ("rglru", "rglru", "attn")
 
 
 def per_layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense family only, not {cfg.family!r}")
+            f"the port runs the {'/'.join(PORTED_FAMILIES)} families; the "
+            f"{cfg.family!r} family is ROADMAP item 12b's")
+    if cfg.family == "ssm":
+        return [LayerSpec("ssd")] * cfg.num_layers
+    if cfg.family == "hybrid":
+        pat = cfg.hybrid_pattern or _HYBRID_PATTERN
+        kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+        return [LayerSpec(k, variant_for_layer(cfg, i)) if k == "attn"
+                else LayerSpec(k) for i, k in enumerate(kinds)]
     return [LayerSpec("attn", variant_for_layer(cfg, i))
             for i in range(cfg.num_layers)]
 
 
 def build_segments(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSpec, ...],
                                                    int]]:
-    """Compress the per-layer spec list into (pattern, n_groups) segments
-    (dense family: period 1, so runs of identical layers)."""
+    """Compress the per-layer spec list into (pattern, n_groups) segments:
+    runs of repeats of the family's period (the dense and ssm families: 1,
+    so runs of identical layers; hybrid: its pattern), and a tail shorter
+    than the period as one group of its own."""
     specs = per_layer_specs(cfg)
+    period = (len(cfg.hybrid_pattern or _HYBRID_PATTERN)
+              if cfg.family == "hybrid" else 1)
     segments: List[Tuple[Tuple[LayerSpec, ...], int]] = []
     i = 0
     while i < len(specs):
-        g = 1
-        while i + g < len(specs) and specs[i + g] == specs[i]:
+        pat = tuple(specs[i:i + period])
+        g = 0
+        while (i + (g + 1) * len(pat) <= len(specs)
+               and tuple(specs[i + g * len(pat):i + (g + 1) * len(pat)])
+               == pat):
             g += 1
-        segments.append(((specs[i],), g))
-        i += g
+        if g == 0:                       # a tail shorter than the period
+            pat, g = tuple(specs[i:]), 1
+        segments.append((pat, g))
+        i += g * len(pat)
     return segments
 
 
@@ -127,17 +160,23 @@ def where_active(active: torch.Tensor, new_tree, old_tree,
 def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
                device):
     dt = getattr(torch, cfg.dtype)
-    return {"ln1": L.init_norm(cfg.d_model, cfg.norm, dt, device),
-            "attn": L.init_attn_proj(gen, cfg, device),
-            "ln2": L.init_norm(cfg.d_model, cfg.norm, dt, device),
-            "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
-                              device)}
+    p = {"ln1": L.init_norm(cfg.d_model, cfg.norm, dt, device)}
+    if spec.kind == "ssd":
+        p["mixer"] = ssm_mod.init_ssd(gen, cfg, device)
+        return p
+    if spec.kind == "rglru":
+        p["mixer"] = rglru_mod.init_rglru(gen, cfg, device)
+    else:
+        p["attn"] = L.init_attn_proj(gen, cfg, device)
+    p["ln2"] = L.init_norm(cfg.d_model, cfg.norm, dt, device)
+    p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
+    return p
 
 
 def layer_kstate(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
                  device):
     """Centroids (Hr, k, dh) of a layer, or None without routing heads."""
-    if "routing" not in spec.attn:
+    if spec.kind != "attn" or "routing" not in spec.attn:
         return None
     Hr = cfg.num_heads if spec.attn == "routing" else head_split(cfg)[1]
     return init_kmeans(Hr, cfg.routing.num_clusters, cfg.head_dim_,
@@ -195,20 +234,30 @@ def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
                 positions=None, pad_mask=None, update_state=True,
                 impl=None, cache=None, drop_seed: Optional[int] = None,
                 axis=None):
-    """One ``attn`` layer, with dropout (rate ``cfg.dropout``) on the
-    attention and FFN outputs when ``drop_seed`` is given.
+    """One layer of kind ``spec.kind``, with dropout (rate
+    ``cfg.dropout``) on the attention and FFN outputs when ``drop_seed``
+    is given (an ssd layer has none; an rglru layer on its FFN only, as
+    the JAX package draws it).
 
     Returns (x, new_kmu, new_cache, stats). With ``cache`` (the layer's
     decode-cache leaves, prefill) the cache is filled from what the
     attention computed (roped keys, routing vectors, centroid scores),
-    which needs ``positions``; else new_cache is None. ``stats`` is the
-    obs.RoutingStats of a routing layer with ``RoutingConfig.stats`` on,
-    else None. ``axis`` (a `ModelAxis`): ``p`` and ``kmu`` are this rank's
-    shards, x its part of the residual stream.
+    which needs ``positions``, or, for an ssd or rglru layer, holds the
+    mixer's recurrent state after the last position; else new_cache is
+    None. ``stats`` is the obs.RoutingStats of a routing layer with
+    ``RoutingConfig.stats`` on, else None. ``axis`` (a `ModelAxis`):
+    ``p`` and ``kmu`` are this rank's shards, x its part of the residual
+    stream (attn layers only: a model axis on the recurrent mixers is
+    ROADMAP item 12b's).
     """
     seeds = ((None, None) if drop_seed is None
              else (fold_seed(drop_seed, 0), fold_seed(drop_seed, 1)))
     tp = axis is not None and axis.size > 1
+    if spec.kind != "attn":
+        if tp:
+            raise NotImplementedError(
+                f"a model axis on {spec.kind} layers is ROADMAP item 12b's")
+        return _mixer_layer(spec, p, kmu, x, cfg, cache, seeds[1])
     enter = axis.enter if tp else (lambda t: t)
     leave = axis.exit if tp else (lambda t: t)
     rows = axis.seq_rows(x.shape[1]) if tp and axis.seq_parallel else None
@@ -226,6 +275,26 @@ def apply_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, *,
     x = x + _dropout(leave(L.apply_mlp(p["ffn"], h2, cfg.act)), cfg.dropout,
                      seeds[1], rows)
     return x, out.state, out.cache, out.stats
+
+
+def _mixer_layer(spec: LayerSpec, p, kmu, x, cfg: ModelConfig, cache,
+                 ffn_seed: Optional[int]):
+    """An ssd or rglru layer: `apply_layer`'s return, the mixer's states
+    after the last position as the filled cache when ``cache`` is given
+    (its leaves are not read: a prefill starts from zeros)."""
+    h = L.apply_norm(p["ln1"], x, cfg.norm)
+    if spec.kind == "ssd":
+        y, (conv, state) = ssm_mod.apply_ssd(p["mixer"], h, cfg)
+        filled = {"conv": conv, "state": state}
+    else:
+        y, (conv, state) = rglru_mod.apply_rglru(p["mixer"], h, cfg)
+        filled = {"conv": conv, "h": state}
+    x = x + y
+    if spec.kind == "rglru":
+        h2 = L.apply_norm(p["ln2"], x, cfg.norm)
+        x = x + _dropout(L.apply_mlp(p["ffn"], h2, cfg.act), cfg.dropout,
+                         ffn_seed)
+    return x, kmu, None if cache is None else filled, None
 
 
 def _unstack(tree, G: int):

@@ -1,13 +1,14 @@
 """Serving of the port: KV caches, prefill and single-token decode for the
-dense family (port of that path of the JAX package's ``serve/serving.py``):
-every model the port trains, the paper's and the full-attention ones.
+dense, ssm and hybrid families (port of that path of the JAX package's
+``serve/serving.py``): every model the port trains, the paper's, the
+full-attention ones, mamba2-780m and recurrentgemma-9b.
 
 Cache layout (per segment, leaves stacked over groups G), as declared by
-the resolved decode backend of each layer's variant
+the resolved decode backend of each attention layer's variant
 (`attn.backends.APPEND_LAYOUT` for ``full`` layers, `RING_LAYOUT` for
 ``local`` layers, `PAGES_LAYOUT` for ``routing`` layers, `MIXED_LAYOUT` for
 ``local+routing`` layers: rt-cifar10 holds rings on layers 0-7 and rings +
-pages on 8-11):
+pages on 8-11), or by the recurrent mixer of an ssd or rglru layer:
   full heads      keys and values at their positions (k, v:
                   (G,B,Hkv,max_len,dh), GQA kv heads): decode writes the
                   token at ``pos`` and attends the cache causally
@@ -18,6 +19,14 @@ pages on 8-11):
                   only that page, O(cap * dh) per step; rows stored at the
                   decode kernel's width (rt-pg19's dh 129 at 192, the pad
                   columns zero)
+  ssd             the causal conv's last K-1 inputs (conv: (G,B,K-1,
+                  d_inner + 2N), model dtype) and the SSD state (state:
+                  (G,B,H,N,P) fp32)
+  rglru           the causal conv's last 3 inputs (conv: (G,B,3,w)) and
+                  the RG-LRU state (h: (G,B,w) fp32)
+A prefill leaves each recurrent cache as the state after the prompt, and
+a decode step advances it by one token (the mixers' step recurrence); as
+every cache leaf, an inactive lane's comes back bit for bit.
 
 On CUDA tensors prefill runs the local-window and the fused routing kernels
 and decode runs the paged decode kernel; ``impl="torch"`` forces the plain
@@ -56,6 +65,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import slot_block
 from repro_torch.dist.tensor_parallel import ModelAxis, gather_head_stats
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.model import model_axis, vocab_logits
 from repro_torch.models.transformer import (apply_layer, build_segments,
                                             where_active)
@@ -89,12 +100,34 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda",
     B, _ = slot_block(mesh, B)
     out = []
     for pattern, G in build_segments(cfg):
-        slot = {str(i): attn_api.init_decode_cache(
-            _rank_spec(cfg, s.attn, mesh), B, max_len, dt, dev)
-            for i, s in enumerate(pattern)}
+        slot = {str(i): _slot_cache(s, cfg, B, max_len, dt, dev, mesh)
+                for i, s in enumerate(pattern)}
         out.append(tree_map(
             lambda x: x[None].expand((G,) + x.shape).clone(), slot))
     return out
+
+
+def _slot_cache(spec, cfg: ModelConfig, B: int, max_len: int, dt, dev,
+                mesh=None) -> Dict:
+    """One layer's cache leaves for B slots: an ssd or rglru layer's
+    recurrent state (zeros), else what the decode backend of its
+    attention variant declares."""
+    if spec.kind == "attn":
+        return attn_api.init_decode_cache(_rank_spec(cfg, spec.attn, mesh),
+                                          B, max_len, dt, dev)
+    if mesh is not None and mesh.size("model") > 1:
+        raise NotImplementedError(
+            f"a model axis on {spec.kind} layers is ROADMAP item 12b's")
+    f32 = dict(dtype=torch.float32, device=dev)
+    if spec.kind == "ssd":
+        s = ssm_mod.ssm_spec(cfg)
+        return {"conv": torch.zeros((B, s.conv - 1, s.d_inner + 2 * s.nstate),
+                                    dtype=dt, device=dev),
+                "state": torch.zeros((B, s.nheads, s.nstate, s.headdim),
+                                     **f32)}
+    w = cfg.lru_width or cfg.d_model
+    return {"conv": torch.zeros((B, 3, w), dtype=dt, device=dev),
+            "h": torch.zeros((B, w), **f32)}
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +138,11 @@ def _decode_layer(spec, p, kmu, cache, x, cfg, pos, impl,
     """One layer of a decode step; with ``axis`` on this rank's shards
     (the row-parallel products' partial sums added over the model
     group)."""
+    if spec.kind != "attn":
+        if axis is not None:
+            raise NotImplementedError(
+                f"a model axis on {spec.kind} layers is ROADMAP item 12b's")
+        return _decode_mixer(spec, p, cache, x, cfg)
     leave = (lambda t: t) if axis is None else axis.exit
     h = L.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = L.qkv_project(p["attn"], h, cfg)
@@ -115,6 +153,22 @@ def _decode_layer(spec, p, kmu, cache, x, cfg, pos, impl,
     x = x + leave(L.out_project(p["attn"], out.out))
     h2 = L.apply_norm(p["ln2"], x, cfg.norm)
     return x + leave(L.apply_mlp(p["ffn"], h2, cfg.act)), out.cache
+
+
+def _decode_mixer(spec, p, cache, x, cfg):
+    """One decode step of an ssd or rglru layer from its cached states."""
+    h = L.apply_norm(p["ln1"], x, cfg.norm)
+    if spec.kind == "ssd":
+        y, (conv, state) = ssm_mod.apply_ssd(
+            p["mixer"], h, cfg, conv_state=cache["conv"],
+            ssm_state=cache["state"], decode=True)
+        return x + y, {"conv": conv, "state": state}
+    y, (conv, state) = rglru_mod.apply_rglru(
+        p["mixer"], h, cfg, conv_state=cache["conv"], h_state=cache["h"],
+        decode=True)
+    x = x + y
+    h2 = L.apply_norm(p["ln2"], x, cfg.norm)
+    return x + L.apply_mlp(p["ffn"], h2, cfg.act), {"conv": conv, "h": state}
 
 
 def make_serve_step(cfg: ModelConfig, impl: Optional[str] = None,
@@ -166,6 +220,8 @@ def decode_backends(cfg: ModelConfig, impl: Optional[str] = None,
     out: Dict[str, str] = {}
     for pattern, _ in build_segments(cfg):
         for s in pattern:
+            if s.kind != "attn":
+                continue
             b = attn_api.decode_backend(spec_for_layer(cfg, s.attn),
                                         impl=impl, platform=platform,
                                         mesh=mesh)
@@ -179,10 +235,13 @@ def decode_cache_layouts(cfg: ModelConfig, impl: Optional[str] = None,
     """The cache-layout names the decode stack uses (e.g. {"append"},
     {"ring+pages"}). Teacher-forcing a prompt tail over a cached prefix
     writes what a prefill writes only for {"append", "ring"}: cluster
-    pages route a prefill by balanced top-k and a decode by argmax."""
+    pages route a prefill by balanced top-k and a decode by argmax. The
+    recurrent layers' states (ssd, rglru) are no attention layout and are
+    not listed."""
     return {attn_api.decode_backend(spec_for_layer(cfg, s.attn), impl=impl,
                                     platform=platform, mesh=mesh).layout.name
-            for pattern, _ in build_segments(cfg) for s in pattern}
+            for pattern, _ in build_segments(cfg) for s in pattern
+            if s.kind == "attn"}
 
 
 # ---------------------------------------------------------------------------
