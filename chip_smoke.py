@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
     python3 chip_smoke.py --decode-only [--src OTHER/src] [--out FILE]
+    python3 chip_smoke.py --digests-only [--src OTHER/src] [--out FILE]
 
 Phases, each of which raises on failure (exit code 1, no result line):
 
@@ -55,7 +56,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    zero) and run twice, equal bit for bit, with `graph_ms`, at
    rt-enwik8's train shape, at rt-cifar10's routing heads (B 8 x 3072, 4
    heads, k 6, w 512) and in bf16 at the 48 `FUSED_EDGES`; a digest of
-   the local backward's outputs (`local_backward_digest`); the fused
+   the local backward's outputs (`local_backward_digest`) and, since
+   slice 22, of its dh-192 instances at rt-pg19's local layers and
+   `PG19_LOCAL_EDGES` (`dh192_local_backward_digest`); the fused
    routing forward (since slice 11 bf16 on the tensor cores, no spill)
    against its plain version in fp32, row by row (`fused_fwd_row_errs`:
    rows that keep no key exactly zero with the plain lse) and run twice,
@@ -284,8 +287,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the bytes per rank per decode step through the model group. (c) fp32
    at 2 x 1, as (a), the lanes over the data axis;
 9. since slice 21, the ssm and hybrid families (`families_phase`): the
-   local kernels' dh-256 instances (forward on the tensor cores in bf16,
-   dq and dk/dv on FMA tiles, fp32 on FMA tiles) at recurrentgemma-9b's
+   local kernels' dh-256 instances (bf16 on the tensor cores, since slice
+   22 dq and dk/dv too; fp32 on FMA tiles) at recurrentgemma-9b's
    attention shape (B 1, 16 query heads on 1 KV head, N 4096, w 2048) in
    bf16 and fp32 against their plain versions under the dh-192 rows'
    limits, timed with `graph_ms`, SDPA and the bound, and at the ragged
@@ -306,6 +309,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    decode step and train step, of one qwen2 train step, of one
    rt-cifar10 train step on each of its two kernel paths and of one
    rt-cifar10 prefill and decode step.
+
+``--digests-only`` builds the kernels and prints only the six digests
+(`DIGESTS`); with ``--src`` those of another checkout's kernels, so that a
+change that should not move their bits is held to the parent's in one
+call.
 
 ``--decode-only`` builds only the decode kernel and runs only
 `check_decode_shapes`, `decode_digest` and (without ``--src``)
@@ -2358,6 +2366,46 @@ def local_backward_digest(torch) -> str:
         out, lse = K.local_attention(q, k, v, w, causal, pad)
         take(*K.local_attention_bwd(q, k, v, out, lse, do, w, causal, pad))
     return h.hexdigest()
+
+
+def dh192_local_backward_digest(torch) -> str:
+    """A sha256 of the bf16 local backward kernels' dq, dk and dv through
+    their dh-192 instances: at rt-pg19's local layers (B 1 x 8192, 8 heads
+    of dh 129, run zero-padded at 192, w 512) and at every
+    PG19_LOCAL_EDGES shape (through `local_attention_bwd`, dk and dv
+    group-summed), on inputs from a generator of their own (seed 16). The
+    dh-256 instances share the dq and dk/dv bodies (csrc/attn_bwd_sm90.cuh)
+    behind their own tile and sweep policies: two builds that compute the
+    same bits at dh 192 give the same digest."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import local_attention as K
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    h = hashlib.sha256()
+
+    def take(*ts):
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    cfg = get_config(PG19_ARCH)
+    dh, w = cfg.head_dim_, cfg.routing.local_window
+    q, k, v, do = (torch.randn((1, cfg.num_heads, PG19_SEQ, dh), **mk)
+                   for _ in range(4))
+    out, lse = K.local_attention(q, k, v, w)
+    args = (q, k, v, do, lse, row_dot(do, out), w)
+    take(K.local_attention_bwd_dq(*args), *K.local_attention_bwd_dkv(*args))
+    for B, H, Hkv, N, w, dh, causal, padded in PG19_LOCAL_EDGES:
+        q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+        pad = local_pad_mask(torch, B, N, gen) if padded else None
+        out, lse = K.local_attention(q, k, v, w, causal, pad)
+        take(*K.local_attention_bwd(q, k, v, out, lse, do, w, causal, pad))
+    return h.hexdigest()
+
+
+DIGESTS = ("flash_forward_digest", "backward_digest", "local_backward_digest",
+           "forward_digest", "decode_digest", "dh192_local_backward_digest")
 
 
 def forward_digest(torch) -> str:
@@ -5844,8 +5892,8 @@ def timings(torch, fn, plain, library, b_ms, b_by) -> dict:
     """A row's times: ``fn`` (`time_ms` and `graph_ms`), its plain
     version and the library call (`time_ms`), its bound and its share of
     it. A call of over a millisecond is timed over 5 calls, not 20 (the
-    host's part of it is negligible there; the FMA instances' dq and dk/dv
-    take 12-45 ms)."""
+    host's part of it is negligible there: the dh-256 rows' fp32 dq and
+    dk/dv on FMA tiles take 12-45 ms)."""
     ms = time_ms(fn)
     iters = 5 if ms > 1.0 else 20
     g_ms = graph_ms(torch, fn, iters=iters)
@@ -5880,6 +5928,10 @@ def device_busy(torch, fn, top: int = 5) -> dict:
         device_ops=[dict(name=e.key, calls=e.count,
                          device_ms=e.self_device_time_total / 1e3)
                     for e in dev[:top]])
+
+
+# the shared memory a block of an H100 may use (227 KB)
+SMEM_PER_BLOCK = 232448
 
 
 def local_dh256_smem(torch) -> dict:
@@ -6101,6 +6153,12 @@ def families_phase(torch, card, counts) -> tuple:
     print(f"dh-256 local edges {json.dumps(edges)}", flush=True)
     smem = local_dh256_smem(torch)
     print(f"dh-256 local smem {json.dumps(smem)}", flush=True)
+    # since slice 22 the bf16 dh-256 dq and dk/dv run on the tensor cores:
+    # their owned tiles and ring must fit a block's shared memory
+    big = {k: v for k, v in smem["dh256 bf16"].items() if v > SMEM_PER_BLOCK}
+    if big:
+        raise AssertionError(f"dh-256 bf16 tiles over {SMEM_PER_BLOCK} B of "
+                             f"shared memory a block: {big}")
     ssd = ssd_gate(torch)
     print(f"ssd gate {json.dumps(ssd)}", flush=True)
     t = phase("families: dh-256 kernels, ssd gate", t)
@@ -6226,6 +6284,28 @@ def decode_only(torch, card, out=None, other=False) -> int:
     return 0
 
 
+def digests_only(torch, out=None) -> int:
+    """``--digests-only``: build the kernels of the repro_torch that is
+    imported (``--src`` picks another tree's) and print each of DIGESTS,
+    on the inputs the full run gives them, so that two trees' kernels can
+    be held to the same bits in one call; with ``out`` write them there
+    too."""
+    import repro_torch
+    from repro_torch.kernels import common
+    where = str(Path(repro_torch.__file__).parent)
+    print(f"repro_torch from {where}", flush=True)
+    common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
+    row = {}
+    for name in DIGESTS:
+        row[name] = globals()[name](torch)
+        print(f"{name} {row[name]}", flush=True)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(dict(repro_torch=where, **row),
+                                        indent=1))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report here (JSON)")
@@ -6234,6 +6314,10 @@ def main(argv=None) -> int:
                          "at DECODE_SHAPES and DECODE_EDGES "
                          "(check_decode_shapes), decode_digest and, without "
                          "--src, check_decode_paper; prints no result line")
+    ap.add_argument("--digests-only", action="store_true",
+                    help="build the kernels and print only the digests "
+                         "(DIGESTS), of another tree's kernels with --src; "
+                         "prints no result line")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src), so that an earlier tree's "
                     "kernels run through this script's checks")
@@ -6256,6 +6340,8 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     if args.decode_only:
         return decode_only(torch, card, args.out, bool(args.src))
+    if args.digests_only:
+        return digests_only(torch, args.out)
 
     t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
@@ -6368,6 +6454,10 @@ def main(argv=None) -> int:
     print(f"fused backward edges {json.dumps(fused_bwd_edges)}", flush=True)
     local_digest = local_backward_digest(torch)
     print(f"local backward digest {local_digest}", flush=True)
+    # since slice 22: the dh-192 local backward, whose bodies the dh-256
+    # instances share behind their own tile and sweep policies
+    dh192_digest = dh192_local_backward_digest(torch)
+    print(f"dh-192 local backward digest {dh192_digest}", flush=True)
     # since slice 11: the bf16 fused routing forward at rt-enwik8's train
     # shape (B 2 x 8192, 4 heads, dh 128, k 32, w 256), at rt-cifar10's
     # routing heads (B 8 x 3072, 4 heads, dh 64, k 6, w 512), at
@@ -6677,6 +6767,7 @@ def main(argv=None) -> int:
             cifar_fused_bwd=cifar_fused_bwd_rows,
             fused_bwd_edges=fused_bwd_edges,
             local_backward_digest=local_digest,
+            dh192_local_backward_digest=dh192_digest,
             fused_fwd=fused_fwd_rows, fused_fwd_edges=fused_fwd_edges,
             forward_digest=fwd_digest, decode_shapes=decode_rows,
             train_full_gate_bf16=full_gate_bf16,

@@ -16,16 +16,20 @@
 // (`sm90::Ring`) from 3-D tensor maps (dh, rows, planes: rows past a
 // plane's end arrive as zeros).
 // - dk/dv: the block owns 128 key rows (K, V) and walks query tiles of BQ
-//   rows (Q, dO; BQ 64 at dh 64, 32 at dh 128 and 192 so that dK and dV,
-//   64 x dh fp32 each per warpgroup, leave room for the tile's products).
-//   Per tile: S^T = K Q^T and dP^T = V dO^T (SS, K-major), P^T = exp(S^T
-//   scale - lse) on the accumulators, dV += P^T dO (RS, dO MN-major),
-//   dS^T = P^T (dP^T - D) scale, dK += dS^T Q (RS, Q MN-major). At dh 192
-//   dK and dV do not both fit in registers: the walk runs twice
-//   (`dkv_sweeps`), dV in the first, dK in the second.
+//   rows (Q, dO; BQ 64 at dh 64, 32 at dh 128, 192 and 256 so that dK and
+//   dV, 64 x dh fp32 each per warpgroup, leave room for the tile's
+//   products). Per tile: S^T = K Q^T and dP^T = V dO^T (SS, K-major), P^T
+//   = exp(S^T scale - lse) on the accumulators, dV += P^T dO (RS, dO
+//   MN-major), dS^T = P^T (dP^T - D) scale, dK += dS^T Q (RS, Q MN-major).
+//   Above dh 128 dK and dV do not both fit in registers: the walk runs
+//   twice (`dkv_sweeps`), at dh 192 dV in the first sweep and dK in the
+//   second, at dh 256 both over columns 0-127 in the first and both over
+//   columns 128-255 in the second (`dkv_col_parts`).
 // - dq: the block owns 128 query rows (Q, dO, their lse and D) and walks
-//   key tiles of 64 rows (K, V). Per tile: S = Q K^T and dP = dO V^T (SS),
-//   P, dS, dQ += dS K (RS, K MN-major).
+//   key tiles of KT rows (K, V; KT 64 up to dh 192, 32 at dh 256 so that
+//   the owned tiles and the ring fit in shared memory, `dq_tile_keys`).
+//   Per tile: S = Q K^T and dP = dO V^T (SS), P, dS, dQ += dS K (RS, K
+//   MN-major).
 // P and dS are products' A operands. Rounded to one bf16 value each, they
 // put dq, dk and dv 1.4-2.6e-3 (flash at qwen2's shape) and 1.2-2.8e-3
 // (gathered blocks of rt-cifar10 and rt-enwik8) of their largest value
@@ -73,16 +77,39 @@
 namespace sm90 {
 
 constexpr int HB = 128;        // rows a block owns: two warpgroups of 64
-constexpr int HBN = 64;        // key rows per dq tile
+constexpr int HBN = 64;        // key rows per dq tile up to dh 192
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Key rows per tile of the dq body: 64, and 32 at dh 256, where the owned
+// Q and dO (64 KB each) and two stages of 64-row K and V tiles would take
+// 256 KB of shared memory (a block has 227 KB); 32-row tiles take 192 KB.
+template <int DH>
+__host__ __device__ constexpr int dq_tile_keys() {
+  return DH > 192 ? 32 : HBN;
+}
+
+// Column parts of dK and dV that the dk/dv body computes one at a time:
+// one (every column) up to dh 192; two at dh 256, columns 0-127 and
+// 128-255, each two 64-column boxes of Q and dO.
+template <int DH>
+__host__ __device__ constexpr int dkv_col_parts() {
+  return DH > 192 ? 2 : 1;
+}
+
 // Sweeps of the dk/dv body over its query tiles: one, with dK and dV side
-// by side in registers (64 x DH fp32 each per warpgroup); two at dh 192,
-// where the two would take 192 registers a thread before S, dP and the
-// hi + lo fragments (at dh 128 the body reads 210-214 of the 255 a thread
-// may hold): the first computes S^T, P^T and dV, which it stores; the
-// second recomputes S^T and P^T and computes dP^T, dS^T and dK, in the
-// same registers. The price: S^T = K Q^T twice, and Q and dO read twice.
+// by side in registers (64 x DH fp32 each per warpgroup); more above dh
+// 128, where the two would take 192 (dh 192) or 256 (dh 256) registers a
+// thread before S, dP and the hi + lo fragments (at dh 128 the body reads
+// 210-214 of the 255 a thread may hold). With as many sweeps as column
+// parts (`dkv_col_parts`), sweep c keeps dV and dK of part c side by side;
+// with twice as many, the first half of the sweeps computes dV alone,
+// part by part, and the second dK: a sweep that computes dV alone skips
+// dP^T. At dh 192, dV then dK: S^T = K Q^T twice, and Q and dO read twice.
+// At dh 256, columns 0-127 of both, then 128-255 of both (64 x 128 fp32
+// each per warpgroup, 64 registers: the register shape of the dh-128
+// single sweep): S^T and dP^T over all 256 columns twice, Q and dO read
+// twice. Each output element keeps its products and their order; only
+// which sweep computes it changes.
 template <int DH>
 __host__ __device__ constexpr int dkv_sweeps() {
   return DH > 128 ? 2 : 1;
@@ -113,6 +140,13 @@ __device__ __forceinline__ void bwd_dkv_body(
   using Sm = DkvSmemH<DH>;
   constexpr int BQ = Sm::BQ;
   constexpr int SWEEPS = dkv_sweeps<DH>();
+  constexpr int PARTS = dkv_col_parts<DH>();
+  static_assert(SWEEPS == PARTS || SWEEPS == 2 * PARTS, "dk/dv sweeps");
+  // whether each sweep computes both dK and dV, of its column part; the
+  // registers a thread holds of one accumulator (its warpgroup's 64 rows
+  // by the part's 2 ACC columns)
+  constexpr bool BOTH = SWEEPS == PARTS;
+  constexpr int ACC = DH / 2 / PARTS;
   extern __shared__ unsigned char smem_raw[];
   Sm& sm = aligned_smem<Sm>(smem_raw);
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
@@ -165,28 +199,38 @@ __device__ __forceinline__ void bwd_dkv_body(
   const int key0 = pol.k0 + r, key1 = key0 + 8;
   const auto tag0 = pol.key_tag(key0), tag1 = pol.key_tag(key1);
   const float sl2 = scale * LOG2E;
-  // one sweep: dK and dV side by side; two (dh 192): dV in the first
-  // sweep, then dK in the second, in the same registers
-  float dva[DH / 2], dka[SWEEPS == 1 ? DH / 2 : 1];
+  // dK and dV of the sweep's column part side by side (BOTH), or dV in
+  // the first sweeps and then dK in the last, in the same registers
+  float dva[ACC], dka[BOTH ? ACC : 1];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dva[i] = 0.f;
+  for (int i = 0; i < ACC; ++i) dva[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (SWEEPS == 1 ? DH / 2 : 1); ++i) dka[i] = 0.f;
+  for (int i = 0; i < (BOTH ? ACC : 1); ++i) dka[i] = 0.f;
   const void* ktile = &sm.k[0][64 * wg][0];
   const void* vtile = &sm.v[0][64 * wg][0];
   const size_t plane = static_cast<size_t>(pol.qplane) * pol.N;
   const size_t kplane = static_cast<size_t>(pol.qplane) * pol.M;
-  // an accumulator's 64 x DH block to its key rows of ``out``
-  auto store = [&](const float (&a)[DH / 2], float* out) {
+  // an accumulator's 64 x (2 ACC) block to its key rows of ``out``, at
+  // column part ``part``
+  auto store = [&](const float (&a)[ACC], float* out, int part) {
 #pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      const int col = 8 * c + cq;
+    for (int c = 0; c < ACC / 4; ++c) {
+      const int col = part * (DH / PARTS) + 8 * c + cq;
       if (key0 < pol.M)
         *reinterpret_cast<float2*>(out + (kplane + key0) * DH + col) =
             make_float2(a[4 * c], a[4 * c + 1]);
       if (key1 < pol.M)
         *reinterpret_cast<float2*>(out + (kplane + key1) * DH + col) =
             make_float2(a[4 * c + 2], a[4 * c + 3]);
+    }
+  };
+  // the accumulators of sweep ``sw`` to their rows and columns
+  auto store_sweep = [&](int sw) {
+    if constexpr (BOTH) {
+      store(dka, dk, sw);
+      store(dva, dv, sw);
+    } else {
+      store(dva, sw < PARTS ? dv : dk, sw % PARTS);
     }
   };
 
@@ -196,12 +240,15 @@ __device__ __forceinline__ void bwd_dkv_body(
   for (int j = 0; j < nwalk; ++j) {
     const int s = j % RING_STAGES, buf = j % 2;
     const int q0 = tile_row(j);
-    // the first sweep of two computes dV alone, the second dK alone
-    const bool dv_sweep = SWEEPS == 2 && j < ntiles;
-    if (SWEEPS == 2 && j == ntiles) {
-      store(dva, dv);
+    // this sweep, and whether it computes dV alone
+    const int sw = SWEEPS == 1 ? 0 : j / ntiles;
+    const bool dv_sweep = !BOTH && sw < PARTS;
+    if (SWEEPS > 1 && j > 0 && j % ntiles == 0) {
+      store_sweep(sw - 1);
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) dva[i] = 0.f;
+      for (int i = 0; i < ACC; ++i) dva[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (BOTH ? ACC : 1); ++i) dka[i] = 0.f;
     }
     // this tile's lse and D, staged per warpgroup, double-buffered behind a
     // named barrier: TMA cannot load them (a plane's fp32 row need not be
@@ -229,13 +276,23 @@ __device__ __forceinline__ void bwd_dkv_body(
     }
     const void* qt = &sm.q[s][0][0][0];
     const void* dot = &sm.dO[s][0][0][0];
-    // at dh 192 the owned tiles' addresses are taken anew in each tile, so
-    // that the compiler computes their 24 k16-slice descriptors where the
-    // products read them instead of holding them (48 registers) across
-    // the walk beside the 96 of the accumulator
+    // the B operands of dV's and dK's products: at dh 256 this sweep's
+    // column part of dO and Q, its two 64-column boxes
+    const void* doc = dot;
+    const void* qc = qt;
+    if constexpr (PARTS > 1) {
+      const uint32_t off = (sw % PARTS) * (Sm::BOXES / PARTS) * Sm::QBOX;
+      doc = static_cast<const char*>(dot) + off;
+      qc = static_cast<const char*>(qt) + off;
+    }
+    // above dh 128 the owned tiles' addresses are taken anew in each tile,
+    // so that the compiler computes their 24 (dh 192) or 32 (dh 256)
+    // k16-slice descriptors where the products read them instead of
+    // holding them (48 or 64 registers) across the walk beside the
+    // accumulators
     uint64_t kaddr = reinterpret_cast<uint64_t>(ktile);
     uint64_t vaddr = reinterpret_cast<uint64_t>(vtile);
-    if constexpr (SWEEPS == 2) {
+    if constexpr (SWEEPS > 1) {
       asm volatile("" : "+l"(kaddr));
       asm volatile("" : "+l"(vaddr));
     }
@@ -280,7 +337,7 @@ __device__ __forceinline__ void bwd_dkv_body(
         st[4 * c + 2 + e] = p1;
       }
     uint32_t ahi[BQ / 16][4], alo[BQ / 16][4];
-    if (SWEEPS == 1 || dv_sweep) {
+    if (BOTH || dv_sweep) {
       pack_a_split(st, ahi, alo);
       fence_regs(dva);
       fence_regs(ahi);
@@ -288,13 +345,13 @@ __device__ __forceinline__ void bwd_dkv_body(
       wgmma_fence();
 #pragma unroll
       for (int c = 0; c < BQ / 16; ++c) {
-        wgmma_rs(dva, ahi[c], desc_mn(dot, c, Sm::QBOX), 1);
-        wgmma_rs(dva, alo[c], desc_mn(dot, c, Sm::QBOX), 1);
+        wgmma_rs(dva, ahi[c], desc_mn(doc, c, Sm::QBOX), 1);
+        wgmma_rs(dva, alo[c], desc_mn(doc, c, Sm::QBOX), 1);
       }
       wgmma_commit();
     }
     if (!dv_sweep) {
-      if (SWEEPS == 1) {
+      if (BOTH) {
         wgmma_wait<1>();   // dP^T is in; dV += P^T dO may still run
       } else {
         wgmma_wait<0>();
@@ -316,7 +373,7 @@ __device__ __forceinline__ void bwd_dkv_body(
     fence_regs(alo);
     // dK += dS^T Q: into dka beside dva, or (dh 192) into dva, whose dV
     // the first sweep stored
-    auto dk_update = [&](float (&acc)[DH / 2]) {
+    auto dk_update = [&](float (&acc)[ACC]) {
       pack_a_split(dpt, ahi, alo);
       fence_regs(acc);
       fence_regs(ahi);
@@ -324,8 +381,8 @@ __device__ __forceinline__ void bwd_dkv_body(
       wgmma_fence();
 #pragma unroll
       for (int c = 0; c < BQ / 16; ++c) {
-        wgmma_rs(acc, ahi[c], desc_mn(qt, c, Sm::QBOX), 1);
-        wgmma_rs(acc, alo[c], desc_mn(qt, c, Sm::QBOX), 1);
+        wgmma_rs(acc, ahi[c], desc_mn(qc, c, Sm::QBOX), 1);
+        wgmma_rs(acc, alo[c], desc_mn(qc, c, Sm::QBOX), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -333,7 +390,7 @@ __device__ __forceinline__ void bwd_dkv_body(
       fence_regs(ahi);
       fence_regs(alo);
     };
-    if constexpr (SWEEPS == 1) {
+    if constexpr (BOTH) {
       dk_update(dka);
     } else {
       if (!dv_sweep) dk_update(dva);
@@ -342,25 +399,25 @@ __device__ __forceinline__ void bwd_dkv_body(
     if constexpr (!G) sm.ring.advance(j, nwalk, load_q);
   }
 
-  if constexpr (SWEEPS == 1) {
-    store(dka, dk);
-    store(dva, dv);
-  } else {
-    // a block that walks nothing stores its zeros here
-    if (ntiles == 0) store(dva, dv);
-    store(dva, dk);
+  // the last sweep's; a block that walks nothing stores every sweep's
+  // zeros here
+  if (SWEEPS > 1 && ntiles == 0) {
+#pragma unroll
+    for (int sw = 0; sw < SWEEPS - 1; ++sw) store_sweep(sw);
   }
+  store_sweep(SWEEPS - 1);
 }
 
 template <int DH>
 struct DqSmemH {
   static constexpr int BOXES = DH / BOX_COLS;
+  static constexpr int KT = dq_tile_keys<DH>();     // key rows per tile
   static constexpr uint32_t QBOX = HB * ROW_BYTES;  // bytes of a box
-  static constexpr uint32_t KBOX = HBN * ROW_BYTES;
+  static constexpr uint32_t KBOX = KT * ROW_BYTES;
   __nv_bfloat16 q[BOXES][HB][BOX_COLS];
   __nv_bfloat16 dO[BOXES][HB][BOX_COLS];
-  __nv_bfloat16 k[RING_STAGES][BOXES][HBN][BOX_COLS];
-  __nv_bfloat16 v[RING_STAGES][BOXES][HBN][BOX_COLS];
+  __nv_bfloat16 k[RING_STAGES][BOXES][KT][BOX_COLS];
+  __nv_bfloat16 v[RING_STAGES][BOXES][KT][BOX_COLS];
   uint64_t qbar;
   Ring ring;
 };
@@ -372,6 +429,7 @@ __device__ __forceinline__ void bwd_dq_body(
     const float* __restrict__ dsum, float* __restrict__ dq, const P& pol,
     float scale) {
   using Sm = DqSmemH<DH>;
+  constexpr int KT = Sm::KT;
   extern __shared__ unsigned char smem_raw[];
   Sm& sm = aligned_smem<Sm>(smem_raw);
   const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
@@ -385,9 +443,9 @@ __device__ __forceinline__ void bwd_dq_body(
 #pragma unroll
     for (int x = 0; x < Sm::BOXES; ++x) {
       tma_load_3d(&sm.k[s][x][0][0], &tk, bar, x * BOX_COLS,
-                  pol.k_first + j * HBN, pol.kplane);
+                  pol.k_first + j * KT, pol.kplane);
       tma_load_3d(&sm.v[s][x][0][0], &tv, bar, x * BOX_COLS,
-                  pol.k_first + j * HBN, pol.kplane);
+                  pol.k_first + j * KT, pol.kplane);
     }
   };
   if constexpr (G) {
@@ -433,16 +491,16 @@ __device__ __forceinline__ void bwd_dq_body(
   if constexpr (!G) mbar_wait(&sm.qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % RING_STAGES, buf = j % 2;
-    const int k0 = pol.k_first + j * HBN;
+    const int k0 = pol.k_first + j * KT;
     if constexpr (P::kTileTags) {
-      if (t < HBN) pol.stage(wg, buf, t, k0 + t);
+      if (t < KT) pol.stage(wg, buf, t, k0 + t);
       wg_sync(1 + wg);
     }
     if constexpr (G) {
       gathered_tile_ready();
       if (j + 1 < ntiles) {
         pol.gather_tile(&sm.k[(j + 1) % RING_STAGES][0][0][0],
-                        &sm.v[(j + 1) % RING_STAGES][0][0][0], k0 + HBN);
+                        &sm.v[(j + 1) % RING_STAGES][0][0][0], k0 + KT);
         cp_async_commit();
       }
     } else {
@@ -450,16 +508,28 @@ __device__ __forceinline__ void bwd_dq_body(
     }
     const void* kt = &sm.k[s][0][0][0];
     const void* vt = &sm.v[s][0][0][0];
-    float sc[HBN / 2], dp[HBN / 2];
+    // at dh 256, as in the dk/dv body above dh 128, the owned tiles'
+    // addresses are taken anew in each tile, so that the compiler need not
+    // hold their 32 k16-slice descriptors (64 registers) across the walk
+    // beside the 128 of the accumulator
+    uint64_t qaddr = reinterpret_cast<uint64_t>(qtile);
+    uint64_t doaddr = reinterpret_cast<uint64_t>(dotile);
+    if constexpr (DH > 192) {
+      asm volatile("" : "+l"(qaddr));
+      asm volatile("" : "+l"(doaddr));
+    }
+    const void* qo = reinterpret_cast<const void*>(qaddr);
+    const void* doo = reinterpret_cast<const void*>(doaddr);
+    float sc[KT / 2], dp[KT / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss(sc, desc_k(qtile, kk, Sm::QBOX), desc_k(kt, kk, Sm::KBOX),
+      wgmma_ss(sc, desc_k(qo, kk, Sm::QBOX), desc_k(kt, kk, Sm::KBOX),
                kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss(dp, desc_k(dotile, kk, Sm::QBOX), desc_k(vt, kk, Sm::KBOX),
+      wgmma_ss(dp, desc_k(doo, kk, Sm::QBOX), desc_k(vt, kk, Sm::KBOX),
                kk > 0);
     wgmma_commit();
     wgmma_wait<1>();   // S is in; dP may still run
@@ -467,9 +537,9 @@ __device__ __forceinline__ void bwd_dq_body(
 
     // P, zero where masked: only a tile the policy marks for this
     // warpgroup (one that crosses the mask's edge or the keys' end)
-    const bool edge = pol.edge(wg, buf, k0, HBN);
+    const bool edge = pol.edge(wg, buf, k0, KT);
 #pragma unroll
-    for (int c = 0; c < HBN / 8; ++c)
+    for (int c = 0; c < KT / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float p0 = exp2f(fmaf(sc[4 * c + e], sl2, -l0));
@@ -485,21 +555,21 @@ __device__ __forceinline__ void bwd_dq_body(
     wgmma_wait<0>();
     fence_regs(dp);
 #pragma unroll
-    for (int c = 0; c < HBN / 8; ++c)
+    for (int c = 0; c < KT / 8; ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         dp[4 * c + e] = sc[4 * c + e] * (dp[4 * c + e] - d0) * scale;
         dp[4 * c + 2 + e] = sc[4 * c + 2 + e] * (dp[4 * c + 2 + e] - d1) *
                             scale;
       }
-    uint32_t ahi[HBN / 16][4], alo[HBN / 16][4];
+    uint32_t ahi[KT / 16][4], alo[KT / 16][4];
     pack_a_split(dp, ahi, alo);
     fence_regs(acc);
     fence_regs(ahi);
     fence_regs(alo);
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < HBN / 16; ++c) {
+    for (int c = 0; c < KT / 16; ++c) {
       wgmma_rs(acc, ahi[c], desc_mn(kt, c, Sm::KBOX), 1);
       wgmma_rs(acc, alo[c], desc_mn(kt, c, Sm::KBOX), 1);
     }

@@ -25,54 +25,48 @@
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64, 128 and 192; the dh-192 instances serve any head dim over
-// 128, zero-padded by the wrapper, with the true head dim's scale, which
-// every instance takes from the caller; the dk/dv body runs two sweeps
-// there, attn_bwd_sm90.cuh `dkv_sweeps`): `local_bwd_dq_wgmma` and
-// `local_bwd_dkv_wgmma`, on
-// the tensor cores with the backward bodies the flash and gathered
-// backwards run (attn_bwd_sm90.cuh: 128 owned rows a block loaded once by
-// TMA, the other side's tiles through a ring, S and dP by wgmma, P and dS
-// fed to their products as hi + lo bf16 pairs so that dq, dk and dv keep
-// fp32's accuracy). The TPU kernels hold the whole (w x 2w) tile in VMEM;
-// here each block walks only its rows' windows, so shared memory does not
-// grow with w. The policies give the walk and the mask on row indices:
+// bf16 (dh 64, 128, 192 and 256; the dh-192 instances serve any head dim
+// over 128, the dh-256 ones any over 192, zero-padded by the wrapper, with
+// the true head dim's scale, which every instance takes from the caller):
+// `local_bwd_dq_wgmma` and `local_bwd_dkv_wgmma`, on the tensor cores with
+// the backward bodies the flash and gathered backwards run
+// (attn_bwd_sm90.cuh: 128 owned rows a block loaded once by TMA, the other
+// side's tiles through a ring, S and dP by wgmma, P and dS fed to their
+// products as hi + lo bf16 pairs so that dq, dk and dv keep fp32's
+// accuracy). The TPU kernels hold the whole (w x 2w) tile in VMEM; here
+// each block walks only its rows' windows, so shared memory does not grow
+// with w. The policies give the walk and the mask on row indices:
 // - `LocalDq`: a block owns 128 query rows, each tagged with its window of
-//   keys, and walks 64-row key tiles from its first row's window start,
-//   rounded down to a tile, to its last row's window end, as the forward's
-//   `LocalFwd` walks 128-row tiles;
+//   keys, and walks key tiles of KT rows (64; 32 at dh 256, where the owned
+//   Q and dO take 128 KB: `dq_tile_keys`) from its first row's window
+//   start, rounded down to a tile, to its last row's window end, as the
+//   forward's `LocalFwd` walks 128-row tiles;
 // - `LocalDkv`: a block owns 128 key rows, each tagged with the window of
-//   queries that attend it (a padded key, or one past the plane, an empty
-//   window), and walks query tiles of 64 rows (dh 64) or 32 (dh 128, 192)
-//   from its first key's window start, rounded down to a tile, to its
-//   last key's window end.
+//   queries that attend them (a padded key, or one past the plane, an empty
+//   window), and walks query tiles of 64 rows (dh 64) or 32 (dh 128 and
+//   over) from its first key's window start, rounded down to a tile, to its
+//   last key's window end. Above dh 128 the walk runs twice
+//   (`dkv_sweeps`): dV, then dK at dh 192; at dh 256 both over columns
+//   0-127, then both over 128-255 (`dkv_col_parts`), so that no more than
+//   two 64 x 128 fp32 accumulators a warpgroup are live.
 // Windows only move forward, so a warpgroup masks a tile only when it
 // leaves the window of its last row (latest start) or of its first row
 // (earliest end); the ends are clamped to the plane, so a tile that
-// crosses N is masked too (rows past N arrive from TMA as zeros). When 64
-// divides w that leaves the diagonal tile and the window's edges. With a
-// pad mask every tile is masked: dq stages each key tile's validity per
-// warpgroup and tile parity (`LocalDq<true>`, its own instance, so the
-// unpadded kernel stages nothing), dk/dv reads its owned keys' validity
-// once, into their windows.
+// crosses N is masked too (rows past N arrive from TMA as zeros). When the
+// tile divides w that leaves the diagonal tile and the window's edges.
+// With a pad mask every tile is masked: dq stages each key tile's validity
+// per warpgroup and tile parity (`LocalDq<true, KT>`, its own instance, so
+// the unpadded kernel stages nothing), dk/dv reads its owned keys'
+// validity once, into their windows.
 //
 // fp32: `local_bwd_dq_kernel` and `local_bwd_dkv_kernel`, fp32 FMAs from
 // shared memory (attn_bwd.cuh): one block per 64 query rows (dq) or 64 key
 // rows (dk/dv), tiles of 32 over the same windows. They keep full fp32
-// products, as PyTorch's fp32 matmul does (no TF32).
-//
-// dh 256 (recurrentgemma-9b's local-attention layers; the dh-192
-// instances above serve head dims up to 192, the dh-256 ones any over
-// that, zero-padded) runs these FMA kernels in both dtypes, bf16 rows
-// converted to fp32 as they are loaded. The tensor-core bodies do not hold
-// that width: the dq body's owned Q and dO tiles and two stages of 64-row K
-// and V tiles would take 256 KB of shared memory (the block has 227 KB),
-// and the dk/dv body's 64 x 256 fp32 accumulator is 128 registers a thread
-// before S, dP and the hi + lo fragments (at dh 192 it reads 244-255 of
-// the 255 a thread may hold). The FMA tiles take ~207 KB (dq) and ~215 KB
-// (dk/dv) of shared memory there (`local_bwd_smem_bytes`); dk/dv keeps its
-// 2 x 4 x 32 fp32 accumulators a thread, more than the registers hold, so
-// part of them lives in local memory.
+// products, as PyTorch's fp32 matmul does (no TF32). At dh 256
+// (recurrentgemma-9b's local-attention layers) they take ~207 KB (dq) and
+// ~215 KB (dk/dv) of shared memory (`local_bwd_smem_bytes`); dk/dv keeps
+// its 2 x 4 x 32 fp32 accumulators a thread, more than the registers hold,
+// so part of them lives in local memory. They serve only the fp32 gates.
 #include "attn_bwd.cuh"
 #include "attn_bwd_sm90.cuh"
 
@@ -255,7 +249,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
 // bf16 on the tensor cores (the bodies are attn_bwd_sm90.cuh's)
 // ---------------------------------------------------------------------------
 using sm90::HB;
-using sm90::HBN;
 
 // A window [lo, hi] of rows on the other side (lo > hi: empty), hi clamped
 // to the plane's last row N - 1.
@@ -303,14 +296,14 @@ struct LocalDkv {
 };
 
 // dq: the owned rows are queries, tagged with their window of keys; with a
-// pad mask (PAD) each walked key tile's validity is staged per warpgroup
-// and tile parity, and every tile is masked.
-template <bool PAD>
+// pad mask (PAD) each walked key tile's validity (KT keys) is staged per
+// warpgroup and tile parity, and every tile is masked.
+template <bool PAD, int KT>
 struct LocalDq {
   static constexpr bool kTileTags = PAD;
   int qplane, kplane, q0, N, causal, k_first, ntiles, w;
   const uint8_t* kvalid;         // this batch row's (N,) pad mask, or null
-  uint8_t (*valid)[2][HBN];      // [warpgroup][tile % 2][key]
+  uint8_t (*valid)[2][KT];       // [warpgroup][tile % 2][key]
   __device__ Window row_tag(int i) const { return keys_of(i, N, w, causal); }
   __device__ void stage(int wg, int buf, int t, int j) const {
     valid[wg][buf][t] = j < N && kvalid[j];
@@ -375,9 +368,10 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
                        const uint8_t* __restrict__ kvalid,
                        float* __restrict__ dq, int H, int Hkv, int N, int w,
                        int causal, float scale) {
-  __shared__ uint8_t valid[2][2][HBN];
+  constexpr int KT = sm90::DqSmemH<DH>::KT;
+  __shared__ uint8_t valid[2][2][KT];
   const int bh = blockIdx.y;
-  LocalDq<PAD> pol;
+  LocalDq<PAD, KT> pol;
   pol.qplane = bh;
   pol.kplane = kv_plane(bh, H, Hkv);
   pol.q0 = blockIdx.x * HB;
@@ -390,9 +384,9 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
   // from the window start of the first row, rounded down to a tile, to the
   // last row's window end
   const int last = min(pol.q0 + HB, N) - 1;
-  pol.k_first = keys_of(pol.q0, N, w, causal).lo / HBN * HBN;
+  pol.k_first = keys_of(pol.q0, N, w, causal).lo / KT * KT;
   const int kend = keys_of(last, N, w, causal).hi + 1;
-  pol.ntiles = (kend - pol.k_first + HBN - 1) / HBN;
+  pol.ntiles = (kend - pol.k_first + KT - 1) / KT;
   sm90::bwd_dq_body<DH>(tq, tk, tv, tdo, lse, dsum, dq, pol, scale);
 }
 
@@ -418,7 +412,8 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    int N, int w, int causal, float scale,
                    cudaStream_t stream) {
   CUtensorMap m[4];
-  int err = map_bwd<DH>(m, q, k, v, dO, B, H, Hkv, N, HB, HBN);
+  int err = map_bwd<DH>(m, q, k, v, dO, B, H, Hkv, N, HB,
+                        sm90::DqSmemH<DH>::KT);
   if (err != cudaSuccess) return err;
   auto kernel = kvalid == nullptr ? local_bwd_dq_wgmma<DH, false>
                                   : local_bwd_dq_wgmma<DH, true>;
@@ -478,14 +473,8 @@ extern "C" int local_attention_bwd_dq(const void* q, const void* k,
   LOCAL_DQ(128)
   LOCAL_DQ(64)
   LOCAL_DQ(192)
+  LOCAL_DQ(256)
 #undef LOCAL_DQ
-  // dh 256: the FMA tile in both dtypes (see the top of this file)
-  if (dh == 256 && dtype == 1)
-    return launch_dq<__nv_bfloat16, 256>(q, k, v, dO, lse, dsum, kvalid, dq,
-                                         B, H, Hkv, N, w, causal, scale, s);
-  if (dh == 256 && dtype == 0)
-    return launch_dq<float, 256>(q, k, v, dO, lse, dsum, kvalid, dq, B, H,
-                                 Hkv, N, w, causal, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -508,15 +497,8 @@ extern "C" int local_attention_bwd_dkv(const void* q, const void* k,
   LOCAL_DKV(128)
   LOCAL_DKV(64)
   LOCAL_DKV(192)
+  LOCAL_DKV(256)
 #undef LOCAL_DKV
-  // dh 256: the FMA tile in both dtypes (see the top of this file)
-  if (dh == 256 && dtype == 1)
-    return launch_dkv<__nv_bfloat16, 256>(q, k, v, dO, lse, dsum, kvalid, dk,
-                                          dv, B, H, Hkv, N, w, causal, scale,
-                                          s);
-  if (dh == 256 && dtype == 0)
-    return launch_dkv<float, 256>(q, k, v, dO, lse, dsum, kvalid, dk, dv, B,
-                                  H, Hkv, N, w, causal, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -535,9 +517,7 @@ extern "C" int local_bwd_smem_bytes(int dh, int dtype, int which) {
   LOCAL_BWD_SMEM(64)
   LOCAL_BWD_SMEM(128)
   LOCAL_BWD_SMEM(192)
+  LOCAL_BWD_SMEM(256)
 #undef LOCAL_BWD_SMEM
-  if (dh == 256)
-    return static_cast<int>(which == 0 ? sizeof(rt::DqSmem<256>)
-                                       : sizeof(rt::DkvSmem<256>));
   return 0;
 }

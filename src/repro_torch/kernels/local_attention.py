@@ -24,8 +24,9 @@ rows of 128, 256, 384 or 512 bytes in bf16. Any other head dim up to 256
 (rt-pg19's 129) runs zero-padded to the next width (`common.pad_heads`,
 on both devices), with the scale of the true head dim, and the outputs
 are cut back to it. At dh 256 (recurrentgemma-9b's local-attention
-layers) the bf16 forward runs the tensor-core body, dq and dk/dv run the
-FMA tiles on bf16 inputs (``csrc/local_attention_bwd.cu``).
+layers) the bf16 kernels run the same tensor-core bodies: dq walks 32-row
+key tiles, dk/dv sweeps its query tiles twice, over one half of dK's and
+dV's columns each time (``csrc/attn_bwd_sm90.cuh``).
 """
 from __future__ import annotations
 

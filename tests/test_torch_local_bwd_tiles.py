@@ -7,34 +7,42 @@ bf16 backward they are held to.
 in fp32 on the accumulators and fed to dV += P^T dO, dK += dS^T Q and
 dQ += dS K as two bf16 fragments each, hi = bf16(x) and lo = bf16(x - hi).
 What a block walks and which tiles a warpgroup masks is each kernel's
-policy: `LocalDq` (a block of 128 query rows walks 64-row key tiles over
-its rows' windows) and `LocalDkv` (a block of 128 key rows walks query
-tiles of 64 rows at dh 64, 32 at dh 128, over the windows of the queries
-that attend its keys). The card cannot be reached here, so `_split_bwd`
-emulates that arithmetic in plain PyTorch and `_dq_effective` /
-`_dkv_effective` mirror the two policies. They are helpers of this file,
-on no main path. On numpy-seeded inputs:
+policy: `LocalDq` (a block of 128 query rows walks key tiles of 64 rows,
+32 at dh 256, over its rows' windows) and `LocalDkv` (a block of 128 key
+rows walks query tiles of 64 rows at dh 64, 32 above, over the windows of
+the queries that attend its keys; at dh 256 twice, over one half of dK's
+and dV's columns each time). The card cannot be reached here, so
+`_split_bwd` emulates that arithmetic in plain PyTorch, `_dkv_walk` the
+dk/dv walk tile by tile in one sweep or two column halves, and
+`_dq_effective` / `_dkv_effective` mirror the two policies. They are
+helpers of this file, on no main path. On numpy-seeded inputs:
 
 * the walks and masked tiles of both policies leave exactly the mask:
   every kept pair lies in a walked tile and is kept there, and a tile a
   warpgroup does not mask holds only kept pairs and lies inside the plane
   (w 63, 128, 200 and 512, w > N, causal and not, a pad mask whose tail
-  keeps no key);
+  keeps no key), dq's walk at 64- and 32-row key tiles;
 * the emulation against the fp32 plain backward (`local_attention_bwd_dq`
   / `_dkv` of ``core/local.py``) with the same lse and D, at one
   rt-enwik8 local head cut to N 2048 (w 256, dh 128), one rt-cifar10 local
-  head (N 3072, w 512, dh 64) and a ragged padded head (N 200, w 63, its
-  last 140 keys padding, so its rows from 126 on keep no key): dq, dk and
+  head (N 3072, w 512, dh 64), a ragged padded head (N 200, w 63, its
+  last 140 keys padding, so its rows from 126 on keep no key) and one
+  recurrentgemma-9b head cut to N 2048 (w 1024, dh 256): dq, dk and
   dv within chip_smoke's `BWD_REL_TOL` of their largest values and every
   row within its `BWD_ROW_REL_TOL` under the window mask
   (`local_grad_row_errs`), and in fact within a hundredth and a tenth of
   them; with P and dS as one bf16 value each, as SDPA rounds them, each of
   dq, dk and dv reads over `BWD_REL_TOL` at the rt-cifar10 head: the
   reason for the split (``-s`` prints the readings);
+* the dk/dv walk in two column-half sweeps (dh 256) against one sweep at
+  the recurrentgemma head: dk and dv within 1e-6 of their largest values
+  (each element keeps its products; only the order of fp32 sums a product
+  of another width takes may move it), and one sweep within the split's
+  limits of the fp32 plain backward;
 * the plain backward in bf16 (`local_attention_bwd_plain`) against
   ``jax.vjp`` of the Pallas `local_attention_kernel` in interpret mode (N a
-  multiple of w, GQA 2:1), fed the Pallas forward's out and lse: dq, dk
-  and dv within 2^-8 of their largest values;
+  multiple of w, GQA 2:1, dh 64, 128 and 256), fed the Pallas forward's
+  out and lse: dq, dk and dv within 2^-8 of their largest values;
 * chip_smoke's local row check (`local_grad_row_errs`) refuses two faults
   that `BWD_REL_TOL`, on the largest value, passes: a late key row's dk
   left unwritten at the rt-cifar10 head (the last key is kept only by the
@@ -67,7 +75,7 @@ from repro_torch.core import row_dot
 from repro_torch.kernels import local_attention as KL
 
 PALLAS_GRAD_TOL = 2.0 ** -8
-HB, HBN = 128, 64           # rows a block owns; key rows per dq tile
+HB, HBN = 128, 64   # rows a block owns; key rows per dq tile up to dh 192
 
 
 @pytest.fixture(autouse=True)
@@ -120,9 +128,10 @@ def _queries_of(j, N, w, causal):
     return lo, np.minimum((b + 2) * w - 1, N - 1)
 
 
-def _dq_effective(N, w, causal, pad):
+def _dq_effective(N, w, causal, pad, KT=HBN):
     """The (query, key) pairs whose P the dq kernel (`LocalDq`,
-    `local_bwd_dq_wgmma`) leaves unmasked: its walk, `drop` (the row's
+    `local_bwd_dq_wgmma`) leaves unmasked: its walk of ``KT``-row key
+    tiles (`dq_tile_keys`: 64, and 32 at dh 256), `drop` (the row's
     window, the staged key validity) in the tiles a warpgroup masks
     (`edge`), every pair in those it does not. w cut to N, as the wrapper
     cuts it; only rows and keys inside the plane are stored."""
@@ -130,11 +139,11 @@ def _dq_effective(N, w, causal, pad):
     eff = np.zeros((N, N), bool)
     for q0 in range(0, N, HB):
         last = min(q0 + HB, N) - 1
-        first = int(_keys_of(q0, N, w, causal)[0]) // HBN * HBN
+        first = int(_keys_of(q0, N, w, causal)[0]) // KT * KT
         kend = int(_keys_of(last, N, w, causal)[1]) + 1
-        for t in range(-(-(kend - first) // HBN)):
-            k0 = first + t * HBN
-            ks = np.arange(k0, min(k0 + HBN, N))
+        for t in range(-(-(kend - first) // KT)):
+            k0 = first + t * KT
+            ks = np.arange(k0, min(k0 + KT, N))
             for wg in range(2):
                 r = q0 + 64 * wg
                 rows = np.arange(r, min(r + 64, N))
@@ -142,9 +151,9 @@ def _dq_effective(N, w, causal, pad):
                     continue
                 edge = (pad is not None
                         or k0 < _keys_of(r + 63, N, w, causal)[0]
-                        or k0 + HBN - 1 > _keys_of(r, N, w, causal)[1])
+                        or k0 + KT - 1 > _keys_of(r, N, w, causal)[1])
                 if not edge:
-                    assert k0 + HBN <= N, "an unmasked tile past the keys"
+                    assert k0 + KT <= N, "an unmasked tile past the keys"
                     eff[np.ix_(rows, ks)] = True
                     continue
                 lo, hi = _keys_of(rows, N, w, causal)
@@ -222,6 +231,21 @@ def test_walks_and_edges_leave_exactly_the_mask(case):
         np.testing.assert_array_equal(eff, keep)
 
 
+@pytest.mark.parametrize("case", LOCAL_WALKS, ids=[
+    f"N{N}-w{w}-{'causal' if c else 'full'}{'-padded' if p else ''}"
+    for N, w, c, p in LOCAL_WALKS])
+def test_dh256_dq_walk_leaves_exactly_the_mask(case):
+    """dq at dh 256 walks key tiles of 32 rows (`dq_tile_keys`), so that
+    its owned Q and dO and two stages of K and V fit a block's shared
+    memory: the same holds of that walk as of the 64-row one above (dk/dv
+    at dh 256 walks 32-row query tiles, held above)."""
+    N, w, causal, padded = case
+    tail = min(N - 1, 2 * min(w, N) + N // 6)
+    pad = _pad(np.random.default_rng(60), N, tail) if padded else None
+    np.testing.assert_array_equal(_dq_effective(N, w, causal, pad, 32),
+                                  _local_keep(N, w, causal, pad))
+
+
 # ---------------------------------------------------------------------------
 # The tensor-core backward's arithmetic, emulated
 # ---------------------------------------------------------------------------
@@ -285,6 +309,8 @@ HEADS = {
     "rt-cifar10-N3072-w512-dh64": (3072, 512, 64, True),
     # its last 140 keys padding: the rows from 126 on keep no key
     "ragged-N200-w63-padded": (200, 63, 64, True, 140),
+    # one recurrentgemma-9b local head (dh 256) cut to N 2048, w 1024
+    "recurrentgemma-N2048-w1024-dh256": (2048, 1024, 256, True),
 }
 
 
@@ -311,10 +337,59 @@ def test_single_bf16_operands_exceed_bwd_rel_tol():
     assert max(split) < chip_smoke.BWD_REL_TOL / 100, split
 
 
+def _dkv_walk(q, k, v, do, lse, dsum, keep, halves, BQ=32):
+    """(dk, dv) of one head, all fp32, as the bf16 dk/dv kernel builds
+    them: query tiles of ``BQ`` rows in order, each tile's P^T and dS^T
+    from its S^T = K Q^T and dP^T = V dO^T over all columns, fed as hi +
+    lo pairs to dV += P^T dO and dK += dS^T Q in fp32. One sweep with all
+    the columns of dK and dV, or (``halves``, dh 256) two sweeps over the
+    walk, each computing S^T and dP^T anew and both products over one
+    half of the columns (`dkv_col_halves`)."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    N, dh = q.shape
+    scale = 1.0 / dh ** 0.5
+    dk, dv = torch.zeros(N, dh), torch.zeros(N, dh)
+    sweeps = ((slice(0, dh // 2), slice(dh // 2, dh)) if halves
+              else (slice(0, dh),))
+    for cols in sweeps:
+        for q0 in range(0, N, BQ):
+            rows = slice(q0, min(q0 + BQ, N))
+            st = k @ q[rows].T * scale
+            pt = torch.where(keep[rows].T, torch.exp(st - lse[rows][None]),
+                             0.0)
+            dst = pt * (v @ do[rows].T - dsum[rows][None]) * scale
+            for a in _operands(pt, True):
+                dv[:, cols] += a @ do[rows, cols]
+            for a in _operands(dst, True):
+                dk[:, cols] += a @ q[rows, cols]
+    return dk, dv
+
+
+def test_column_half_sweeps_match_one_sweep():
+    """dk/dv at dh 256 runs its walk twice, over one half of dK's and dV's
+    columns each time: every output element keeps its products and their
+    order, only which sweep computes it changes. At the recurrentgemma
+    head the two sweeps' dk and dv are within 1e-6 of their largest values
+    of one sweep's (the floor of the order of fp32 sums a product of
+    another width may take), and one sweep's within the split's limits of
+    the fp32 plain backward."""
+    inputs, mask, ref = _head(61, *HEADS["recurrentgemma-N2048-w1024-dh256"])
+    one = _dkv_walk(*inputs, mask, halves=False)
+    two = _dkv_walk(*inputs, mask, halves=True)
+    for a, b in zip(two, one):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel <= 1e-6, rel
+    rel = _rel_errs((ref[0], *one), ref, mask.shape[0])
+    rows = chip_smoke.local_grad_row_errs((ref[0], *one), ref, mask)
+    print(f"one sweep vs fp32 plain: {rel}, rows {rows}")
+    assert max(rel) <= chip_smoke.BWD_REL_TOL / 100, rel
+    assert max(rows) <= chip_smoke.BWD_ROW_REL_TOL / 10, rows
+
+
 # ---------------------------------------------------------------------------
 # The plain bf16 backward against the Pallas backward
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_plain_bf16_backward_matches_pallas(causal, dh):
     """GQA 2:1, N a multiple of w (the Pallas kernel takes no other)."""
