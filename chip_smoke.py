@@ -302,9 +302,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
    train gate at one pattern group plus the tail, and 3 bf16 Adafactor
    steps of 1 x 4096 at RG_TRAIN_GROUPS groups plus the tail, exact local
    launches per step (each forward twice under remat "full");
-10. print the per-kernel JSON line (since slice 21 with the dh-256
-   instances' rows beside the thirteen kernels'), then the device JSON
-   line last.
+10. since slice 23, the encoder family (`encoder_phase`): the three flash
+   kernels at hubert-xlarge's attention shape (B 2, 16 heads on 16 KV
+   heads, N = M 4096, dh 80, non-causal), which the wrappers run
+   zero-padded to the dh-128 instances with the scale of dh 80, in bf16
+   and fp32 against their plain versions at dh 80 unpadded
+   (`check_flash_encoder`: the flash rows' limits, the padded columns of
+   out, dq, dk and dv exact zeros, graph times beside the plain version,
+   SDPA at dh 80 and the bound at dh 80, the pad copies' share of each
+   wrapper's time) and in bf16 at the ragged `FLASH80_EDGES`; hubert's
+   fp32 encode gate (`encoder_encode_gate`, 4 layers, B 1 x 2048: the
+   kernel path against the plain path under the serving limits) and
+   train gate (`encoder_train_gate`, the qwen2 gate's limits, the
+   kernels at the padded width's scale refused); then hubert-xlarge at
+   full width and depth (48 layers, bf16) encodes B 2 x 4096 frames with
+   no gradient (`encode_hubert`: exactly 48 flash forwards, wall and
+   busy ms) and takes 3 masked-prediction steps of B 2 x 4096 (Adam at
+   a constant 1e-4, remat "full"; masks as HuBERT draws them) through
+   `make_train_step`
+   (`train_encoder`: 96 forwards, 48 dq and 48 dk/dv launches a step, the
+   loss finite and falling, peak memory, busy ms and top ops);
+11. print the per-kernel JSON line (since slice 21 with the dh-256
+   instances' rows beside the thirteen kernels', since slice 23 the dh-80
+   flash rows), then the device JSON line last.
    ``--out`` adds torch.profiler breakdowns of one rt-enwik8 prefill,
    decode step and train step, of one qwen2 train step, of one
    rt-cifar10 train step on each of its two kernel paths and of one
@@ -641,6 +661,39 @@ RG_LOCAL_EDGES = ((1, 4, 1, 1, 63, 256, True, False),
                   (1, 4, 2, 129, 63, 256, False, False),
                   (1, 16, 1, 200, 128, 256, True, False),
                   (1, 4, 1, 3072, 2048, 256, True, True))
+# slice 23: the encoder family. hubert-xlarge (48 layers, d 1280, 16 heads
+# of dh 80 on 16 KV heads, d_ff 5120, non-causal, no positions, vocab 504
+# codebook classes; random bf16 weights from seed 0) on the flash kernels,
+# which run dh 80 zero-padded to their dh-128 instances. The kernels at its
+# attention shape (B 2, H 16 = Hkv, N = M 4096, dh 80, non-causal) in bf16
+# and fp32 against their plain versions at dh 80 unpadded; it encodes B 2 x
+# 4096 frames of features with no gradient (one flash forward per layer)
+# and trains FAMILY_STEPS steps of B 2 x 4096 (the TrainConfig defaults:
+# Adam, remat "full"); its fp32 encode and train gates run its first
+# HUBERT_GATE_LAYERS layers at B 1 x 2048. Masks as HuBERT draws them
+# (arXiv:2106.07447): each frame starts a span of HUBERT_SPAN masked frames
+# with probability mask_prob (0.08), so about 1 - 0.92^10 = 57% of the
+# frames are masked
+HUBERT_ARCH = "hubert-xlarge"
+HUBERT_BATCH, HUBERT_SEQ = 2, 4096
+HUBERT_GATE_LAYERS = 4
+HUBERT_GATE_BATCH, HUBERT_GATE_SEQ = 1, 2048
+HUBERT_SPAN = 10
+# its steps take the TrainConfig defaults (Adam 0.9/0.98, clip 1.0, remat
+# "full") but for the rate, as rt-imagenet64's do: fresh Adam moments move
+# every weight by about the rate at each of the first steps, and from the
+# same state and batches the loss rose by the third step at the vaswani
+# schedule's peak (8.8e-4 at d 1280: 6.67, 6.53, 8.28) and at a constant
+# 4e-4 (7.20) and 2e-4 (6.80), and fell at 1e-4 (6.67, 6.49, 6.47; PERF.md)
+HUBERT_TRAIN = dict(schedule="const", lr=1e-4)
+# the three flash kernels in bf16 at dh 80 (zero-padded to 128) at the
+# shapes their 128-row tiles make ragged, as FLASH_EDGES: N and M of 1,
+# 127, 129 and 200, causal and not, MHA 16:16 (hubert's) and GQA 2:1
+FLASH80_EDGES = tuple(
+    (1, H, Hkv, N, M, 80, causal) for H, Hkv in ((16, 16), (2, 1))
+    for N, M, causal in ((1, 1, True), (127, 129, True), (200, 127, False),
+                         (129, 200, False), (127, 200, True),
+                         (200, 1, False)))
 # kernel vs plain (fp32 on the same bf16 inputs): the kernel rounds its
 # output to bf16 (half an ulp: 2^-9 of the value) and sums in another fp32
 # order, so outputs may differ by 2^-7 of the largest reference value (two
@@ -803,6 +856,10 @@ _LOCAL_FWD = ("serve", "train", "serve_cifar", "train_cifar",
 _LOCAL_BWD = ("train", "train_cifar", "train_gathered", "fit_gathered",
               *_PAPER, "obs", "ckpt_dist", "tp", "remat", "train_rg")
 _FLASH = ("train_full", "launch", "ckpt_launch", "tp", "remat")
+# and since slice 23 the flash kernels encode and train hubert-xlarge at dh
+# 80 ("encode_hubert": the forward alone; "train_hubert")
+_FLASH_FWD = (*_FLASH, "encode_hubert", "train_hubert")
+_FLASH_BWD = (*_FLASH, "train_hubert")
 _GATHERED = ("train_gathered", "fit_gathered")
 KERNELS = {
     "local_attention": dict(
@@ -845,15 +902,15 @@ KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:47",
-        kind="forward", layers="full", paths=_FLASH),
+        kind="forward", layers="full", paths=_FLASH_FWD),
     "flash_attention_bwd_dq": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:90",
-        kind="backward", layers="full", paths=_FLASH),
+        kind="backward", layers="full", paths=_FLASH_BWD),
     "flash_attention_bwd_dkv": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:123",
-        kind="backward", layers="full", paths=_FLASH),
+        kind="backward", layers="full", paths=_FLASH_BWD),
     "routing_gathered": dict(
         route="cuda", source="src/repro_torch/csrc/routing_gathered.cu",
         replaces="src/repro/kernels/routing_attention.py:80",
@@ -6247,6 +6304,444 @@ def train_family_apart(torch, path) -> tuple:
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# slice 23: the encoder family (hubert-xlarge) on the flash kernels at dh 80
+# ---------------------------------------------------------------------------
+def keep_pad_columns():
+    """Inside the block the flash wrappers return their outputs at the
+    kernels' width, the zero-padded columns not cut off."""
+    from repro_torch.kernels import common
+    return swapped(common, "unpad_heads", lambda dh, *ts: ts)
+
+
+def padded_scale():
+    """Inside the block the flash wrappers pass the kernels the softmax
+    scale of the padded width (1/sqrt(128) at dh 80) instead of the true
+    head dim's: the fault a kernel that kept 1/sqrtf(DH) would have. The
+    encoder gates' negative control."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels import flash_attention as K
+    true = common.head_scale
+    return swapped(common, "head_scale", lambda dh: true(
+        common.padded_head_dim("flash", dh, K.WIDTHS)))
+
+
+def pad_copy_ms(torch, dh, pads, cuts) -> float:
+    """Graph time of a flash wrapper's pad copies: ``pads`` padded to the
+    kernels' width (`common.pad_heads`) and ``cuts`` (outputs at that
+    width) cut back to ``dh`` columns (`common.unpad_heads`)."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels import flash_attention as K
+
+    def copies():
+        common.pad_heads("flash", dh, *pads, widths=K.WIDTHS)
+        common.unpad_heads(dh, *cuts)
+    return graph_ms(torch, copies)
+
+
+def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
+    """The three flash kernels at one non-causal shape whose head dim the
+    wrappers zero-pad (hubert-xlarge's: dh 80 at the dh-128 instances),
+    each against its plain version in fp32 at the true dh, unpadded, on
+    the same inputs: out within OUT_REL_TOL and every row within
+    ROW_REL_TOL, lse within LSE_TOL; dq, dk and dv (per query head) within
+    BWD_REL_TOL of their largest values and every row within
+    BWD_ROW_REL_TOL (`grad_row_errs`). The outputs at the kernels' width
+    (`keep_pad_columns`) must hold exact zeros past column dh. Each timed
+    (`timings`) beside its plain version and SDPA at dh (non-causal;
+    the backward's call computes dq, dk and dv), with its bound at the true
+    dh (4, 6 and 8 * dh operations a pair, N * M pairs a head) and the
+    share of the wrapper's graph time that its pad copies take. In bf16
+    SDPA's own errors stand beside each row. Returns the three rows."""
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import flash_attention as K
+    mk = dict(generator=gen, device=DEVICE, dtype=dtype)
+    q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
+    shape = (f"B{B} H{H} Hkv{Hkv} N{N} dh{dh} {str(dtype)[6:]} non-causal "
+             f"(run at dh {K.C.padded_head_dim('flash', dh, K.WIDTHS)})")
+    out, lse = K.flash_attention(q, k, v, False)
+    dsum = row_dot(do, out)
+    args = (q, k, v, do, lse, dsum, False)
+    got = (K.flash_attention_bwd_dq(*args), *K.flash_attention_bwd_dkv(*args))
+    with keep_pad_columns():
+        wide_out, _ = K.flash_attention(q, k, v, False)
+        wide = (wide_out, K.flash_attention_bwd_dq(*args),
+                *K.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    pad_max = max(float(t[..., dh:].abs().max()) for t in wide)
+    if pad_max != 0.0 or any(t.shape[-1] == dh for t in wide):
+        raise AssertionError(f"flash kernels at {shape}: the padded columns "
+                             f"read {pad_max}, not exact zeros")
+    f32 = [t.float() for t in (q, k, v, do)]
+    ref_out, ref_lse = K.flash_attention_plain(*f32[:3], False)
+    err, lerr = max_err(out, ref_out), max_err(lse, ref_lse)
+    row_err = row_rel_err(out, ref_out)
+    if not (out_ok(out, ref_out) and lerr <= LSE_TOL
+            and row_err <= ROW_REL_TOL):
+        raise AssertionError(f"flash_attention at {shape} disagrees with "
+                             f"its plain version: out {err}, lse {lerr}, "
+                             f"row {row_err}")
+    args32 = (*f32, lse, dsum, False)
+    refs = (K.flash_attention_bwd_dq_plain(*args32),
+            *K.flash_attention_bwd_dkv_plain(*args32))
+    grad_row = grad_row_errs(got, refs, False)
+    if max(grad_row) > BWD_ROW_REL_TOL or not all(
+            out_ok(g, r, BWD_REL_TOL) for g, r in zip(got, refs)):
+        raise AssertionError(f"a flash backward kernel at {shape} disagrees "
+                             f"with its plain version: rows {grad_row}")
+    bf16 = dtype == torch.bfloat16
+    sdpa_out = sdpa_out_errs(torch, q, k, v, ref_out) if bf16 else {}
+    sdpa_grad = sdpa_grad_errs(torch, q, k, v, do, refs, False) if bf16 \
+        else {}
+    out_rel = rel_err(out, ref_out)
+    del ref_out, ref_lse
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = B * H * N * N
+    row = dict(
+        max_abs_err=err, lse_err=lerr, out_rel_err=out_rel,
+        row_rel_err=row_err, pad_max=pad_max, **sdpa_out,
+        **timings(torch, lambda: K.flash_attention(q, k, v, False),
+                  lambda: K.flash_attention_plain(q, k, v, False),
+                  lambda: sdpa(q, k, v, enable_gqa=True),
+                  *bound_ms(nbytes(q, k, v, out, lse), 4 * dh * pairs)),
+        shape=shape)
+    row["pad_copy_share"] = pad_copy_ms(torch, dh, (q, k, v),
+                                        wide[:1]) / row["graph_ms"]
+    rows = {"flash_attention": row}
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, enable_gqa=True)
+
+    def library():
+        torch.autograd.grad(o, leaves, do, retain_graph=True)
+    n_in = nbytes(q, k, v, do, lse, dsum)
+    for name, part, fn, plain, flops in (
+            ("flash_attention_bwd_dq", slice(0, 1),
+             lambda: K.flash_attention_bwd_dq(*args),
+             lambda: K.flash_attention_bwd_dq_plain(*args), 6 * dh * pairs),
+            ("flash_attention_bwd_dkv", slice(1, 3),
+             lambda: K.flash_attention_bwd_dkv(*args),
+             lambda: K.flash_attention_bwd_dkv_plain(*args),
+             8 * dh * pairs)):
+        row = rows[name] = dict(
+            max_abs_err=max(max_err(g, r) for g, r in zip(got[part],
+                                                          refs[part])),
+            grad_rel_err=[rel_err(g, r) for g, r in zip(got[part],
+                                                        refs[part])],
+            grad_row_rel_err=grad_row[part], pad_max=pad_max,
+            **{key: val[part] for key, val in sdpa_grad.items()},
+            **timings(torch, fn, plain, library,
+                      *bound_ms(n_in + nbytes(*got[part]), flops)),
+            shape=shape)
+        row["pad_copy_share"] = pad_copy_ms(
+            torch, dh, (q, k, v, do), wide[1:][part]) / row["graph_ms"]
+    del o, leaves
+    return rows
+
+
+def check_flash80_edges(torch, gen) -> list:
+    """`check_flash_edges` (its limits, its SDPA readings) at
+    FLASH80_EDGES: the three flash kernels in bf16 at dh 80, zero-padded to
+    their dh-128 instances, at ragged N and M."""
+    with swapped(sys.modules[__name__], "FLASH_EDGES", FLASH80_EDGES):
+        return check_flash_edges(torch, gen)
+
+
+def hubert_mask_spans(torch, B, S, p, span, gen):
+    """(B, S) bool masks as HuBERT draws them (arXiv:2106.07447, after
+    wav2vec 2.0): each frame starts a span of ``span`` masked frames with
+    probability ``p``; spans may overlap."""
+    starts = torch.rand((B, S), generator=gen, device=DEVICE) < p
+    mask = starts.clone()
+    for i in range(1, span):
+        mask[:, i:] |= starts[:, :-i]
+    return mask
+
+
+def encoder_batches(torch, cfg, batch, seq, n):
+    """``n`` masked-prediction batches of ``batch`` x ``seq`` frames:
+    ``tokens``, the targets, a markov sequence over the codebook's classes
+    (`train_batches`); ``features`` (in the model's dtype) a fixed random
+    codebook row of each frame's class plus unit noise, since HuBERT's
+    targets are the k-means classes of its frames; ``mask_spans`` from
+    `hubert_mask_spans`."""
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    book = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                       device=DEVICE)
+    out = []
+    for b in train_batches(torch, cfg.vocab_size, batch, seq, n):
+        tokens = b["tokens"][:, :seq].contiguous()
+        noise = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                            device=DEVICE)
+        out.append(dict(
+            tokens=tokens,
+            features=(book[tokens.long()] + noise).to(getattr(torch,
+                                                              cfg.dtype)),
+            mask_spans=hubert_mask_spans(torch, batch, seq, cfg.mask_prob,
+                                         HUBERT_SPAN, gen)))
+    return out
+
+
+def encode_hubert(torch, path, counts) -> tuple:
+    """hubert-xlarge at full width and depth (bf16, random weights from
+    seed 0) encodes HUBERT_BATCH x HUBERT_SEQ frames with no gradient
+    (`apply_model` on features, no mask), as users run it for features or
+    pseudo-labels: exactly one flash forward per layer and no other
+    launch, the logits finite; wall ms (median of 5, synchronized) and the
+    device's busy ms (`device_busy`). Returns (row, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models.model import apply_model, init_model
+    cfg = get_config(HUBERT_ARCH)
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    feats = encoder_batches(torch, cfg, HUBERT_BATCH, HUBERT_SEQ,
+                            1)[0]["features"]
+
+    def encode():
+        with torch.no_grad():
+            logits = apply_model(params, kstate, {"features": feats}, cfg)[0]
+        torch.cuda.synchronize()
+        return logits
+    encode()
+    common.reset_counters()
+    logits = encode()
+    launches = {n: counts().get(n, 0) for n in KERNELS}
+    want = {n: cfg.num_layers if n == "flash_attention" else 0
+            for n in KERNELS}
+    check_launches(path, launches, want)
+    V = cfg.vocab_size
+    if (logits.shape != (HUBERT_BATCH, HUBERT_SEQ, cfg.padded_vocab)
+            or not bool(logits[..., :V].isfinite().all())):
+        raise AssertionError(f"{path} logits {tuple(logits.shape)} are not "
+                             f"finite (B, S, padded vocab)")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        encode()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = device_busy(torch, encode)
+    row = dict(model=cfg.name, layers=cfg.num_layers,
+               shape=f"B{HUBERT_BATCH} x {HUBERT_SEQ}", wall_ms=times,
+               median_wall_ms=statistics.median(times),
+               frames_per_s=HUBERT_BATCH * HUBERT_SEQ
+               / statistics.median(times) * 1e3, launches=launches,
+               busy_ms=prof["device_busy_ms"],
+               busy_launches=prof["device_launches"],
+               busy_top_ops=prof["device_ops"][:5])
+    print(f"{path} {json.dumps(row)}", flush=True)
+    del params, kstate, feats, logits
+    return row, launches
+
+
+def hubert_gate_config(torch):
+    """hubert-xlarge's first HUBERT_GATE_LAYERS layers in fp32 (its widths
+    kept), dropout 0, and a batch of HUBERT_GATE_BATCH x HUBERT_GATE_SEQ
+    frames with masks."""
+    from repro_torch.configs import get_config, with_overrides
+    cfg = with_overrides(get_config(HUBERT_ARCH),
+                         num_layers=HUBERT_GATE_LAYERS, dtype="float32",
+                         dropout=0.0)
+    return cfg, encoder_batches(torch, cfg, HUBERT_GATE_BATCH,
+                                HUBERT_GATE_SEQ, 1)[0]
+
+
+def encoder_encode_gate(torch) -> dict:
+    """The fp32 encode (`hubert_gate_config`, no mask): the kernel path
+    against the plain path (impl="torch") on the same features and
+    weights, under the serving limits (top-1 over positions at least
+    MIN_TOP1_FP32, the median over positions of each position's largest
+    logit difference at most MAX_MEDIAN_DIFF_FP32). The kernels at the
+    padded width's scale (`padded_scale`) are reported beside it."""
+    from repro_torch.models.model import apply_model, init_model
+    cfg, batch = hubert_gate_config(torch)
+    params, kstate = init_model(cfg, seed=0, device=DEVICE)
+    inputs = {"features": batch["features"]}
+
+    def logits(impl=None):
+        with torch.no_grad():
+            return apply_model(params, kstate, inputs, cfg, impl=impl)[0]
+    kern, plain = logits(), logits("torch")
+    with padded_scale():
+        broken = logits()
+
+    def agree(a):
+        V = cfg.vocab_size
+        a, b = a[..., :V], plain[..., :V]
+        d = (a - b).abs().amax(-1).flatten()
+        return dict(max_diff=float(d.max()), median_diff=float(d.median()),
+                    top1=float((a.argmax(-1) == b.argmax(-1)).float()
+                               .mean()))
+    out = dict(kernel=agree(kern), padded_scale=agree(broken),
+               layers=cfg.num_layers,
+               shape=f"B{HUBERT_GATE_BATCH} x {HUBERT_GATE_SEQ}")
+    if (out["kernel"]["top1"] < MIN_TOP1_FP32
+            or out["kernel"]["median_diff"] > MAX_MEDIAN_DIFF_FP32):
+        raise AssertionError(f"fp32 kernel and plain hubert encodes "
+                             f"disagree: {out}")
+    return out
+
+
+def encoder_train_gate(torch) -> dict:
+    """hubert's fp32 train step (`hubert_gate_config`, masked prediction)
+    as qwen2's `full_train_gate`: the kernel path against the plain path
+    (the loss and the median leaf gradient difference), and on one forward
+    graph the backward kernels against the plain backward (the largest
+    leaf difference), under MAX_*_FULL; the kernel path against itself
+    reported. `first_query_head_only`, qwen2's control, is reported too:
+    under hubert's MHA every group is one query head, so it is the sound
+    backward. The refused control is the dh-80 fault, the kernels at the
+    padded width's scale (`padded_scale`): on the whole step it must read
+    over the median's limit, and as the backward alone on the one graph
+    over the largest leaf's."""
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.models.model import init_model
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    cfg, batch = hubert_gate_config(torch)
+    run = full_run_config(cfg, HUBERT_GATE_BATCH, HUBERT_GATE_SEQ)
+    params32, kstate = init_model(cfg, seed=0, device=DEVICE)
+
+    def step(impl=None, ctx=contextlib.nullcontext()):
+        with ctx:
+            vg = value_and_grad(make_loss_fn(run, impl=impl), cfg)
+            (loss, _), grads = vg(params32, kstate, batch, None)
+            torch.cuda.synchronize()
+        return float(loss), grads
+
+    lk, gk = step()
+    lp, gp = step("torch")
+    _, gr = step()
+    ls, gs = step(ctx=padded_scale())
+    g_kernels, g_plain_bwd, g_first, g_scale_bwd = one_graph_grads(
+        torch, run, params32, kstate, batch, [
+            contextlib.nullcontext(),
+            swapped(KF, "flash_attention_bwd", KF.flash_attention_bwd_plain),
+            swapped(KF, "flash_attention_bwd", first_query_head_only),
+            padded_scale()])
+    out = dict(loss_kernel=lk, loss_plain=lp, loss_diff=abs(lk - lp),
+               **grad_agreement(gk, gp),
+               backward=grad_agreement(g_kernels, g_plain_bwd),
+               repeat=grad_agreement(gr, gk),
+               first_head_only=grad_agreement(g_first, g_plain_bwd),
+               padded_scale_loss=ls,
+               padded_scale=grad_agreement(gs, gp),
+               padded_scale_backward=grad_agreement(g_scale_bwd,
+                                                    g_plain_bwd),
+               masked=float(batch["mask_spans"].float().mean()),
+               layers=cfg.num_layers,
+               shape=f"B{HUBERT_GATE_BATCH} x {HUBERT_GATE_SEQ}")
+    if (out["loss_diff"] > MAX_LOSS_DIFF_FULL
+            or out["grad_rel_median"] > MAX_GRAD_MEDIAN_FULL
+            or out["backward"]["grad_rel_max"] > MAX_BWD_GRAD_FULL):
+        raise AssertionError(f"fp32 kernel and plain hubert train steps "
+                             f"disagree: {out}")
+    if (out["padded_scale"]["grad_rel_median"] <= MAX_GRAD_MEDIAN_FULL
+            or out["padded_scale_backward"]["grad_rel_max"]
+            <= MAX_BWD_GRAD_FULL):
+        raise AssertionError(f"the hubert fp32 gates pass the kernels at "
+                             f"the padded width's scale: {out}")
+    return out
+
+
+def train_encoder(torch, path, counts) -> tuple:
+    """FAMILY_STEPS bf16 masked-prediction steps of hubert-xlarge at full
+    width and depth (random weights from seed 0, the TrainConfig defaults:
+    Adam, remat "full", at HUBERT_TRAIN's rate; the state at the end of
+    warm-up, as `train` starts) on `encoder_batches` through
+    `make_train_step`: the
+    exact launches of ``path`` (per step two flash forwards per layer, one
+    dq and one dk/dv), the loss finite and falling, the peak memory, then
+    one more step under the profiler for its busy time (`device_busy`).
+    Returns (row, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, TrainConfig
+    from repro_torch.kernels import common
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.train_step import TrainState, make_train_step
+    run = RunConfig(model=get_config(HUBERT_ARCH), train=TrainConfig(
+        global_batch=HUBERT_BATCH, seq_len=HUBERT_SEQ, **HUBERT_TRAIN))
+    cfg, tc = run.model, run.train
+    batches = encoder_batches(torch, cfg, tc.global_batch, tc.seq_len,
+                              FAMILY_STEPS + 1)
+    torch.cuda.reset_peak_memory_stats()
+    ts = TrainState(*init_model(cfg, seed=0, device=DEVICE), None,
+                    tc.warmup_steps)
+    ts = ts._replace(opt_state=make_optimizer(tc)[0](ts.params))
+    step_fn = make_train_step(run)
+    torch.cuda.synchronize()
+    common.reset_counters()
+    losses, times = [], []
+    for batch in batches[:FAMILY_STEPS]:
+        t0 = time.perf_counter()
+        ts, metrics = step_fn(ts, batch)
+        losses.append(float(metrics["loss"]))     # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: counts().get(n, 0) for n in KERNELS}
+    check_launches(path, launches,
+                   expected_launches(path, run, FAMILY_STEPS))
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{path} loss not finite and falling: "
+                             f"{losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_busy(torch, lambda: float(step_fn(ts, batches[-1])[1][
+        "loss"]))
+    step_ms = statistics.median(times[1:])
+    row = dict(model=cfg.name, layers=cfg.num_layers,
+               optimizer=tc.optimizer, remat=tc.remat,
+               shape=f"B{tc.global_batch} x {tc.seq_len}", losses=losses,
+               masked=float(batches[0]["mask_spans"].float().mean()),
+               step_ms=times, median_step_ms=step_ms,
+               frames_per_s=tc.global_batch * tc.seq_len / step_ms * 1e3,
+               peak_mem_gib=peak, launches=launches,
+               grad_norm=float(metrics["grad_norm"]), lr=metrics["lr"],
+               busy_ms=prof["device_busy_ms"],
+               busy_launches=prof["device_launches"],
+               busy_top_ops=prof["device_ops"][:5])
+    print(f"{path} {json.dumps(row)}", flush=True)
+    del ts, batches
+    return row, launches
+
+
+def encoder_phase(torch, card, counts) -> tuple:
+    """Slice 23: the flash kernels at hubert-xlarge's attention shape
+    (B 2, H 16 = Hkv, N 4096, dh 80 zero-padded to 128, non-causal) in
+    bf16 and fp32 (`check_flash_encoder`) and in bf16 at FLASH80_EDGES;
+    then hubert-xlarge at full width and depth encodes (`encode_hubert`)
+    and trains (`train_encoder`), its fp32 gates (`encoder_encode_gate`,
+    `encoder_train_gate`) before. Returns (row, kernel rows at dh 80 in
+    bf16, launches per path)."""
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    kern = {str(dt)[6:]: check_flash_encoder(
+        torch, HUBERT_BATCH, 16, 16, HUBERT_SEQ, 80, dt, gen)
+        for dt in (torch.bfloat16, torch.float32)}
+    for rows in kern.values():
+        print_rows(rows)
+    edges = check_flash80_edges(torch, gen)
+    print(f"dh-80 flash edges {json.dumps(edges)}", flush=True)
+    torch.cuda.empty_cache()
+    t = phase("encoder: dh-80 kernels", t)
+    launches, row = {}, dict(kernels=kern, edges=edges)
+    row["encode_gate"] = encoder_encode_gate(torch)
+    print(f"encode_hubert fp32 gate {json.dumps(row['encode_gate'])}",
+          flush=True)
+    row["train_gate"] = encoder_train_gate(torch)
+    print(f"train_hubert fp32 gate {json.dumps(row['train_gate'])}",
+          flush=True)
+    torch.cuda.empty_cache()
+    t = phase("encoder: fp32 gates", t)
+    row["encode_hubert"], launches["encode_hubert"] = encode_hubert(
+        torch, "encode_hubert", counts)
+    torch.cuda.empty_cache()
+    t = phase("encoder: encode_hubert", t)
+    row["train_hubert"], launches["train_hubert"] = train_encoder(
+        torch, "train_hubert", counts)
+    torch.cuda.empty_cache()
+    phase("encoder: train_hubert", t)
+    return row, kern["bfloat16"], launches
+
+
 def print_rows(rows):
     for name, row in rows.items():
         print(f"kernel {name} [{row['shape']}]: " + ", ".join(
@@ -6723,6 +7218,15 @@ def main(argv=None) -> int:
     launches.update(fam_launches)
     t = phase("families", t)
 
+    # since slice 23: the encoder family, hubert-xlarge at full width and
+    # depth (encode and train) on the flash kernels at dh 80, and the
+    # kernels at its attention shape and at dh-80 ragged shapes
+    torch.cuda.empty_cache()
+    enc_row, kern80, enc_launches = encoder_phase(torch, card,
+                                                  common.counters)
+    launches.update(enc_launches)
+    t = phase("encoder", t)
+
     for name, meta in KERNELS.items():
         for path in meta["paths"]:
             if launches[path].get(name, 0) == 0:
@@ -6746,6 +7250,20 @@ def main(argv=None) -> int:
         paths = [p for p in meta["paths"] if p.endswith("_rg")]
         kernels.append(dict(
             name=f"{name} dh256", route=meta["route"], source=meta["source"],
+            replaces=meta["replaces"],
+            launches=sum(launches[p][name] for p in paths),
+            launches_by_path={p: launches[p][name] for p in paths},
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            graph_ms=row["graph_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], shape=row["shape"]))
+    # the flash kernels at dh 80 (slice 23), launched by hubert-xlarge's
+    # paths
+    for name, row in kern80.items():
+        meta = KERNELS[name]
+        paths = [p for p in meta["paths"] if p.endswith("_hubert")]
+        kernels.append(dict(
+            name=f"{name} dh80", route=meta["route"], source=meta["source"],
             replaces=meta["replaces"],
             launches=sum(launches[p][name] for p in paths),
             launches_by_path={p: launches[p][name] for p in paths},
@@ -6782,7 +7300,8 @@ def main(argv=None) -> int:
             decode_digest=dec_digest, serve_paper=serve_rows,
             serve_engine=engine_row, serve_disagg=disagg_row, obs=obs_row,
             ckpt_dist=ckpt_row, tp=tp_row, remat=remat_row,
-            tp_engine=tpe_row, families=fam_row, launches=launches,
+            tp_engine=tpe_row, families=fam_row, encoder=enc_row,
+            launches=launches,
             profile=prof),
             indent=1))
     print(card)

@@ -434,11 +434,14 @@ registry.register(Backend(
 
 # supports_positions=False: the flash kernels mask causality by row index,
 # so a call with positions (a prefill) goes to full/torch; no decode (as the
-# JAX package's full/pallas), so a decode step goes there too
+# JAX package's full/pallas), so a decode step goes there too; head dims up
+# to the kernels' widest instance (a narrower one runs zero-padded), so a
+# wider one raises at resolution on the card
 registry.register(Backend(
     variant="full", impl="cuda", apply=_full_cuda_apply, priority=10,
     caps=Capabilities(supports_pad_mask=False, supports_positions=False,
-                      supports_grad=True, needs_cuda=True)))
+                      supports_grad=True, needs_cuda=True,
+                      max_head_dim=flash_kernel.WIDTHS[-1])))
 
 _CAPS = dict(supports_pad_mask=True, supports_positions=True,
              supports_grad=True)

@@ -1,6 +1,7 @@
 """Config registry of the port: the dense family (the paper's Routing
-Transformer models and four full-attention models), the ssm family
-(mamba2-780m) and the hybrid family (recurrentgemma-9b).
+Transformer models and four full-attention models), the encoder family
+(hubert-xlarge), the ssm family (mamba2-780m) and the hybrid family
+(recurrentgemma-9b).
 
 `get_config(arch)` returns the full published config; `reduced_config(arch)`
 returns the same-family miniature the CPU parity tests run. Both are copies
@@ -13,8 +14,8 @@ from __future__ import annotations
 
 import math
 
-from repro_torch.configs import (granite_8b, mamba2_780m, paper,
-                                 phi4_mini_3_8b, qwen2_0_5b,
+from repro_torch.configs import (granite_8b, hubert_xlarge, mamba2_780m,
+                                 paper, phi4_mini_3_8b, qwen2_0_5b,
                                  recurrentgemma_9b, starcoder2_3b)
 from repro_torch.configs.base import (ModelConfig, RoutingConfig,  # noqa: F401
                                       with_overrides)
@@ -26,6 +27,7 @@ ARCHS = {
     "starcoder2-3b": starcoder2_3b.config,
     "phi4-mini-3.8b": phi4_mini_3_8b.config,
     "recurrentgemma-9b": recurrentgemma_9b.config,
+    "hubert-xlarge": hubert_xlarge.config,
     # the paper's own models
     "rt-wikitext103": paper.wikitext103,
     "rt-enwik8": paper.enwik8,

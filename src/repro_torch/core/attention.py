@@ -54,22 +54,26 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True,
                    pad_mask: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
-                   chunk: int = 0, return_lse: bool = False):
+                   chunk: int = 0, return_lse: bool = False,
+                   scale: Optional[float] = None):
     """q: (B,H,N,dh); k,v: (B,Hkv,M,dh) -> (B,H,N,dh).
 
     pad_mask: (B, M) bool over keys. positions: (B, N) query positions for
     the causal mask (default arange(N), the row index). With
     ``return_lse`` (one-shot only) also the per-row log-sum-exp (B,H,N)
-    in at least fp32, as the flash kernel emits it.
+    in at least fp32, as the flash kernel emits it. ``scale`` (default
+    1 / sqrt(dh)): the flash wrapper passes that of the true head dim when
+    it runs zero-padded heads.
     """
     if chunk:
         return _chunked_attention(q, k, v, causal, pad_mask, positions,
-                                  chunk)
+                                  chunk, scale)
     B, H, N, dh = q.shape
     Hkv, M = k.shape[1], k.shape[2]
     qg = _split_gqa(q, Hkv)
     logits = upcast(torch.einsum("bhgnd,bhmd->bhgnm", qg, k))
-    logits = logits / float(dh) ** 0.5
+    logits = (logits / float(dh) ** 0.5 if scale is None
+              else logits * scale)
     keep = _keep(B, N, 0, M, causal, positions, pad_mask, q.device)
     if keep is not None:
         logits = logits.masked_fill(~keep, _BIG_NEG)
@@ -102,10 +106,13 @@ def _chunk_step(m, l, acc, qg, kb, vb, keep, scale):
     return m_new, l_new, acc_new
 
 
-def _chunked_attention(q, k, v, causal, pad_mask, positions, chunk):
+def _chunked_attention(q, k, v, causal, pad_mask, positions, chunk,
+                       scale=None):
     """Online-softmax loop over KV chunks (the flash recurrence in plain
     PyTorch)."""
     B, H, N, dh = q.shape
+    if scale is None:
+        scale = 1.0 / float(dh) ** 0.5
     Hkv, M = k.shape[1], k.shape[2]
     qg = _split_gqa(q, Hkv)
     acc_dt = upcast(q).dtype
@@ -121,8 +128,8 @@ def _chunked_attention(q, k, v, causal, pad_mask, positions, chunk):
         # chunk's scores and probabilities are recomputed there
         m, l, acc = checkpoint(_chunk_step, m, l, acc, qg,
                                k[:, :, k0:k0 + nk], v[:, :, k0:k0 + nk],
-                               keep, 1.0 / float(dh) ** 0.5,
-                               use_reentrant=False, preserve_rng_state=False)
+                               keep, scale, use_reentrant=False,
+                               preserve_rng_state=False)
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, H, N, dh).to(q.dtype)
 
@@ -130,13 +137,15 @@ def _chunked_attention(q, k, v, causal, pad_mask, positions, chunk):
 # ---------------------------------------------------------------------------
 # Backward (the plain version of the two flash backward kernels)
 # ---------------------------------------------------------------------------
-def _bwd_probs(q, k, v, do, lse, dsum, causal):
+def _bwd_probs(q, k, v, do, lse, dsum, causal, scale):
     """The recurrence both backward kernels run: p = keep ? exp(s - lse)
     : 0 (masked explicitly) and ds = p * (do.v^T - D) * scale, with
-    D = rowsum(do * out); causal on row indices."""
+    D = rowsum(do * out); causal on row indices; scale 1 / sqrt(dh) by
+    default."""
     B, H, N, dh = q.shape
     Hkv, M = k.shape[1], k.shape[2]
-    scale = 1.0 / float(dh) ** 0.5
+    if scale is None:
+        scale = 1.0 / float(dh) ** 0.5
     qg, dog = _split_gqa(upcast(q), Hkv), _split_gqa(upcast(do), Hkv)
     s = torch.einsum("bhgnd,bhmd->bhgnm", qg, upcast(k)) * scale
     p = torch.exp(s - _split_gqa(lse[..., None], Hkv))
@@ -148,20 +157,22 @@ def _bwd_probs(q, k, v, do, lse, dsum, causal):
     return qg, dog, p, ds
 
 
-def full_attention_bwd_dq(q, k, v, do, lse, dsum, causal: bool = True):
+def full_attention_bwd_dq(q, k, v, do, lse, dsum, causal: bool = True,
+                          scale: Optional[float] = None):
     """dq (B,H,N,dh) in at least fp32 from the saved lse and D (B,H,N)."""
     B, H, N, dh = q.shape
-    _, _, _, ds = _bwd_probs(q, k, v, do, lse, dsum, causal)
+    _, _, _, ds = _bwd_probs(q, k, v, do, lse, dsum, causal, scale)
     return torch.einsum("bhgnm,bhmd->bhgnd", ds,
                         upcast(k)).reshape(B, H, N, dh)
 
 
-def full_attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = True):
+def full_attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = True,
+                           scale: Optional[float] = None):
     """(dk, dv) per *query* head (B,H,M,dh) in at least fp32; the caller
     sums them over each kv head's query group (GQA)."""
     B, H, _, dh = q.shape
     M = k.shape[2]
-    qg, dog, p, ds = _bwd_probs(q, k, v, do, lse, dsum, causal)
+    qg, dog, p, ds = _bwd_probs(q, k, v, do, lse, dsum, causal, scale)
     dk = torch.einsum("bhgnm,bhgnd->bhgmd", ds, qg)
     dv = torch.einsum("bhgnm,bhgnd->bhgmd", p, dog)
     return dk.reshape(B, H, M, dh), dv.reshape(B, H, M, dh)

@@ -5,7 +5,9 @@
 // row i attends key row j of the same batch and kv head for every j
 // (non-causal) or for j <= i (causal, on row indices also when M != N: the
 // TPU kernel's `_causal_iota`, hence the backend's
-// supports_positions=False). Scale 1/sqrt(dh). Emits the output in q's
+// supports_positions=False). The scale comes from the caller: 1/sqrt of
+// the true head dim, which the wrapper pads to dh 64 or 128 with zero
+// columns (hubert-xlarge's 80 runs at 128). Emits the output in q's
 // type and the per-row log-sum-exp m + log(max(l, 1e-30)) in fp32. Any N,
 // M >= 1; the ragged last tiles are masked. GQA goes through the kv-head
 // index, no repeated k/v.
@@ -93,7 +95,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 template <int DH>
 int launch_fp32(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int Hkv, int N, int M, int causal,
-                cudaStream_t stream) {
+                float scale, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<DH>;
   const size_t smem = sizeof(FlashSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -102,7 +104,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hkv, N,
-      M, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      M, causal, scale);
   return cudaGetLastError();
 }
 
@@ -155,7 +157,7 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1) flash_fwd_wgmma(
 template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int Hkv, int N, int M, int causal,
-                cudaStream_t stream) {
+                float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = sm90::map_rows(&tq, q, B * H, N, DH, FWD_ROWS);
   if (err == cudaSuccess)
@@ -170,27 +172,34 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   dim3 grid((N + FWD_ROWS - 1) / FWD_ROWS, B * H);
   kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Hkv, N, M, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,H,N,dh), k/v (B,Hkv,M,dh); o like q, lse (B,H,N) fp32.
-// dtype: 0 fp32, 1 bf16. Returns a cudaError_t code.
+// dtype: 0 fp32, 1 bf16. scale: the softmax scale, 1 / sqrt of the true
+// head dim (the wrapper runs a narrower head dim zero-padded to dh).
+// Returns a cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse, int B,
                                    int H, int Hkv, int N, int M, int dh,
-                                   int causal, int dtype, void* stream) {
+                                   int causal, int dtype, float scale,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && dh == 128)
-    return launch_bf16<128>(q, k, v, o, lse, B, H, Hkv, N, M, causal, s);
+    return launch_bf16<128>(q, k, v, o, lse, B, H, Hkv, N, M, causal, scale,
+                            s);
   if (dtype == 1 && dh == 64)
-    return launch_bf16<64>(q, k, v, o, lse, B, H, Hkv, N, M, causal, s);
+    return launch_bf16<64>(q, k, v, o, lse, B, H, Hkv, N, M, causal, scale,
+                           s);
   if (dtype == 0 && dh == 128)
-    return launch_fp32<128>(q, k, v, o, lse, B, H, Hkv, N, M, causal, s);
+    return launch_fp32<128>(q, k, v, o, lse, B, H, Hkv, N, M, causal, scale,
+                            s);
   if (dtype == 0 && dh == 64)
-    return launch_fp32<64>(q, k, v, o, lse, B, H, Hkv, N, M, causal, s);
+    return launch_fp32<64>(q, k, v, o, lse, B, H, Hkv, N, M, causal, scale,
+                           s);
   return cudaErrorInvalidValue;
 }
 

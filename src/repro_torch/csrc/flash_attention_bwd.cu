@@ -11,7 +11,10 @@
 // key row j <= query row i when causal, on row indices also when M != N.
 // Causal tiles wholly above the diagonal are skipped, not masked. dk and
 // dv come out per *query* head, fp32; the wrapper sums each kv head's
-// query group (GQA), as the JAX package does in XLA. dq is fp32.
+// query group (GQA), as the JAX package does in XLA. dq is fp32. The
+// scale comes from the caller, 1/sqrt of the true head dim (the wrapper
+// pads a narrower head dim to dh 64 or 128 with zero columns, whose dq, dk
+// and dv come out zero and are cut off).
 //
 // What bounds it on this card: the dq kernel needs 6*dh flops per
 // attended pair and the dk/dv kernel 8*dh; at qwen2's train shape
@@ -164,7 +167,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 template <int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO,
               const float* lse, const float* dsum, float* dq, int B, int H,
-              int Hkv, int N, int M, int causal, cudaStream_t stream) {
+              int Hkv, int N, int M, int causal, float scale,
+              cudaStream_t stream) {
   auto kernel = flash_bwd_dq_kernel<DH>;
   const size_t smem = sizeof(DqSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -173,7 +177,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dO), lse, dsum,
-      dq, H, Hkv, N, M, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      dq, H, Hkv, N, M, causal, scale);
   return cudaGetLastError();
 }
 
@@ -181,7 +185,7 @@ template <int DH>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
                const float* lse, const float* dsum, float* dk, float* dv,
                int B, int H, int Hkv, int N, int M, int causal,
-               cudaStream_t stream) {
+               float scale, cudaStream_t stream) {
   auto kernel = flash_bwd_dkv_kernel<DH>;
   const size_t smem = sizeof(DkvSmem<DH>);
   cudaError_t err = allow_smem(kernel, smem);
@@ -190,7 +194,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dO), lse, dsum,
-      dk, dv, H, Hkv, N, M, causal, 1.0f / sqrtf(static_cast<float>(DH)));
+      dk, dv, H, Hkv, N, M, causal, scale);
   return cudaGetLastError();
 }
 
@@ -303,7 +307,7 @@ template <int DH>
 int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* dO, const float* lse, const float* dsum,
                    float* dq, int B, int H, int Hkv, int N, int M,
-                   int causal, cudaStream_t stream) {
+                   int causal, float scale, cudaStream_t stream) {
   CUtensorMap m[4];
   int err = map_bwd<DH>(m, q, k, v, dO, B, H, Hkv, N, M, HB, HBN);
   if (err != cudaSuccess) return err;
@@ -314,7 +318,7 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   dim3 grid((N + HB - 1) / HB, B * H);
   kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dsum, dq, H, Hkv, N, M, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      scale);
   return cudaGetLastError();
 }
 
@@ -322,7 +326,7 @@ template <int DH>
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* dO, const float* lse, const float* dsum,
                     float* dk, float* dv, int B, int H, int Hkv, int N,
-                    int M, int causal, cudaStream_t stream) {
+                    int M, int causal, float scale, cudaStream_t stream) {
   CUtensorMap m[4];
   int err = map_bwd<DH>(m, q, k, v, dO, B, H, Hkv, N, M,
                         sm90::DkvSmemH<DH>::BQ, HB);
@@ -334,33 +338,35 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   dim3 grid((M + HB - 1) / HB, B * H);
   kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dsum, dk, dv, H, Hkv, N, M, causal,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q/do (B,H,N,dh), k/v (B,Hkv,M,dh), lse/dsum (B,H,N) fp32; dq (B,H,N,dh)
-// fp32. dtype: 0 fp32, 1 bf16. Returns a cudaError_t code.
+// fp32. dtype: 0 fp32, 1 bf16. scale: the softmax scale, 1 / sqrt of the
+// true head dim (the wrapper runs a narrower head dim zero-padded to dh).
+// Returns a cudaError_t code.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dO,
                                       const float* lse, const float* dsum,
                                       float* dq, int B, int H, int Hkv, int N,
                                       int M, int dh, int causal, int dtype,
-                                      void* stream) {
+                                      float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && dh == 128)
     return launch_dq_bf16<128>(q, k, v, dO, lse, dsum, dq, B, H, Hkv, N, M,
-                               causal, s);
+                               causal, scale, s);
   if (dtype == 1 && dh == 64)
     return launch_dq_bf16<64>(q, k, v, dO, lse, dsum, dq, B, H, Hkv, N, M,
-                              causal, s);
+                              causal, scale, s);
   if (dtype == 0 && dh == 128)
     return launch_dq<128>(q, k, v, dO, lse, dsum, dq, B, H, Hkv, N, M, causal,
-                          s);
+                          scale, s);
   if (dtype == 0 && dh == 64)
     return launch_dq<64>(q, k, v, dO, lse, dsum, dq, B, H, Hkv, N, M, causal,
-                         s);
+                         scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -370,20 +376,21 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const float* lse, const float* dsum,
                                        float* dk, float* dv, int B, int H,
                                        int Hkv, int N, int M, int dh,
-                                       int causal, int dtype, void* stream) {
+                                       int causal, int dtype, float scale,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && dh == 128)
     return launch_dkv_bf16<128>(q, k, v, dO, lse, dsum, dk, dv, B, H, Hkv, N,
-                                M, causal, s);
+                                M, causal, scale, s);
   if (dtype == 1 && dh == 64)
     return launch_dkv_bf16<64>(q, k, v, dO, lse, dsum, dk, dv, B, H, Hkv, N,
-                               M, causal, s);
+                               M, causal, scale, s);
   if (dtype == 0 && dh == 128)
     return launch_dkv<128>(q, k, v, dO, lse, dsum, dk, dv, B, H, Hkv, N, M,
-                           causal, s);
+                           causal, scale, s);
   if (dtype == 0 && dh == 64)
     return launch_dkv<64>(q, k, v, dO, lse, dsum, dk, dv, B, H, Hkv, N, M,
-                          causal, s);
+                          causal, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -384,7 +384,8 @@ def head_groups(cfg, tp: int) -> Dict[Tuple[int, int], Tuple[list, list]]:
     rank 1's, ... Other variants cut their heads contiguously (absent).
     Raises `ValueError` where a head count does not divide by ``tp``, and
     `NotImplementedError` for the ssm and hybrid families, whose recurrent
-    mixers have no model-axis cut yet (ROADMAP item 12b)."""
+    mixers have no model-axis cut yet, and for the encoder family, which
+    no test holds on a model axis yet (ROADMAP item 12b)."""
     from repro_torch.attn.spec import head_shard, head_split, spec_for_layer
     from repro_torch.models.transformer import build_segments
     out = {}
@@ -395,6 +396,11 @@ def head_groups(cfg, tp: int) -> Dict[Tuple[int, int], Tuple[list, list]]:
             f"a model axis of {tp} on the {cfg.family} family: its "
             f"recurrent mixers have no tensor-parallel cut yet (ROADMAP "
             f"item 12b)")
+    if cfg.family == "encoder":
+        raise NotImplementedError(
+            f"a model axis of {tp} on the encoder family: no test holds "
+            f"its features, mask_emb and masked loss on a model axis yet "
+            f"(ROADMAP item 12b)")
     for si, (pattern, _) in enumerate(build_segments(cfg)):
         for i, ls in enumerate(pattern):
             spec = spec_for_layer(cfg, ls.attn)

@@ -30,10 +30,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the widths of the flash and gathered kernels: the flash wrappers run a
+# head dim up to 128 zero-padded to one of them (`pad_heads`); the
+# gathered kernels take these two only
 SUPPORTED_HEAD_DIMS = (64, 128)
 # the widths of the fused routing and paged decode kernels: a head dim up
-# to one of them runs zero-padded to it (`pad_heads`); the flash and
-# gathered kernels take SUPPORTED_HEAD_DIMS only
+# to one of them runs zero-padded to it (`pad_heads`)
 PADDED_HEAD_DIMS = (64, 128, 192)
 # the local-window kernels' widths: those and 256 (recurrentgemma-9b's head
 # dim), which the fused routing and decode kernels do not take
@@ -184,9 +186,9 @@ def head_dim_ok(what: str, dh: int) -> None:
 def padded_head_dim(what: str, dh: int,
                     widths: Tuple[int, ...] = PADDED_HEAD_DIMS) -> int:
     """The kernel width a head dim ``dh`` runs at: the first of ``widths``
-    (the kernel family's instances: PADDED_HEAD_DIMS for the fused routing
-    and decode kernels, LOCAL_HEAD_DIMS for the local-window ones) that
-    holds it."""
+    (the kernel family's instances: SUPPORTED_HEAD_DIMS for the flash
+    kernels, PADDED_HEAD_DIMS for the fused routing and decode kernels,
+    LOCAL_HEAD_DIMS for the local-window ones) that holds it."""
     for width in widths:
         if dh <= width:
             return width

@@ -11,6 +11,15 @@ M != N), as the TPU kernel does. Any N, M >= 1. Every wrapper sends a CPU
 tensor to its plain PyTorch version (``core/attention.py``) and launches
 its kernel on a CUDA tensor, or raises.
 
+The kernels have dh-64 and dh-128 instances (`WIDTHS`). Any other head
+dim up to 128 (hubert-xlarge's 80) runs zero-padded to the next of them
+(`common.pad_heads`, on both devices, so the CPU tests go through the
+padding) with the scale of its true head dim (`common.head_scale`, passed
+to the kernels), and out, dq, dk and dv are cut back to it; zero columns
+change no score, and the gradients' pad columns come out zero. On the
+card a head dim over 128 raises; on the CPU it runs the plain version
+unpadded.
+
 All three kernels do 4 to 8 * dh flops per attended pair on inputs read
 once, far above the card's bf16 ridge, so the tensor cores bound them. The
 dtype alone picks each kernel's design. In bf16 all three run ``wgmma`` on
@@ -24,11 +33,13 @@ keep the FMA tiles (`FlashTile`, `DqTile`, `DkvTile`) shared with the
 local-window and routing kernels, whose products stay full fp32, as
 PyTorch's fp32 matmul does (no TF32). TMA needs 16-byte aligned bases and
 row strides: the wrappers take contiguous, 16-byte aligned tensors
-(checked), and dh 64 or 128 gives rows of 128 or 256 bytes in bf16.
+(checked before the padding, whose copies are fresh allocations), and
+the widths 64 and 128 give rows of 128 or 256 bytes in bf16.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -37,27 +48,41 @@ from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
 from repro_torch.obs.trace import span
 
+# the kernels' head-dim instances (`common.SUPPORTED_HEAD_DIMS`)
+WIDTHS = C.SUPPORTED_HEAD_DIMS
 LAUNCHES = C.counter("flash_attention")
 LAUNCHES_BWD_DQ = C.counter("flash_attention_bwd_dq")
 LAUNCHES_BWD_DKV = C.counter("flash_attention_bwd_dkv")
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# pointers, then the ints (.., dtype), then the scale and the stream
+_TAIL = [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + _TAIL
+_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + _TAIL
+_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + _TAIL
 
 
-def flash_attention_plain(q, k, v, causal: bool = True):
+def flash_attention_plain(q, k, v, causal: bool = True,
+                          scale: Optional[float] = None):
     """The plain PyTorch version of the forward kernel: (out in q's dtype,
     lse in at least fp32). It computes in at least fp32 and rounds only
-    the output, as the TPU kernel does (it upcasts q, k and v)."""
+    the output, as the TPU kernel does (it upcasts q, k and v). ``scale``
+    defaults to 1 / sqrt(dh)."""
     out, lse = ref.full_attention(upcast(q), upcast(k), upcast(v), causal,
-                                  return_lse=True)
+                                  return_lse=True, scale=scale)
     return out.to(q.dtype), lse
 
 
 # the plain PyTorch versions of the two backward kernels
 flash_attention_bwd_dq_plain = ref.full_attention_bwd_dq
 flash_attention_bwd_dkv_plain = ref.full_attention_bwd_dkv
+
+
+def _padded(what, dh, *tensors):
+    """``tensors`` zero-padded to the kernel width of ``dh`` (`WIDTHS`);
+    a CPU call wider than the widest runs unpadded."""
+    if tensors[0].device.type == "cpu" and dh > WIDTHS[-1]:
+        return tensors
+    return C.pad_heads(what, dh, *tensors, widths=WIDTHS)
 
 
 def _check(what, q, k, v, **more):
@@ -82,17 +107,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True):
     what = "flash_attention"
     _check(what, q, k, v)
+    dh = q.shape[-1]
+    scale = C.head_scale(dh)
+    q, k, v = _padded(what, dh, q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    B, H, Hkv, N, M, dh, code = _dims(what, q, k)
+        out, lse = flash_attention_plain(q, k, v, causal, scale)
+        return C.unpad_heads(dh, out)[0], lse
+    B, H, Hkv, N, M, width, code = _dims(what, q, k)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     fn = C.load("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(C.ptr(q), C.ptr(k), C.ptr(v), C.ptr(out), C.ptr(lse), B, H,
-             Hkv, N, M, dh, int(causal), code, C.stream())
+             Hkv, N, M, width, int(causal), code, scale, C.stream())
     C.check(err, what)
     LAUNCHES.bump()
-    return out, lse
+    return C.unpad_heads(dh, out)[0], lse
 
 
 # ---------------------------------------------------------------------------
@@ -114,18 +143,22 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dsum, causal: bool = True):
     (both (B,H,N) fp32)."""
     what = "flash_attention_bwd_dq"
     _check_bwd(what, q, k, v, do, lse, dsum)
+    dh = q.shape[-1]
+    scale = C.head_scale(dh)
+    q, k, v, do = _padded(what, dh, q, k, v, do)
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_plain(q, k, v, do, lse, dsum, causal)
-    B, H, Hkv, N, M, dh, code = _dims(what, q, k)
-    dq = torch.empty((B, H, N, dh), dtype=torch.float32, device=q.device)
+        return C.unpad_heads(dh, flash_attention_bwd_dq_plain(
+            q, k, v, do, lse, dsum, causal, scale))[0]
+    B, H, Hkv, N, M, width, code = _dims(what, q, k)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = C.load("flash_attention_bwd", "flash_attention_bwd_dq",
                 _DQ_ARGTYPES)
     err = fn(C.ptr(q), C.ptr(k), C.ptr(v), C.ptr(do), C.ptr(lse),
-             C.ptr(dsum), C.ptr(dq), B, H, Hkv, N, M, dh, int(causal), code,
-             C.stream())
+             C.ptr(dsum), C.ptr(dq), B, H, Hkv, N, M, width, int(causal),
+             code, scale, C.stream())
     C.check(err, what)
     LAUNCHES_BWD_DQ.bump()
-    return dq
+    return C.unpad_heads(dh, dq)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = True):
@@ -133,19 +166,23 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = True):
     sums them over each kv head's query group."""
     what = "flash_attention_bwd_dkv"
     _check_bwd(what, q, k, v, do, lse, dsum)
+    dh = q.shape[-1]
+    scale = C.head_scale(dh)
+    q, k, v, do = _padded(what, dh, q, k, v, do)
     if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, dsum, causal)
-    B, H, Hkv, N, M, dh, code = _dims(what, q, k)
-    dk = torch.empty((B, H, M, dh), dtype=torch.float32, device=q.device)
+        return C.unpad_heads(dh, *flash_attention_bwd_dkv_plain(
+            q, k, v, do, lse, dsum, causal, scale))
+    B, H, Hkv, N, M, width, code = _dims(what, q, k)
+    dk = torch.empty((B, H, M, width), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     fn = C.load("flash_attention_bwd", "flash_attention_bwd_dkv",
                 _DKV_ARGTYPES)
     err = fn(C.ptr(q), C.ptr(k), C.ptr(v), C.ptr(do), C.ptr(lse),
-             C.ptr(dsum), C.ptr(dk), C.ptr(dv), B, H, Hkv, N, M, dh,
-             int(causal), code, C.stream())
+             C.ptr(dsum), C.ptr(dk), C.ptr(dv), B, H, Hkv, N, M, width,
+             int(causal), code, scale, C.stream())
     C.check(err, what)
     LAUNCHES_BWD_DKV.bump()
-    return dk, dv
+    return C.unpad_heads(dh, dk, dv)
 
 
 @span("kernels/flash_attention_bwd")

@@ -7,17 +7,23 @@ shapes and tree layout (``params["embed"]``, ``params["final_norm"]``,
 centroids per segment. It draws from a ``torch.Generator``, so its numbers
 differ from the JAX package's ``init_model``; tests carry JAX weights
 across with `repro_torch.interop` instead. `apply_model` returns (logits,
-new_kstate): the families ported (dense, ssm, hybrid) have no auxiliary
-losses, so the JAX package's third output (MoE aux terms, all zero here)
-is left out; with ``return_stats=True`` the third element is the
-routing-health stats the JAX package carries in that aux dict. The ssm
-family (mamba2-780m: tied embeddings, no positions) and the hybrid family
-(recurrentgemma-9b: untied embeddings, rope on its local-attention layers,
-gelu) run through the same functions; their layers are
-`models.transformer`'s.
+new_kstate): the families ported (dense, encoder, ssm, hybrid) have no
+auxiliary losses, so the JAX package's third output (MoE aux terms, all
+zero here) is left out; with ``return_stats=True`` the third element is
+the routing-health stats the JAX package carries in that aux dict. The
+ssm family (mamba2-780m: tied embeddings, no positions) and the hybrid
+family (recurrentgemma-9b: untied embeddings, rope on its local-attention
+layers, gelu) run through the same functions; their layers are
+`models.transformer`'s. The encoder family (hubert-xlarge: masked
+prediction over codebook targets) reads frame embeddings (``features``)
+instead of tokens and puts a learned ``params["mask_emb"]`` at the masked
+frames (``mask_spans``); its loss (`lm_loss` with ``loss_mask``) counts
+the masked frames only, with no next-token shift (`train.train_step`).
 
-Batch dict keys: ``tokens`` (B,S) int, optional ``positions`` (B,S) int
-and ``pad_mask`` (B,S) bool.
+Batch dict keys: ``tokens`` (B,S) int (the encoder's codebook targets),
+optional ``positions`` (B,S) int and ``pad_mask`` (B,S) bool, and for the
+encoder ``features`` (B,S,d) (the stub front end's frame embeddings) and
+``mask_spans`` (B,S) bool (the masked-prediction positions).
 
 On a mesh whose model axis holds M > 1 ranks (``mesh=``, with
 ``constrain_fn`` from `dist.sharding.make_constrain_fn`), the params and
@@ -51,6 +57,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
                               cfg.tie_embeddings),
         "final_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
     }
+    if cfg.family == "encoder":
+        params["mask_emb"] = (torch.randn((cfg.d_model,), generator=gen,
+                                          device=dev) * 0.02).to(dt)
     params["stack"], kstate = T.init_stack(gen, cfg, dev)
     return params, kstate
 
@@ -67,7 +76,13 @@ def apply_model(params, kstate, batch: Dict[str, torch.Tensor],
     1 ranks) the logits are this rank's vocabulary block (B,S,V/M) and the
     batch's rows are this rank's data rows (see the module docstring)."""
     axis = model_axis(mesh, constrain_fn)
-    x = L.embed(params["embed"], batch["tokens"], axis)
+    if cfg.family == "encoder":
+        x = batch["features"].to(getattr(torch, cfg.dtype))
+        if "mask_spans" in batch:
+            x = torch.where(batch["mask_spans"][..., None],
+                            params["mask_emb"].to(x.dtype), x)
+    else:
+        x = L.embed(params["embed"], batch["tokens"], axis)
     x, new_kstate, *stats = T.apply_stack(
         params["stack"], kstate, x, cfg, positions=batch.get("positions"),
         pad_mask=batch.get("pad_mask"), impl=impl, remat=remat,
@@ -120,12 +135,15 @@ def vocab_logits(logits: torch.Tensor, cfg: ModelConfig,
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
             pad_mask: Optional[torch.Tensor] = None, z_loss: float = 0.0,
-            axis: Optional[ModelAxis] = None
+            axis: Optional[ModelAxis] = None,
+            loss_mask: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-mean cross entropy in fp32. logits (B,S,V), targets (B,S).
     The metrics are detached. With ``axis`` the logits are this rank's
     vocabulary block and the log-sum-exp and target logit are reduced
-    over the model axis (`vocab_lse_target`)."""
+    over the model axis (`vocab_lse_target`). ``loss_mask`` (B,S) bool,
+    like ``pad_mask``, keeps only its positions (the encoder's masked
+    frames)."""
     logits = logits.float()
     if axis is not None and axis.size > 1:
         lse, tgt = vocab_lse_target(logits, targets, axis)
@@ -137,6 +155,8 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
                       device=logits.device)
     if pad_mask is not None:
         mask = mask * pad_mask.float()
+    if loss_mask is not None:
+        mask = mask * loss_mask.float()
     denom = mask.sum().clamp_min(1.0)
     loss = (nll * mask).sum() / denom
     metrics = {"nll": loss.detach(), "tokens": denom}
@@ -154,7 +174,7 @@ def next_token_batch(batch: Dict[str, torch.Tensor]
     toks = batch["tokens"]
     inputs = dict(batch)
     inputs["tokens"] = toks[:, :-1]
-    for k in ("positions", "pad_mask"):
+    for k in ("positions", "pad_mask", "mask_spans", "features"):
         if k in batch:
             inputs[k] = batch[k][:, :-1]
     return inputs, toks[:, 1:]

@@ -1,7 +1,9 @@
-"""Transformer stack of the port, the dense, ssm and hybrid families (port
-of the ``attn``, ``ssd`` and ``rglru`` layers of the JAX package's
-``models/transformer.py``; its moe, vlm and encoder families are ROADMAP
-item 12b's later entries and raise `NotImplementedError`).
+"""Transformer stack of the port, the dense, encoder, ssm and hybrid
+families (port of the ``attn``, ``ssd`` and ``rglru`` layers of the JAX
+package's ``models/transformer.py``; its moe and vlm families are ROADMAP
+item 12b's later entries and raise `NotImplementedError`). The encoder
+family (hubert-xlarge) runs the dense family's layers, non-causal and
+without rope, as the JAX package's does.
 
 The stack is a list of *segments*; each is a repeating pattern of layer
 specs run ``n_groups`` times (the hybrid family's period is its pattern:
@@ -101,7 +103,7 @@ class LayerSpec:
     attn: str = "full"        # attention variant of an attn layer
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "encoder", "ssm", "hybrid")
 _HYBRID_PATTERN = ("rglru", "rglru", "attn")
 
 

@@ -94,7 +94,13 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda",
     """Per segment {layer: {leaf: (G, B, ...)}} on ``device`` (default the
     card; raises without one unless ``device="cpu"``). On a ``mesh``, this
     rank's part (`dist.sharding.shard_cache` of the whole cache): its
-    heads, and B / D slots where B divides over the D data ranks."""
+    heads, and B / D slots where B divides over the D data ranks. An
+    encoder has no decode (as the JAX package's dry run skips its decode
+    cells), so its config raises `ValueError`."""
+    if cfg.family == "encoder":
+        raise ValueError(f"{cfg.name}: an encoder has no decode cache (it "
+                         f"reads frame features and predicts codebook "
+                         f"targets; nothing is decoded token by token)")
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     B, _ = slot_block(mesh, B)

@@ -95,21 +95,29 @@ def init_train_state(run: RunConfig, seed: int = 0, device="cuda",
 def make_loss_fn(run: RunConfig, impl: Optional[str] = None,
                  constrain_fn=None, mesh=None):
     """``loss_fn(params, kstate, batch, drop_seed) -> (loss, (new_kstate,
-    metrics))``; ``batch["tokens"]`` is (B, S+1). With ``mesh`` (a model
-    axis of M > 1 ranks) the params and centroids are this rank's shards
-    and the loss and the routing-health stats are the whole model's, on
-    every model rank."""
+    metrics))``; ``batch["tokens"]`` is (B, S+1). An encoder's batch is
+    not shifted: ``tokens`` (B, S) are the codebook targets of its
+    ``features`` (B, S, d), and the loss counts the ``mask_spans``
+    positions only (masked prediction). With ``mesh`` (a model axis of
+    M > 1 ranks) the params and centroids are this rank's shards and the
+    loss and the routing-health stats are the whole model's, on every
+    model rank."""
     mc, tc = run.model, run.train
     axis = model_axis(mesh, constrain_fn)
 
     def loss_fn(params, kstate, batch, drop_seed):
-        inputs, targets = next_token_batch(batch)
+        if mc.family == "encoder":
+            inputs, targets = batch, batch["tokens"]
+            loss_mask = batch.get("mask_spans")
+        else:
+            inputs, targets = next_token_batch(batch)
+            loss_mask = None
         logits, new_k, rstats = apply_model(
             params, kstate, inputs, mc, impl=impl, remat=tc.remat,
             drop_seed=drop_seed, return_stats=True,
             constrain_fn=constrain_fn, mesh=mesh)
         loss, metrics = lm_loss(logits, targets, inputs.get("pad_mask"),
-                                tc.z_loss, axis)
+                                tc.z_loss, axis, loss_mask)
         metrics = dict(metrics)
         if rstats is not None and axis is not None:
             # each model rank computed its routing heads' stats: gather
@@ -144,10 +152,16 @@ def value_and_grad(loss_fn, cfg: Optional[ModelConfig] = None):
 
 
 def unread_leaves(params, cfg: ModelConfig) -> List[bool]:
-    """Flags, in `tree_leaves` order, of the parameters the loss never
-    reads: the key projection (``wk``, ``bk``) of a layer whose every head
-    is causal shared-QK routing, since its keys are its queries."""
+    """Flags, in `tree_leaves` order, of the parameters the loss may not
+    read (they get a zero gradient, as in JAX): the key projection
+    (``wk``, ``bk``) of a layer whose every head is causal shared-QK
+    routing, since its keys are its queries; an encoder's token table
+    (it reads features) and its ``mask_emb`` (read only where a batch
+    has ``mask_spans``)."""
     flags = tree_map(lambda _: False, params)
+    if cfg.family == "encoder":
+        flags["embed"]["tok"] = True
+        flags["mask_emb"] = True
     for seg, (pattern, _) in zip(flags["stack"], build_segments(cfg)):
         for layer, s in zip(seg, pattern):
             spec = spec_for_layer(cfg, s.attn)
