@@ -305,12 +305,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
 10. since slice 23, the encoder family (`encoder_phase`): the three flash
    kernels at hubert-xlarge's attention shape (B 2, 16 heads on 16 KV
    heads, N = M 4096, dh 80, non-causal), which the wrappers run
-   zero-padded to the dh-128 instances with the scale of dh 80, in bf16
-   and fp32 against their plain versions at dh 80 unpadded
-   (`check_flash_encoder`: the flash rows' limits, the padded columns of
-   out, dq, dk and dv exact zeros, graph times beside the plain version,
-   SDPA at dh 80 and the bound at dh 80, the pad copies' share of each
-   wrapper's time) and in bf16 at the ragged `FLASH80_EDGES`; hubert's
+   zero-padded to the dh-128 instances with the scale of dh 80 (since
+   slice 24 but for the bf16 dq and dk/dv, which run their dh-80
+   instances unpadded), in bf16 and fp32 against their plain versions at
+   dh 80 unpadded (`check_flash_encoder`: the flash rows' limits, the
+   padded columns of out, dq, dk and dv exact zeros, or, for the native
+   rows, outputs dh 80 wide with no pad call and a graph time below the
+   dh-128 instance's on padded inputs beside their ptxas registers and
+   spill; graph times beside the plain version, SDPA at dh 80 and the
+   bound at dh 80, the pad copies' share of each wrapper's time) and in
+   bf16 at the ragged `FLASH80_EDGES`; hubert's
    fp32 encode gate (`encoder_encode_gate`, 4 layers, B 1 x 2048: the
    kernel path against the plain path under the serving limits) and
    train gate (`encoder_train_gate`, the qwen2 gate's limits, the
@@ -330,10 +334,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    rt-cifar10 train step on each of its two kernel paths and of one
    rt-cifar10 prefill and decode step.
 
-``--digests-only`` builds the kernels and prints only the six digests
-(`DIGESTS`); with ``--src`` those of another checkout's kernels, so that a
-change that should not move their bits is held to the parent's in one
-call.
+``--digests-only`` builds the kernels and prints only the seven digests
+(`DIGESTS`; the seventh, `dh80_flash_backward_digest`, since slice 24);
+with ``--src`` those of another checkout's kernels, so that a change that
+should not move their bits is held to the parent's in one call.
+
+``--flash80-only`` builds only the flash kernels and runs only the
+encoder phase's kernel step (`encoder_kernel_rows`) in bf16, its rows
+with the dh-80 backward's ptxas registers and spill; with ``--src``
+another checkout's, so that a variant of the dh-80 kernels (its tile
+sizes) is timed in the same call as this tree's.
 
 ``--decode-only`` builds only the decode kernel and runs only
 `check_decode_shapes`, `decode_digest` and (without ``--src``)
@@ -686,9 +696,10 @@ HUBERT_SPAN = 10
 # schedule's peak (8.8e-4 at d 1280: 6.67, 6.53, 8.28) and at a constant
 # 4e-4 (7.20) and 2e-4 (6.80), and fell at 1e-4 (6.67, 6.49, 6.47; PERF.md)
 HUBERT_TRAIN = dict(schedule="const", lr=1e-4)
-# the three flash kernels in bf16 at dh 80 (zero-padded to 128) at the
-# shapes their 128-row tiles make ragged, as FLASH_EDGES: N and M of 1,
-# 127, 129 and 200, causal and not, MHA 16:16 (hubert's) and GQA 2:1
+# the three flash kernels in bf16 at dh 80 (the forward zero-padded to
+# 128, dq and dk/dv on their dh-80 instances since slice 24) at the shapes
+# their 128-row tiles make ragged, as FLASH_EDGES: N and M of 1, 127, 129
+# and 200, causal and not, MHA 16:16 (hubert's) and GQA 2:1
 FLASH80_EDGES = tuple(
     (1, H, Hkv, N, M, 80, causal) for H, Hkv in ((16, 16), (2, 1))
     for N, M, causal in ((1, 1, True), (127, 129, True), (200, 127, False),
@@ -958,6 +969,10 @@ def print_dynamic_smem() -> None:
         print(f"  dynamic smem per block, dh {dh}: bf16 flash (wgmma + TMA) "
               f"forward {fwd_tc(dh)} B, dq {bwd_tc(dh, 0)} B, dk/dv "
               f"{bwd_tc(dh, 1)} B")
+    # since slice 24 the bf16 dq and dk/dv have a dh-80 instance (the
+    # forward runs dh 80 at 128)
+    print(f"  dynamic smem per block, dh 80: bf16 flash (wgmma + TMA) dq "
+          f"{bwd_tc(80, 0)} B, dk/dv {bwd_tc(80, 1)} B")
     # the bf16 local and gathered forwards run the flash forward's body: the
     # same dynamic tiles; their static shared memory (the staged pad mask or
     # positions) is in their ptxas lines
@@ -2461,8 +2476,39 @@ def dh192_local_backward_digest(torch) -> str:
     return h.hexdigest()
 
 
+def dh80_flash_backward_digest(torch) -> str:
+    """A sha256 of the bf16 flash dq, dk and dv through their dh-80
+    instances (slice 24): at hubert-xlarge's attention shape (B 2, 16
+    heads on 16, N 4096, non-causal) and at every FLASH80_EDGES shape, on
+    inputs from a generator of their own (seed 17), with lse and D from
+    the plain fp32 forward on the same values, so that a change to the
+    dh-80 forward leaves it as it is: two builds of the backward bodies
+    (csrc/attn_bwd_sm90.cuh) that compute the same bits at dh 80 give the
+    same digest."""
+    import hashlib
+    from repro_torch.core import row_dot
+    from repro_torch.kernels import flash_attention as K
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    h = hashlib.sha256()
+    for B, H, Hkv, N, M, dh, causal in (
+            (HUBERT_BATCH, 16, 16, HUBERT_SEQ, HUBERT_SEQ, 80, False),
+            *FLASH80_EDGES):
+        q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, M, dh), **mk) for _ in range(2))
+        out, lse = K.flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal)
+        args = (q, k, v, do, lse, row_dot(do, out), causal)
+        del out
+        for t in (K.flash_attention_bwd_dq(*args),
+                  *K.flash_attention_bwd_dkv(*args)):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 DIGESTS = ("flash_forward_digest", "backward_digest", "local_backward_digest",
-           "forward_digest", "decode_digest", "dh192_local_backward_digest")
+           "forward_digest", "decode_digest", "dh192_local_backward_digest",
+           "dh80_flash_backward_digest")
 
 
 def forward_digest(torch) -> str:
@@ -6339,40 +6385,103 @@ def pad_copy_ms(torch, dh, pads, cuts) -> float:
     return graph_ms(torch, copies)
 
 
+def padded_backward():
+    """Inside the block the bf16 flash dq and dk/dv wrappers run dh 80 as
+    they did before their dh-80 instance: zero-padded to the dh-128
+    instance (`flash_attention.WIDTHS`), pad copies and cuts included.
+    What a native dh-80 row replaces, timed beside it."""
+    from repro_torch.kernels import flash_attention as K
+    return swapped(K, "BF16_BWD_WIDTHS", K.WIDTHS)
+
+
+@contextlib.contextmanager
+def counting_pads(calls: list):
+    """Inside the block each `common.pad_heads` call appends its head dim
+    to ``calls``."""
+    from repro_torch.kernels import common
+    pad = common.pad_heads
+
+    def counted(what, dh, *ts, **kw):
+        calls.append(dh)
+        return pad(what, dh, *ts, **kw)
+    with swapped(common, "pad_heads", counted):
+        yield
+
+
+def ptxas_of(source: str, entry: str) -> dict:
+    """Registers and spill bytes (stores, loads) that ptxas reported for
+    the first entry function of ``source``'s build log whose mangled name
+    holds ``entry``."""
+    from repro_torch.kernels import common
+    found = False
+    for line in common.BUILD_LOGS[source].splitlines():
+        if "Compiling entry function" in line:
+            found = entry in line
+        elif found and "spill" in line:
+            stores, loads = map(int, re.findall(r"(\d+) bytes spill", line))
+            row = dict(spill_stores=stores, spill_loads=loads)
+        elif found and "registers" in line:
+            row["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+            return row
+    raise AssertionError(f"no ptxas lines of {entry} in {source}'s log")
+
+
 def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
-    """The three flash kernels at one non-causal shape whose head dim the
-    wrappers zero-pad (hubert-xlarge's: dh 80 at the dh-128 instances),
-    each against its plain version in fp32 at the true dh, unpadded, on
-    the same inputs: out within OUT_REL_TOL and every row within
-    ROW_REL_TOL, lse within LSE_TOL; dq, dk and dv (per query head) within
-    BWD_REL_TOL of their largest values and every row within
-    BWD_ROW_REL_TOL (`grad_row_errs`). The outputs at the kernels' width
-    (`keep_pad_columns`) must hold exact zeros past column dh. Each timed
-    (`timings`) beside its plain version and SDPA at dh (non-causal;
-    the backward's call computes dq, dk and dv), with its bound at the true
-    dh (4, 6 and 8 * dh operations a pair, N * M pairs a head) and the
-    share of the wrapper's graph time that its pad copies take. In bf16
-    SDPA's own errors stand beside each row. Returns the three rows."""
+    """The three flash kernels at one non-causal shape of a head dim that
+    is not a width of all three (hubert-xlarge's: dh 80), each against
+    its plain version in fp32 at the true dh, unpadded, on the same
+    inputs: out within OUT_REL_TOL and every row within ROW_REL_TOL, lse
+    within LSE_TOL; dq, dk and dv (per query head) within BWD_REL_TOL of
+    their largest values and every row within BWD_ROW_REL_TOL
+    (`grad_row_errs`). The forward, and in fp32 the backward too, run
+    zero-padded to the dh-128 instances: their outputs at the kernels'
+    width (`keep_pad_columns`) must hold exact zeros past column dh. Since
+    slice 24 the bf16 dq and dk/dv run their dh-80 instances: their
+    outputs must come back dh wide with no `pad_heads` call in the
+    backward (`counting_pads`), and each native row is timed beside the
+    dh-128 instance on zero-padded inputs, pad copies included
+    (`padded_backward`: ``padded_graph_ms``), with its ptxas registers and
+    spill. Each timed (`timings`) beside its plain version and SDPA at dh
+    (non-causal; the backward's call computes dq, dk and dv), with its
+    bound at the true dh (4, 6 and 8 * dh operations a pair, N * M pairs
+    a head) and the share of the wrapper's graph time that its pad copies
+    take. In bf16 SDPA's own errors stand beside each row. Returns the
+    three rows."""
     from repro_torch.core import row_dot
     from repro_torch.kernels import flash_attention as K
     mk = dict(generator=gen, device=DEVICE, dtype=dtype)
     q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
     k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
-    shape = (f"B{B} H{H} Hkv{Hkv} N{N} dh{dh} {str(dtype)[6:]} non-causal "
-             f"(run at dh {K.C.padded_head_dim('flash', dh, K.WIDTHS)})")
+    bf16 = dtype == torch.bfloat16
+    fwd_width = K.C.padded_head_dim("flash", dh, K.WIDTHS)
+    bwd_width = K.C.padded_head_dim("flash", dh, K._bwd_widths(q))
+    native = bwd_width == dh
+    shape = f"B{B} H{H} Hkv{Hkv} N{N} dh{dh} {str(dtype)[6:]} non-causal"
+    shapes = dict(fwd=f"{shape} (run at dh {fwd_width})",
+                  bwd=f"{shape} (run at dh {bwd_width})")
     out, lse = K.flash_attention(q, k, v, False)
     dsum = row_dot(do, out)
     args = (q, k, v, do, lse, dsum, False)
-    got = (K.flash_attention_bwd_dq(*args), *K.flash_attention_bwd_dkv(*args))
+    bwd_pads = []
+    with counting_pads(bwd_pads):
+        got = (K.flash_attention_bwd_dq(*args),
+               *K.flash_attention_bwd_dkv(*args))
     with keep_pad_columns():
         wide_out, _ = K.flash_attention(q, k, v, False)
         wide = (wide_out, K.flash_attention_bwd_dq(*args),
                 *K.flash_attention_bwd_dkv(*args))
     torch.cuda.synchronize()
-    pad_max = max(float(t[..., dh:].abs().max()) for t in wide)
-    if pad_max != 0.0 or any(t.shape[-1] == dh for t in wide):
+    # the padded outputs: the forward's, and the backward's unless native
+    padded = wide[:1] if native else wide
+    pad_max = max(float(t[..., dh:].abs().max()) for t in padded)
+    if pad_max != 0.0 or any(t.shape[-1] == dh for t in padded):
         raise AssertionError(f"flash kernels at {shape}: the padded columns "
                              f"read {pad_max}, not exact zeros")
+    if native and (bwd_pads or any(t.shape[-1] != dh for t in wide[1:])):
+        raise AssertionError(f"the native flash backward at {shape} padded "
+                             f"({bwd_pads}) or returned "
+                             f"{[t.shape[-1] for t in wide[1:]]} columns")
     f32 = [t.float() for t in (q, k, v, do)]
     ref_out, ref_lse = K.flash_attention_plain(*f32[:3], False)
     err, lerr = max_err(out, ref_out), max_err(lse, ref_lse)
@@ -6390,7 +6499,6 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
             out_ok(g, r, BWD_REL_TOL) for g, r in zip(got, refs)):
         raise AssertionError(f"a flash backward kernel at {shape} disagrees "
                              f"with its plain version: rows {grad_row}")
-    bf16 = dtype == torch.bfloat16
     sdpa_out = sdpa_out_errs(torch, q, k, v, ref_out) if bf16 else {}
     sdpa_grad = sdpa_grad_errs(torch, q, k, v, do, refs, False) if bf16 \
         else {}
@@ -6406,7 +6514,7 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
                   lambda: K.flash_attention_plain(q, k, v, False),
                   lambda: sdpa(q, k, v, enable_gqa=True),
                   *bound_ms(nbytes(q, k, v, out, lse), 4 * dh * pairs)),
-        shape=shape)
+        shape=shapes["fwd"])
     row["pad_copy_share"] = pad_copy_ms(torch, dh, (q, k, v),
                                         wide[:1]) / row["graph_ms"]
     rows = {"flash_attention": row}
@@ -6416,14 +6524,15 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
     def library():
         torch.autograd.grad(o, leaves, do, retain_graph=True)
     n_in = nbytes(q, k, v, do, lse, dsum)
-    for name, part, fn, plain, flops in (
+    for name, part, fn, plain, flops, entry in (
             ("flash_attention_bwd_dq", slice(0, 1),
              lambda: K.flash_attention_bwd_dq(*args),
-             lambda: K.flash_attention_bwd_dq_plain(*args), 6 * dh * pairs),
+             lambda: K.flash_attention_bwd_dq_plain(*args), 6 * dh * pairs,
+             f"flash_bwd_dq_wgmmaILi{dh}E"),
             ("flash_attention_bwd_dkv", slice(1, 3),
              lambda: K.flash_attention_bwd_dkv(*args),
              lambda: K.flash_attention_bwd_dkv_plain(*args),
-             8 * dh * pairs)):
+             8 * dh * pairs, f"flash_bwd_dkv_wgmmaILi{dh}E")):
         row = rows[name] = dict(
             max_abs_err=max(max_err(g, r) for g, r in zip(got[part],
                                                           refs[part])),
@@ -6433,17 +6542,30 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
             **{key: val[part] for key, val in sdpa_grad.items()},
             **timings(torch, fn, plain, library,
                       *bound_ms(n_in + nbytes(*got[part]), flops)),
-            shape=shape)
-        row["pad_copy_share"] = pad_copy_ms(
-            torch, dh, (q, k, v, do), wide[1:][part]) / row["graph_ms"]
+            shape=shapes["bwd"])
+        if native:
+            # no copy runs; what the row replaces, in the same call
+            row["pad_copy_share"] = 0.0
+            with padded_backward():
+                row["padded_graph_ms"] = graph_ms(torch, fn)
+            row.update(ptxas_of("flash_attention_bwd", entry))
+            if row["graph_ms"] >= row["padded_graph_ms"]:
+                raise AssertionError(
+                    f"{name} at {shape}: the dh-{dh} instance "
+                    f"({row['graph_ms']} ms) is no faster than the dh-128 "
+                    f"one on padded inputs ({row['padded_graph_ms']} ms)")
+        else:
+            row["pad_copy_share"] = pad_copy_ms(
+                torch, dh, (q, k, v, do), wide[1:][part]) / row["graph_ms"]
     del o, leaves
     return rows
 
 
 def check_flash80_edges(torch, gen) -> list:
     """`check_flash_edges` (its limits, its SDPA readings) at
-    FLASH80_EDGES: the three flash kernels in bf16 at dh 80, zero-padded to
-    their dh-128 instances, at ragged N and M."""
+    FLASH80_EDGES: the three flash kernels in bf16 at dh 80 (the forward
+    zero-padded to its dh-128 instance, dq and dk/dv on their dh-80
+    instances) at ragged N and M."""
     with swapped(sys.modules[__name__], "FLASH_EDGES", FLASH80_EDGES):
         return check_flash_edges(torch, gen)
 
@@ -6703,26 +6825,38 @@ def train_encoder(torch, path, counts) -> tuple:
     return row, launches
 
 
+def encoder_kernel_rows(torch, dtypes, gen) -> dict:
+    """The encoder phase's kernel step: `check_flash_encoder` at
+    hubert-xlarge's attention shape in each of ``dtypes``, its rows
+    printed. Returns the rows by dtype name."""
+    kern = {}
+    for dt in dtypes:
+        kern[str(dt)[6:]] = check_flash_encoder(
+            torch, HUBERT_BATCH, 16, 16, HUBERT_SEQ, 80, dt, gen)
+        print_rows(kern[str(dt)[6:]])
+    return kern
+
+
 def encoder_phase(torch, card, counts) -> tuple:
     """Slice 23: the flash kernels at hubert-xlarge's attention shape
-    (B 2, H 16 = Hkv, N 4096, dh 80 zero-padded to 128, non-causal) in
-    bf16 and fp32 (`check_flash_encoder`) and in bf16 at FLASH80_EDGES;
+    (B 2, H 16 = Hkv, N 4096, dh 80, non-causal; zero-padded to 128 but
+    for the bf16 dq and dk/dv, on their dh-80 instances since slice 24)
+    in bf16 and fp32 (`encoder_kernel_rows`) and in bf16 at FLASH80_EDGES;
     then hubert-xlarge at full width and depth encodes (`encode_hubert`)
     and trains (`train_encoder`), its fp32 gates (`encoder_encode_gate`,
     `encoder_train_gate`) before. Returns (row, kernel rows at dh 80 in
     bf16, launches per path)."""
     t = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(15)
-    kern = {str(dt)[6:]: check_flash_encoder(
-        torch, HUBERT_BATCH, 16, 16, HUBERT_SEQ, 80, dt, gen)
-        for dt in (torch.bfloat16, torch.float32)}
-    for rows in kern.values():
-        print_rows(rows)
+    kern = encoder_kernel_rows(torch, (torch.bfloat16, torch.float32), gen)
     edges = check_flash80_edges(torch, gen)
     print(f"dh-80 flash edges {json.dumps(edges)}", flush=True)
+    digest = dh80_flash_backward_digest(torch)
+    print(f"dh-80 flash backward digest {digest}", flush=True)
     torch.cuda.empty_cache()
     t = phase("encoder: dh-80 kernels", t)
-    launches, row = {}, dict(kernels=kern, edges=edges)
+    launches, row = {}, dict(kernels=kern, edges=edges,
+                             dh80_flash_backward_digest=digest)
     row["encode_gate"] = encoder_encode_gate(torch)
     print(f"encode_hubert fp32 gate {json.dumps(row['encode_gate'])}",
           flush=True)
@@ -6801,6 +6935,25 @@ def digests_only(torch, out=None) -> int:
     return 0
 
 
+def flash80_only(torch, card, out=None) -> int:
+    """``--flash80-only``: build the flash kernels of the repro_torch that
+    is imported (``--src`` picks another tree's) and run the encoder
+    phase's kernel step (`encoder_kernel_rows`) in bf16 alone; with
+    ``out`` write its rows there too."""
+    import repro_torch
+    from repro_torch.kernels import common
+    where = str(Path(repro_torch.__file__).parent)
+    print(f"repro_torch from {where}", flush=True)
+    common.build(["flash_attention", "flash_attention_bwd"])
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    rows = encoder_kernel_rows(torch, (torch.bfloat16,), gen)["bfloat16"]
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(dict(
+            card=card, repro_torch=where, kernels=rows), indent=1))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report here (JSON)")
@@ -6813,6 +6966,10 @@ def main(argv=None) -> int:
                     help="build the kernels and print only the digests "
                          "(DIGESTS), of another tree's kernels with --src; "
                          "prints no result line")
+    ap.add_argument("--flash80-only", action="store_true",
+                    help="build the flash kernels and run only the "
+                         "encoder phase's kernel step in bf16 at "
+                         "hubert-xlarge's shape; prints no result line")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src), so that an earlier tree's "
                     "kernels run through this script's checks")
@@ -6837,6 +6994,8 @@ def main(argv=None) -> int:
         return decode_only(torch, card, args.out, bool(args.src))
     if args.digests_only:
         return digests_only(torch, args.out)
+    if args.flash80_only:
+        return flash80_only(torch, card, args.out)
 
     t_start = t = time.perf_counter()
     common.build(sorted({Path(m["source"]).stem for m in KERNELS.values()}))
@@ -7258,7 +7417,8 @@ def main(argv=None) -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"]))
     # the flash kernels at dh 80 (slice 23), launched by hubert-xlarge's
-    # paths
+    # paths; since slice 24 the bf16 dq and dk/dv on their dh-80 instances,
+    # with the padded path's time and their ptxas readings
     for name, row in kern80.items():
         meta = KERNELS[name]
         paths = [p for p in meta["paths"] if p.endswith("_hubert")]
@@ -7270,7 +7430,9 @@ def main(argv=None) -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             graph_ms=row["graph_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=row["shape"]))
+            library_ms=row["library_ms"], shape=row["shape"],
+            **{k: row[k] for k in ("padded_graph_ms", "registers",
+                                   "spill_stores") if k in row}))
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

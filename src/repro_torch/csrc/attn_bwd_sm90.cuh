@@ -14,13 +14,17 @@
 // A block of 256 threads owns 128 rows, 64 per warpgroup, loaded once by
 // TMA, and walks tiles of the other side through a ring of two stages
 // (`sm90::Ring`) from 3-D tensor maps (dh, rows, planes: rows past a
-// plane's end arrive as zeros).
+// plane's end arrive as zeros). At dh 80 the tiles are those of dh 128,
+// two boxes a row, the second zero past column 80, and the products read
+// columns 0-79 only: five k16 steps for S and dP (and their transposes),
+// m64n80k16 for dV, dK and dQ (`head_boxes`).
 // - dk/dv: the block owns 128 key rows (K, V) and walks query tiles of BQ
-//   rows (Q, dO; BQ 64 at dh 64, 32 at dh 128, 192 and 256 so that dK and
-//   dV, 64 x dh fp32 each per warpgroup, leave room for the tile's
-//   products). Per tile: S^T = K Q^T and dP^T = V dO^T (SS, K-major), P^T
-//   = exp(S^T scale - lse) on the accumulators, dV += P^T dO (RS, dO
-//   MN-major), dS^T = P^T (dP^T - D) scale, dK += dS^T Q (RS, Q MN-major).
+//   rows (Q, dO; BQ 64 at dh 64 and 80, 32 at dh 128, 192 and 256 so that
+//   dK and dV, 64 x dh fp32 each per warpgroup, leave room for the tile's
+//   products: `dkv_tile_queries`). Per tile: S^T = K Q^T and dP^T = V dO^T
+//   (SS, K-major), P^T = exp(S^T scale - lse) on the accumulators, dV +=
+//   P^T dO (RS, dO MN-major), dS^T = P^T (dP^T - D) scale, dK += dS^T Q
+//   (RS, Q MN-major).
 //   Above dh 128 dK and dV do not both fit in registers: the walk runs
 //   twice (`dkv_sweeps`), at dh 192 dV in the first sweep and dK in the
 //   second, at dh 256 both over columns 0-127 in the first and both over
@@ -115,10 +119,20 @@ __host__ __device__ constexpr int dkv_sweeps() {
   return DH > 128 ? 2 : 1;
 }
 
+// Query rows per tile of the dk/dv body: 64 up to dh 80, where dK and dV
+// take 64 or 80 registers a thread beside the tile's S^T, dP^T and hi + lo
+// fragments (32 + 32 + 32); 32 above. At dh 80, hubert-xlarge's shape, 64
+// rows read 232 registers and 1.16 ms, 32 rows 180 and 1.65 ms (no spill
+// either way; chip_smoke.py --flash80-only, H100 80GB HBM3 at 700 W).
+template <int DH>
+__host__ __device__ constexpr int dkv_tile_queries() {
+  return DH <= 80 ? 64 : 32;
+}
+
 template <int DH>
 struct DkvSmemH {
-  static constexpr int BOXES = DH / BOX_COLS;
-  static constexpr int BQ = DH == 64 ? 64 : 32;   // query rows per tile
+  static constexpr int BOXES = head_boxes<DH>();
+  static constexpr int BQ = dkv_tile_queries<DH>();   // query rows per tile
   static constexpr uint32_t KBOX = HB * ROW_BYTES;  // bytes of a box
   static constexpr uint32_t QBOX = BQ * ROW_BYTES;
   __nv_bfloat16 k[BOXES][HB][BOX_COLS];
@@ -410,7 +424,7 @@ __device__ __forceinline__ void bwd_dkv_body(
 
 template <int DH>
 struct DqSmemH {
-  static constexpr int BOXES = DH / BOX_COLS;
+  static constexpr int BOXES = head_boxes<DH>();
   static constexpr int KT = dq_tile_keys<DH>();     // key rows per tile
   static constexpr uint32_t QBOX = HB * ROW_BYTES;  // bytes of a box
   static constexpr uint32_t KBOX = KT * ROW_BYTES;

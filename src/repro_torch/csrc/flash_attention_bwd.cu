@@ -14,7 +14,8 @@
 // query group (GQA), as the JAX package does in XLA. dq is fp32. The
 // scale comes from the caller, 1/sqrt of the true head dim (the wrapper
 // pads a narrower head dim to dh 64 or 128 with zero columns, whose dq, dk
-// and dv come out zero and are cut off).
+// and dv come out zero and are cut off; in bf16 dh 80 has an instance of
+// its own, below).
 //
 // What bounds it on this card: the dq kernel needs 6*dh flops per
 // attended pair and the dk/dv kernel 8*dh; at qwen2's train shape
@@ -24,7 +25,7 @@
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64 and 128): `flash_bwd_dkv_wgmma` and `flash_bwd_dq_wgmma`, on
+// bf16 (dh 64, 80 and 128): `flash_bwd_dkv_wgmma` and `flash_bwd_dq_wgmma`, on
 // the tensor cores, with the bodies of attn_bwd_sm90.cuh (shared with the
 // gathered routing backward; the design is described there) and the
 // policies `FlashDkv` and `FlashDq`: planes batch * heads for q, do, lse, D
@@ -41,6 +42,14 @@
 // accumulation adds the rest of the ~2e-5 chip_smoke.py reads against an
 // fp64 reference. Only tiles that cross the diagonal or the ragged end
 // are masked.
+// At dh 80 (hubert-xlarge's heads) the tensor maps take the rows at their
+// true width (160 bytes, a multiple of the 16 TMA's strides need): each
+// tile row is two 64-column boxes, the second filled with zeros past
+// column 80 by TMA, so no padded copy exists in device memory; the
+// products read columns 0-79 only (five k16 steps for S and dP, n80 for
+// dV, dK and dQ; attn_bwd_sm90.cuh), and the outputs are written 80 wide.
+// The dh-128 instance on zero-padded inputs did 1.6x these products and
+// took eight pad copies and three cuts per backward.
 //
 // fp32: `flash_bwd_dq_kernel` and `flash_bwd_dkv_kernel`, fp32 FMAs from
 // shared memory with the tiles `DqTile` and `DkvTile` (attn_bwd.cuh),
@@ -345,8 +354,9 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q/do (B,H,N,dh), k/v (B,Hkv,M,dh), lse/dsum (B,H,N) fp32; dq (B,H,N,dh)
-// fp32. dtype: 0 fp32, 1 bf16. scale: the softmax scale, 1 / sqrt of the
-// true head dim (the wrapper runs a narrower head dim zero-padded to dh).
+// fp32. dtype: 0 fp32, 1 bf16; dh 64 or 128, and 80 in bf16. scale: the
+// softmax scale, 1 / sqrt of the true head dim (the wrapper runs another
+// head dim zero-padded to dh).
 // Returns a cudaError_t code.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dO,
@@ -358,6 +368,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   if (dtype == 1 && dh == 128)
     return launch_dq_bf16<128>(q, k, v, dO, lse, dsum, dq, B, H, Hkv, N, M,
                                causal, scale, s);
+  if (dtype == 1 && dh == 80)
+    return launch_dq_bf16<80>(q, k, v, dO, lse, dsum, dq, B, H, Hkv, N, M,
+                              causal, scale, s);
   if (dtype == 1 && dh == 64)
     return launch_dq_bf16<64>(q, k, v, dO, lse, dsum, dq, B, H, Hkv, N, M,
                               causal, scale, s);
@@ -382,6 +395,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (dtype == 1 && dh == 128)
     return launch_dkv_bf16<128>(q, k, v, dO, lse, dsum, dk, dv, B, H, Hkv, N,
                                 M, causal, scale, s);
+  if (dtype == 1 && dh == 80)
+    return launch_dkv_bf16<80>(q, k, v, dO, lse, dsum, dk, dv, B, H, Hkv, N,
+                               M, causal, scale, s);
   if (dtype == 1 && dh == 64)
     return launch_dkv_bf16<64>(q, k, v, dO, lse, dsum, dk, dv, B, H, Hkv, N,
                                M, causal, scale, s);
@@ -416,6 +432,9 @@ extern "C" int flash_bwd_wgmma_smem_bytes(int dh, int dkv) {
   if (dh == 128)
     return static_cast<int>(dkv ? aligned_smem_bytes<DkvSmemH<128>>()
                                 : aligned_smem_bytes<DqSmemH<128>>());
+  if (dh == 80)
+    return static_cast<int>(dkv ? aligned_smem_bytes<DkvSmemH<80>>()
+                                : aligned_smem_bytes<DqSmemH<80>>());
   if (dh == 64)
     return static_cast<int>(dkv ? aligned_smem_bytes<DkvSmemH<64>>()
                                 : aligned_smem_bytes<DqSmemH<64>>());

@@ -8,15 +8,17 @@
 // swizzle, and the bf16 `wgmma` instructions (fp32 accumulators) in SS form
 // (A and B from shared memory, both K-major, m64n32k16, m64n64k16 and
 // m64n128k16) and RS form (A from registers, B MN-major, m64n64k16,
-// m64n128k16, m64n192k16 and m64n256k16), and the block-wide min/max
-// reductions that the gathered kernels' walks take. Raw PTX, so a source
-// that includes this header builds in seconds.
+// m64n80k16, m64n128k16, m64n192k16 and m64n256k16), and the block-wide
+// min/max reductions that the gathered kernels' walks take. Raw PTX, so a
+// source that includes this header builds in seconds.
 //
 // Tiles: a tensor map cuts a (rows, dh) bf16 plane into boxes of 64
 // columns (128 bytes, the widest box the 128-byte swizzle takes) by R
 // rows; a box lands in shared memory as R rows of 128 bytes, 1024-byte
 // aligned, swizzled in atoms of 8 rows. A head of 128 columns is two
-// boxes, one after the other.
+// boxes, one after the other. A head of 80 is two boxes too: the second
+// holds columns 64-79 and zeros, which TMA writes for the columns past
+// the plane's dh (and counts in the box's bytes).
 //
 // wgmma reads such a box in two ways (the descriptor's fields are in
 // 16-byte units):
@@ -50,6 +52,12 @@ constexpr int ROW_BYTES = 128;           // bytes of one box row
 constexpr uint32_t ATOM_BYTES = 1024;    // 8 rows x 128 B: one swizzle atom
 constexpr int RING_STAGES = 2;           // stages of a kernel's TMA ring
 constexpr int BLOCK_THREADS = 2 * WG;    // two consumer warpgroups a block
+
+// 64-column boxes of a tile row of dh columns: dh / 64, and two at dh 80
+template <int DH>
+__host__ __device__ constexpr int head_boxes() {
+  return (DH + BOX_COLS - 1) / BOX_COLS;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -466,6 +474,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "r"(accumulate));
 }
 
+// D (64 x 80) (+)= A (64 x 16, registers) . B (16 x 80), B from shared
+// memory, MN-major (the transpose bit): the backward's dV, dK and dQ at dh
+// 80, whose B spans the first box's 64 columns and the first 16 of the
+// second (one box apart, as n128 reads them; TMA filled the rest of the
+// second box with zeros, which this product does not read).
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 // D (64 x 128) (+)= A (64 x 16, registers) . B (16 x 128), B from shared
 // memory, MN-major (the transpose bit).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
@@ -692,7 +731,8 @@ inline EncodeTiled encode_tiled() {
 
 // The map of a bf16 tensor (planes, rows, dh), contiguous, in boxes of 64
 // columns by ``box_rows`` rows of one plane, 128-byte swizzled; rows past a
-// plane's end read as zeros. Returns a cudaError_t code.
+// plane's end and columns past dh (the second box of dh 80) read as zeros.
+// Returns a cudaError_t code.
 inline int map_rows(CUtensorMap* map, const void* base, int planes, int rows,
                     int dh, int box_rows) {
   EncodeTiled encode = encode_tiled();

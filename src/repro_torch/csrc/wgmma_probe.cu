@@ -8,14 +8,17 @@
 // - RS: D (64 x DH) = A (64 x K, fp32) B, B (K x DH) bf16 MN-major, A as
 //   the hi + lo bf16 pair `pack_a_split` makes, as dV += P^T dO,
 //   dK += dS^T Q and dQ += dS K.
+// At dh 80 (hubert-xlarge's) the operands take two 64-column boxes, the
+// second zero-filled by TMA past column 80: SS reads K = 80 in five k16
+// steps (the fifth from the second box), RS writes n80 across the two.
 // One block of one warpgroup (128 threads); returns a cudaError_t code.
 #include "sm90.cuh"
 using namespace sm90;
 
 template <int N, int DH>
 struct SsSm {
-  __nv_bfloat16 a[DH / 64][64][64];
-  __nv_bfloat16 b[DH / 64][N][64];
+  __nv_bfloat16 a[head_boxes<DH>()][64][64];
+  __nv_bfloat16 b[head_boxes<DH>()][N][64];
   uint64_t bar;
 };
 
@@ -28,8 +31,8 @@ __global__ void probe_ss_k(const __grid_constant__ CUtensorMap ta,
   if (t == 0) { mbar_init(&sm.bar, 1); fence_barrier_init(); }
   __syncthreads();
   if (t == 0) {
-    mbar_expect_tx(&sm.bar, (DH / 64) * (64 + N) * 128);
-    for (int x = 0; x < DH / 64; ++x) {
+    mbar_expect_tx(&sm.bar, head_boxes<DH>() * (64 + N) * 128);
+    for (int x = 0; x < head_boxes<DH>(); ++x) {
       tma_load_3d(&sm.a[x][0][0], &ta, &sm.bar, 64 * x, 0, 0);
       tma_load_3d(&sm.b[x][0][0], &tb, &sm.bar, 64 * x, 0, 0);
     }
@@ -57,7 +60,7 @@ __global__ void probe_ss_k(const __grid_constant__ CUtensorMap ta,
 
 template <int K, int DH>
 struct RsSm {
-  __nv_bfloat16 b[DH / 64][K][64];
+  __nv_bfloat16 b[head_boxes<DH>()][K][64];
   uint64_t bar;
 };
 
@@ -71,8 +74,8 @@ __global__ void probe_rs_k(const float* a,
   if (t == 0) { mbar_init(&sm.bar, 1); fence_barrier_init(); }
   __syncthreads();
   if (t == 0) {
-    mbar_expect_tx(&sm.bar, (DH / 64) * K * 128);
-    for (int x = 0; x < DH / 64; ++x)
+    mbar_expect_tx(&sm.bar, head_boxes<DH>() * K * 128);
+    for (int x = 0; x < head_boxes<DH>(); ++x)
       tma_load_3d(&sm.b[x][0][0], &tb, &sm.bar, 64 * x, 0, 0);
   }
   const int lane = t % 32, r = 16 * (t / 32) + lane / 4, cq = 2 * (lane % 4);
@@ -141,6 +144,8 @@ extern "C" int probe_ss(const void* a, const void* b, float* out, int n,
   if (n == 32 && dh == 128) return ss<32, 128>(a, b, out);
   if (n == 64 && dh == 64) return ss<64, 64>(a, b, out);
   if (n == 64 && dh == 128) return ss<64, 128>(a, b, out);
+  if (n == 32 && dh == 80) return ss<32, 80>(a, b, out);
+  if (n == 64 && dh == 80) return ss<64, 80>(a, b, out);
   return cudaErrorInvalidValue;
 }
 
@@ -150,5 +155,7 @@ extern "C" int probe_rs(const float* a, const void* b, float* out, int k,
   if (k == 32 && dh == 128) return rs<32, 128>(a, b, out);
   if (k == 64 && dh == 64) return rs<64, 64>(a, b, out);
   if (k == 64 && dh == 128) return rs<64, 128>(a, b, out);
+  if (k == 32 && dh == 80) return rs<32, 80>(a, b, out);
+  if (k == 64 && dh == 80) return rs<64, 80>(a, b, out);
   return cudaErrorInvalidValue;
 }

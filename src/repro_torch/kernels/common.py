@@ -15,6 +15,7 @@ own launches in a `LaunchCounter` (`counters()` / `reset_counters()`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,8 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the widths of the flash and gathered kernels: the flash wrappers run a
-# head dim up to 128 zero-padded to one of them (`pad_heads`); the
-# gathered kernels take these two only
+# head dim up to 128 zero-padded to one of them (`pad_heads`; the bf16
+# flash dq and dk/dv also have a dh-80 instance,
+# `flash_attention.BF16_BWD_WIDTHS`); the gathered kernels take these two
+# only
 SUPPORTED_HEAD_DIMS = (64, 128)
 # the widths of the fused routing and paged decode kernels: a head dim up
 # to one of them runs zero-padded to it (`pad_heads`)
@@ -150,7 +153,14 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    """The current device's current stream: the raw handle that
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    Stream object on every launch, a cost a short kernel's wrapper feels
+    on the host. This depends on a private PyTorch call,
+    ``torch._C._cuda_getCurrentRawStream``; should a PyTorch release drop
+    it, the public line above is its replacement."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device()))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -165,22 +175,29 @@ def check_tensors(what: str, unaligned: Tuple[str, ...] = (),
     for CUDA tensors also one device and 16-byte alignment, but for those
     the kernel reads element by element (``unaligned``; dtype and shape
     checks are per kernel)."""
+    # each message is built only when its check fails: formatted on every
+    # call they were a large part of a short kernel's wrapper time on the
+    # host
     dev = next(iter(tensors.values())).device
+    cuda = dev.type == "cuda"
     for n, t in tensors.items():
-        require(t.is_contiguous(), f"{what}: {n} must be contiguous")
-        require(t.device == dev, f"{what}: {n} is on {t.device}, not {dev}")
-        if dev.type == "cuda" and n not in unaligned:
-            require(t.data_ptr() % 16 == 0,
-                    f"{what}: {n} must be 16-byte aligned (vector loads)")
-    require(dev.type in ("cpu", "cuda"),
-            f"{what}: tensors on {dev}: the kernel runs on CUDA, its plain "
-            f"version on the CPU")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {n} must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"{what}: {n} is on {t.device}, not {dev}")
+        if cuda and n not in unaligned and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {n} must be 16-byte aligned (vector "
+                             f"loads)")
+    if not cuda and dev.type != "cpu":
+        raise ValueError(f"{what}: tensors on {dev}: the kernel runs on "
+                         f"CUDA, its plain version on the CPU")
 
 
-def head_dim_ok(what: str, dh: int) -> None:
-    require(dh in SUPPORTED_HEAD_DIMS,
+def head_dim_ok(what: str, dh: int,
+                widths: Tuple[int, ...] = SUPPORTED_HEAD_DIMS) -> None:
+    require(dh in widths,
             f"{what}: head_dim {dh} unsupported by the CUDA kernel "
-            f"(supported: {SUPPORTED_HEAD_DIMS})")
+            f"(supported: {widths})")
 
 
 def padded_head_dim(what: str, dh: int,
@@ -196,6 +213,7 @@ def padded_head_dim(what: str, dh: int,
                      f"widest instance ({widths[-1]})")
 
 
+@functools.lru_cache(maxsize=None)
 def head_scale(dh: int) -> float:
     """The softmax scale 1 / sqrt(dh) in fp32, rounded as ``1.0f /
     sqrtf(dh)`` rounds it (IEEE square root and division), so that the

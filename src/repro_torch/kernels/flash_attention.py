@@ -11,14 +11,19 @@ M != N), as the TPU kernel does. Any N, M >= 1. Every wrapper sends a CPU
 tensor to its plain PyTorch version (``core/attention.py``) and launches
 its kernel on a CUDA tensor, or raises.
 
-The kernels have dh-64 and dh-128 instances (`WIDTHS`). Any other head
-dim up to 128 (hubert-xlarge's 80) runs zero-padded to the next of them
-(`common.pad_heads`, on both devices, so the CPU tests go through the
-padding) with the scale of its true head dim (`common.head_scale`, passed
-to the kernels), and out, dq, dk and dv are cut back to it; zero columns
-change no score, and the gradients' pad columns come out zero. On the
-card a head dim over 128 raises; on the CPU it runs the plain version
-unpadded.
+The kernels have dh-64 and dh-128 instances (`WIDTHS`), and the bf16 dq
+and dk/dv kernels one of dh 80 too (`BF16_BWD_WIDTHS`: hubert-xlarge's
+heads, whose tensor maps read the rows at their true width; TMA fills the
+tiles' columns past 80 with zeros in shared memory). Any other head dim
+up to 128 runs zero-padded to the next width of its kernel and dtype
+(`common.pad_heads`) with the scale of its true head dim
+(`common.head_scale`, passed to the kernels), and out, dq, dk and dv are
+cut back to it; zero columns change no score, and the gradients' pad
+columns come out zero. The CPU takes the card's widths for the same
+kernel and dtype, so the CPU tests go through the padding, or its
+absence, as the card does: a bf16 dh-80 backward runs its plain versions
+at 80, and never pads. On the card a head dim over 128 raises; on the
+CPU it runs the plain version unpadded.
 
 All three kernels do 4 to 8 * dh flops per attended pair on inputs read
 once, far above the card's bf16 ridge, so the tensor cores bound them. The
@@ -34,7 +39,7 @@ local-window and routing kernels, whose products stay full fp32, as
 PyTorch's fp32 matmul does (no TF32). TMA needs 16-byte aligned bases and
 row strides: the wrappers take contiguous, 16-byte aligned tensors
 (checked before the padding, whose copies are fresh allocations), and
-the widths 64 and 128 give rows of 128 or 256 bytes in bf16.
+the widths 64, 80 and 128 give rows of 128, 160 or 256 bytes in bf16.
 """
 from __future__ import annotations
 
@@ -48,8 +53,10 @@ from repro_torch.core import row_dot, upcast
 from repro_torch.kernels import common as C
 from repro_torch.obs.trace import span
 
-# the kernels' head-dim instances (`common.SUPPORTED_HEAD_DIMS`)
+# the kernels' head-dim instances (`common.SUPPORTED_HEAD_DIMS`), and the
+# bf16 dq and dk/dv kernels' (dh 80 on its own instance)
 WIDTHS = C.SUPPORTED_HEAD_DIMS
+BF16_BWD_WIDTHS = (64, 80, 128)
 LAUNCHES = C.counter("flash_attention")
 LAUNCHES_BWD_DQ = C.counter("flash_attention_bwd_dq")
 LAUNCHES_BWD_DKV = C.counter("flash_attention_bwd_dkv")
@@ -77,28 +84,36 @@ flash_attention_bwd_dq_plain = ref.full_attention_bwd_dq
 flash_attention_bwd_dkv_plain = ref.full_attention_bwd_dkv
 
 
-def _padded(what, dh, *tensors):
-    """``tensors`` zero-padded to the kernel width of ``dh`` (`WIDTHS`);
-    a CPU call wider than the widest runs unpadded."""
-    if tensors[0].device.type == "cpu" and dh > WIDTHS[-1]:
+def _bwd_widths(q):
+    """The backward kernels' head-dim instances for ``q``'s dtype."""
+    return BF16_BWD_WIDTHS if q.dtype == torch.bfloat16 else WIDTHS
+
+
+def _padded(what, dh, *tensors, widths=WIDTHS):
+    """``tensors`` zero-padded to the kernel width of ``dh`` (the first
+    of ``widths`` that holds it); at a width, and in a CPU call wider than
+    the widest, they pass as they are, with no call to `pad_heads`."""
+    if dh in widths or (tensors[0].device.type == "cpu"
+                        and dh > widths[-1]):
         return tensors
-    return C.pad_heads(what, dh, *tensors, widths=WIDTHS)
+    return C.pad_heads(what, dh, *tensors, widths=widths)
 
 
 def _check(what, q, k, v, **more):
     B, H, N, dh = q.shape
     Hkv, M = k.shape[1], k.shape[2]
-    C.require(k.shape == v.shape == (B, Hkv, M, dh) and H % Hkv == 0
-              and N > 0 and M > 0,
-              f"{what}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-              f"v {tuple(v.shape)}")
+    # the message is built only when the check fails (`C.check_tensors`)
+    if not (k.shape == v.shape == (B, Hkv, M, dh) and H % Hkv == 0
+            and N > 0 and M > 0):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
     C.require(q.dtype == k.dtype == v.dtype, f"{what}: mixed dtypes")
     C.check_tensors(what, q=q, k=k, v=v, **more)
 
 
-def _dims(what, q, k):
+def _dims(what, q, k, widths=WIDTHS):
     B, H, N, dh = q.shape
-    C.head_dim_ok(what, dh)
+    C.head_dim_ok(what, dh, widths)
     return B, H, k.shape[1], N, k.shape[2], dh, C.dtype_code(what, q)
 
 
@@ -145,11 +160,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dsum, causal: bool = True):
     _check_bwd(what, q, k, v, do, lse, dsum)
     dh = q.shape[-1]
     scale = C.head_scale(dh)
-    q, k, v, do = _padded(what, dh, q, k, v, do)
+    widths = _bwd_widths(q)
+    q, k, v, do = _padded(what, dh, q, k, v, do, widths=widths)
     if q.device.type == "cpu":
         return C.unpad_heads(dh, flash_attention_bwd_dq_plain(
             q, k, v, do, lse, dsum, causal, scale))[0]
-    B, H, Hkv, N, M, width, code = _dims(what, q, k)
+    B, H, Hkv, N, M, width, code = _dims(what, q, k, widths)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = C.load("flash_attention_bwd", "flash_attention_bwd_dq",
                 _DQ_ARGTYPES)
@@ -168,11 +184,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = True):
     _check_bwd(what, q, k, v, do, lse, dsum)
     dh = q.shape[-1]
     scale = C.head_scale(dh)
-    q, k, v, do = _padded(what, dh, q, k, v, do)
+    widths = _bwd_widths(q)
+    q, k, v, do = _padded(what, dh, q, k, v, do, widths=widths)
     if q.device.type == "cpu":
         return C.unpad_heads(dh, *flash_attention_bwd_dkv_plain(
             q, k, v, do, lse, dsum, causal, scale))
-    B, H, Hkv, N, M, width, code = _dims(what, q, k)
+    B, H, Hkv, N, M, width, code = _dims(what, q, k, widths)
     dk = torch.empty((B, H, M, width), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     fn = C.load("flash_attention_bwd", "flash_attention_bwd_dkv",

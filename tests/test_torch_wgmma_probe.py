@@ -12,10 +12,17 @@ alone, against an fp64 ``torch.matmul`` on the card.
   of itself, so the tile reads within 2e-5 (~3e-6 on an H100), where one
   bf16 A value reads ~1.5e-3.
 
+At dh 80 (hubert-xlarge's heads, the flash dq and dk/dv's dh-80
+instances) each operand row is two 64-column boxes, the second filled
+with zeros by TMA past column 80: SS reads K = 80 in five k16 steps, RS
+writes m64n80k16 across the two boxes.
+
 A wrong descriptor, swizzle or fragment layout reads O(1). The kernels are
 CUDA for sm_90a and have no CPU version: these tests skip without a card.
-On a machine with an H100:
-``python -m pytest -s tests/test_torch_wgmma_probe.py``.
+On a machine with an H100 (``--noconftest``: the tests' conftest imports
+JAX, which that machine need not have):
+``PYTHONPATH=src python -m pytest -s --noconftest
+tests/test_torch_wgmma_probe.py``.
 """
 import ctypes
 
@@ -40,7 +47,8 @@ def rel_err(got, ref):
     return float((got.double() - ref).abs().max() / ref.abs().max())
 
 
-@pytest.mark.parametrize("n,dh", [(32, 64), (32, 128), (64, 64), (64, 128)])
+@pytest.mark.parametrize("n,dh", [(32, 64), (32, 128), (64, 64), (64, 128),
+                                  (32, 80), (64, 80)])
 def test_ss_product_matches_matmul(card, n, dh):
     g = torch.Generator().manual_seed(n * 1000 + dh)
     a = torch.randn(64, dh, generator=g).bfloat16().to(card)
@@ -54,7 +62,8 @@ def test_ss_product_matches_matmul(card, n, dh):
     assert err <= SS_TOL
 
 
-@pytest.mark.parametrize("k,dh", [(32, 128), (64, 64), (64, 128)])
+@pytest.mark.parametrize("k,dh", [(32, 128), (64, 64), (64, 128), (32, 80),
+                                  (64, 80)])
 def test_rs_split_product_matches_matmul(card, k, dh):
     g = torch.Generator().manual_seed(k * 1000 + dh)
     a = (torch.rand(64, k, generator=g) / k).to(card)
