@@ -22,7 +22,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the plain version (as the plain path runs it) and, where one PyTorch
    call computes the same function, that call (`library_ms`; the port
    never calls it). The causal flash kernels must take well under the
-   time of the same call without the causal mask;
+   time of the same call without the causal mask (graph times, since
+   slice 25);
    the flash kernels also in bf16 at head dim 128, and all three in bf16
    at the shapes their 128-row tiles make ragged (`FLASH_EDGES`), each
    bf16 row reporting SDPA's own error (forward, and dq, dk and dv)
@@ -305,16 +306,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
 10. since slice 23, the encoder family (`encoder_phase`): the three flash
    kernels at hubert-xlarge's attention shape (B 2, 16 heads on 16 KV
    heads, N = M 4096, dh 80, non-causal), which the wrappers run
-   zero-padded to the dh-128 instances with the scale of dh 80 (since
-   slice 24 but for the bf16 dq and dk/dv, which run their dh-80
-   instances unpadded), in bf16 and fp32 against their plain versions at
-   dh 80 unpadded (`check_flash_encoder`: the flash rows' limits, the
-   padded columns of out, dq, dk and dv exact zeros, or, for the native
-   rows, outputs dh 80 wide with no pad call and a graph time below the
-   dh-128 instance's on padded inputs beside their ptxas registers and
-   spill; graph times beside the plain version, SDPA at dh 80 and the
-   bound at dh 80, the pad copies' share of each wrapper's time) and in
-   bf16 at the ragged `FLASH80_EDGES`; hubert's
+   zero-padded to the dh-128 instances with the scale of dh 80 in fp32
+   (in bf16 all three run their dh-80 instances unpadded: dq and dk/dv
+   since slice 24, the forward since slice 25), in bf16 and fp32 against
+   their plain versions at dh 80 unpadded (`check_flash_encoder`: the
+   flash rows' limits, the padded columns of out, dq, dk and dv exact
+   zeros, or, for the native rows, outputs dh 80 wide with no pad call
+   and a graph time below the dh-128 instance's on padded inputs beside
+   their ptxas registers and spill, the native forward's out and lse
+   equal to the padded path's bit for bit; graph times beside the plain
+   version, SDPA at dh 80 and the bound at dh 80, the pad copies' share
+   of each wrapper's time) and in bf16 at the ragged `FLASH80_EDGES`;
+   hubert's
    fp32 encode gate (`encoder_encode_gate`, 4 layers, B 1 x 2048: the
    kernel path against the plain path under the serving limits) and
    train gate (`encoder_train_gate`, the qwen2 gate's limits, the
@@ -334,14 +337,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    rt-cifar10 train step on each of its two kernel paths and of one
    rt-cifar10 prefill and decode step.
 
-``--digests-only`` builds the kernels and prints only the seven digests
-(`DIGESTS`; the seventh, `dh80_flash_backward_digest`, since slice 24);
+``--digests-only`` builds the kernels and prints only the eight digests
+(`DIGESTS`; the seventh, `dh80_flash_backward_digest`, since slice 24, the
+eighth, `dh80_flash_forward_digest`, since slice 25);
 with ``--src`` those of another checkout's kernels, so that a change that
 should not move their bits is held to the parent's in one call.
 
 ``--flash80-only`` builds only the flash kernels and runs only the
 encoder phase's kernel step (`encoder_kernel_rows`) in bf16, its rows
-with the dh-80 backward's ptxas registers and spill; with ``--src``
+with the dh-80 kernels' ptxas registers and spill; with ``--src``
 another checkout's, so that a variant of the dh-80 kernels (its tile
 sizes) is timed in the same call as this tree's.
 
@@ -696,8 +700,8 @@ HUBERT_SPAN = 10
 # schedule's peak (8.8e-4 at d 1280: 6.67, 6.53, 8.28) and at a constant
 # 4e-4 (7.20) and 2e-4 (6.80), and fell at 1e-4 (6.67, 6.49, 6.47; PERF.md)
 HUBERT_TRAIN = dict(schedule="const", lr=1e-4)
-# the three flash kernels in bf16 at dh 80 (the forward zero-padded to
-# 128, dq and dk/dv on their dh-80 instances since slice 24) at the shapes
+# the three flash kernels in bf16 at dh 80 (on their dh-80 instances: dq
+# and dk/dv since slice 24, the forward since slice 25) at the shapes
 # their 128-row tiles make ragged, as FLASH_EDGES: N and M of 1, 127, 129
 # and 200, causal and not, MHA 16:16 (hubert's) and GQA 2:1
 FLASH80_EDGES = tuple(
@@ -969,10 +973,11 @@ def print_dynamic_smem() -> None:
         print(f"  dynamic smem per block, dh {dh}: bf16 flash (wgmma + TMA) "
               f"forward {fwd_tc(dh)} B, dq {bwd_tc(dh, 0)} B, dk/dv "
               f"{bwd_tc(dh, 1)} B")
-    # since slice 24 the bf16 dq and dk/dv have a dh-80 instance (the
-    # forward runs dh 80 at 128)
-    print(f"  dynamic smem per block, dh 80: bf16 flash (wgmma + TMA) dq "
-          f"{bwd_tc(80, 0)} B, dk/dv {bwd_tc(80, 1)} B")
+    # the bf16 dq and dk/dv have a dh-80 instance since slice 24, the
+    # forward since slice 25
+    print(f"  dynamic smem per block, dh 80: bf16 flash (wgmma + TMA) "
+          f"forward {fwd_tc(80)} B, dq {bwd_tc(80, 0)} B, dk/dv "
+          f"{bwd_tc(80, 1)} B")
     # the bf16 local and gathered forwards run the flash forward's body: the
     # same dynamic tiles; their static shared memory (the staged pad mask or
     # positions) is in their ptxas lines
@@ -1012,7 +1017,9 @@ def graph_ms(torch, fn, iters: int = 20) -> float:
     """The time of one call of ``fn`` without the host between launches:
     ``iters`` calls captured in a CUDA graph, replayed. A kernel whose
     wrapper takes longer on the host than the kernel on the card reads
-    the host's time in `time_ms`; context, never a limit."""
+    the host's time in `time_ms`. Context, and one limit since slice 25:
+    `check_flash`'s ``causal_over_dense`` (MAX_CAUSAL_OVER_DENSE) reads
+    it, since a ~0.08-ms causal kernel read the host's time there."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2100,7 +2107,10 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
     kernels skip the key tiles above the diagonal, so each must take well
     under the time of the same call without the causal mask (twice the
     pairs): ``causal_over_dense`` reads ~0.5 (a kernel that masks those
-    tiles instead of skipping them reads ~1)."""
+    tiles instead of skipping them reads ~1). It reads the device's time
+    alone, `graph_ms` of the causal call over `graph_ms` of the dense one
+    (``graph_ms``, ``dense_graph_ms``): a short kernel's `time_ms` reads
+    its wrapper's host time instead."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.core import row_dot
     mk = dict(generator=gen, device=DEVICE, dtype=dtype)
@@ -2147,16 +2157,14 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
     pairs = causal_pairs(B, H, N)
     shape = (f"B{B} H{H} Hkv{Hkv} N{N} dh{dh} "
              f"{str(dtype).replace('torch.', '')} causal")
-    fwd_ms = time_ms(lambda: K.flash_attention(q, k, v))
     b_ms, b_by = bound_ms(nbytes(q, k, v, out, lse), 4 * dh * pairs)
     rows = {"flash_attention": dict(
-        max_abs_err=err, lse_err=lerr, ms=fwd_ms,
+        max_abs_err=err, lse_err=lerr,
+        ms=time_ms(lambda: K.flash_attention(q, k, v)),
         plain_ms=time_ms(lambda: K.flash_attention_plain(q, k, v)),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                         enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by, shape=shape,
-        causal_over_dense=fwd_ms / time_ms(
-            lambda: K.flash_attention(q, k, v, False)))}
+        bound_ms=b_ms, bound_by=b_by, shape=shape)}
     rows["flash_attention"]["row_rel_err"] = row_err
     if sdpa_out:
         rows["flash_attention"].update(out_rel_err=out_rel, **sdpa_out)
@@ -2184,10 +2192,20 @@ def check_flash(torch, B, H, Hkv, N, dh, dtype, gen):
             rel_err(dk, ref_dk), rel_err(dv, ref_dv)]
     out_d, lse_d = K.flash_attention(q, k, v, False)
     dense = (q, k, v, do, lse_d, row_dot(do, out_d), False)
-    for name, fn in (("flash_attention_bwd_dq", K.flash_attention_bwd_dq),
-                     ("flash_attention_bwd_dkv", K.flash_attention_bwd_dkv)):
-        rows[name]["causal_over_dense"] = rows[name]["ms"] / time_ms(
-            lambda: fn(*dense))
+    for name, fn, causal_args, dense_args in (
+            ("flash_attention", K.flash_attention, (q, k, v),
+             (q, k, v, False)),
+            ("flash_attention_bwd_dq", K.flash_attention_bwd_dq, args,
+             dense),
+            ("flash_attention_bwd_dkv", K.flash_attention_bwd_dkv, args,
+             dense)):
+        row = rows[name]
+        # as `timings`: 5 graph iterations for a call over a millisecond
+        iters = 5 if row["ms"] > 1.0 else 20
+        row["graph_ms"] = graph_ms(torch, lambda: fn(*causal_args), iters)
+        row["dense_graph_ms"] = graph_ms(torch, lambda: fn(*dense_args),
+                                         iters)
+        row["causal_over_dense"] = row["graph_ms"] / row["dense_graph_ms"]
     for name, row in rows.items():
         if row["causal_over_dense"] > MAX_CAUSAL_OVER_DENSE:
             raise AssertionError(
@@ -2506,9 +2524,33 @@ def dh80_flash_backward_digest(torch) -> str:
     return h.hexdigest()
 
 
+def dh80_flash_forward_digest(torch) -> str:
+    """A sha256 of the bf16 flash forward's out and lse at dh 80 (its
+    dh-80 instance since slice 25; before, the dh-128 instance on
+    zero-padded inputs, whose bits it keeps): at hubert-xlarge's attention
+    shape (B 2, 16 heads on 16, N 4096, non-causal) and at every
+    FLASH80_EDGES shape, on inputs from a generator of their own (seed
+    18). The forward body (csrc/attn_fwd_sm90.cuh) serves the local and
+    routing forwards too: two builds that compute the same bits at dh 80
+    give the same digest."""
+    import hashlib
+    from repro_torch.kernels import flash_attention as K
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    mk = dict(generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    h = hashlib.sha256()
+    for B, H, Hkv, N, M, dh, causal in (
+            (HUBERT_BATCH, 16, 16, HUBERT_SEQ, HUBERT_SEQ, 80, False),
+            *FLASH80_EDGES):
+        q = torch.randn((B, H, N, dh), **mk)
+        k, v = (torch.randn((B, Hkv, M, dh), **mk) for _ in range(2))
+        for t in K.flash_attention(q, k, v, causal):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 DIGESTS = ("flash_forward_digest", "backward_digest", "local_backward_digest",
            "forward_digest", "decode_digest", "dh192_local_backward_digest",
-           "dh80_flash_backward_digest")
+           "dh80_flash_backward_digest", "dh80_flash_forward_digest")
 
 
 def forward_digest(torch) -> str:
@@ -6385,13 +6427,14 @@ def pad_copy_ms(torch, dh, pads, cuts) -> float:
     return graph_ms(torch, copies)
 
 
-def padded_backward():
-    """Inside the block the bf16 flash dq and dk/dv wrappers run dh 80 as
-    they did before their dh-80 instance: zero-padded to the dh-128
-    instance (`flash_attention.WIDTHS`), pad copies and cuts included.
-    What a native dh-80 row replaces, timed beside it."""
+def padded_kernels():
+    """Inside the block the three bf16 flash wrappers run dh 80 as they
+    did before their dh-80 instances: zero-padded to the dh-128 instance
+    (`flash_attention.WIDTHS`), pad copies and cuts included. What a
+    native dh-80 row replaces, timed beside it (and, for the forward,
+    held to the same bits)."""
     from repro_torch.kernels import flash_attention as K
-    return swapped(K, "BF16_BWD_WIDTHS", K.WIDTHS)
+    return swapped(K, "BF16_WIDTHS", K.WIDTHS)
 
 
 @contextlib.contextmanager
@@ -6428,43 +6471,42 @@ def ptxas_of(source: str, entry: str) -> dict:
 
 
 def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
-    """The three flash kernels at one non-causal shape of a head dim that
-    is not a width of all three (hubert-xlarge's: dh 80), each against
-    its plain version in fp32 at the true dh, unpadded, on the same
-    inputs: out within OUT_REL_TOL and every row within ROW_REL_TOL, lse
-    within LSE_TOL; dq, dk and dv (per query head) within BWD_REL_TOL of
-    their largest values and every row within BWD_ROW_REL_TOL
-    (`grad_row_errs`). The forward, and in fp32 the backward too, run
-    zero-padded to the dh-128 instances: their outputs at the kernels'
-    width (`keep_pad_columns`) must hold exact zeros past column dh. Since
-    slice 24 the bf16 dq and dk/dv run their dh-80 instances: their
-    outputs must come back dh wide with no `pad_heads` call in the
-    backward (`counting_pads`), and each native row is timed beside the
-    dh-128 instance on zero-padded inputs, pad copies included
-    (`padded_backward`: ``padded_graph_ms``), with its ptxas registers and
-    spill. Each timed (`timings`) beside its plain version and SDPA at dh
-    (non-causal; the backward's call computes dq, dk and dv), with its
-    bound at the true dh (4, 6 and 8 * dh operations a pair, N * M pairs
-    a head) and the share of the wrapper's graph time that its pad copies
-    take. In bf16 SDPA's own errors stand beside each row. Returns the
-    three rows."""
+    """The three flash kernels at one non-causal shape of hubert-xlarge's
+    head dim (dh 80, a width of the bf16 kernels but not of the fp32
+    ones), each against its plain version in fp32 at the true dh,
+    unpadded, on the same inputs: out within OUT_REL_TOL and every row
+    within ROW_REL_TOL, lse within LSE_TOL; dq, dk and dv (per query
+    head) within BWD_REL_TOL of their largest values and every row within
+    BWD_ROW_REL_TOL (`grad_row_errs`). In fp32 the three run zero-padded
+    to the dh-128 instances: their outputs at the kernels' width
+    (`keep_pad_columns`) must hold exact zeros past column dh. In bf16
+    the three run their dh-80 instances (dq and dk/dv since slice 24, the
+    forward since slice 25): their outputs must come back dh wide with no
+    `pad_heads` call (`counting_pads`), the forward's out and lse equal
+    bit for bit to the dh-128 instance's on zero-padded inputs (zero
+    columns add exact zeros to S), and each native row is timed beside
+    that padded path, pad copies included (`padded_kernels`:
+    ``padded_graph_ms``, at the row's own graph iterations), with its
+    ptxas registers and spill, and must read faster. Each timed
+    (`timings`) beside its plain version and SDPA at dh (non-causal; the
+    backward's call computes dq, dk and dv), with its bound at the true
+    dh (4, 6 and 8 * dh operations a pair, N * M pairs a head) and the
+    share of the wrapper's graph time that its pad copies take. In bf16
+    SDPA's own errors stand beside each row. Returns the three rows."""
     from repro_torch.core import row_dot
     from repro_torch.kernels import flash_attention as K
     mk = dict(generator=gen, device=DEVICE, dtype=dtype)
     q, do = (torch.randn((B, H, N, dh), **mk) for _ in range(2))
     k, v = (torch.randn((B, Hkv, N, dh), **mk) for _ in range(2))
     bf16 = dtype == torch.bfloat16
-    fwd_width = K.C.padded_head_dim("flash", dh, K.WIDTHS)
-    bwd_width = K.C.padded_head_dim("flash", dh, K._bwd_widths(q))
-    native = bwd_width == dh
+    width = K.C.padded_head_dim("flash", dh, K._widths(q))
+    native = width == dh
     shape = f"B{B} H{H} Hkv{Hkv} N{N} dh{dh} {str(dtype)[6:]} non-causal"
-    shapes = dict(fwd=f"{shape} (run at dh {fwd_width})",
-                  bwd=f"{shape} (run at dh {bwd_width})")
-    out, lse = K.flash_attention(q, k, v, False)
-    dsum = row_dot(do, out)
-    args = (q, k, v, do, lse, dsum, False)
-    bwd_pads = []
-    with counting_pads(bwd_pads):
+    pads = []
+    with counting_pads(pads):
+        out, lse = K.flash_attention(q, k, v, False)
+        dsum = row_dot(do, out)
+        args = (q, k, v, do, lse, dsum, False)
         got = (K.flash_attention_bwd_dq(*args),
                *K.flash_attention_bwd_dkv(*args))
     with keep_pad_columns():
@@ -6472,16 +6514,28 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
         wide = (wide_out, K.flash_attention_bwd_dq(*args),
                 *K.flash_attention_bwd_dkv(*args))
     torch.cuda.synchronize()
-    # the padded outputs: the forward's, and the backward's unless native
-    padded = wide[:1] if native else wide
-    pad_max = max(float(t[..., dh:].abs().max()) for t in padded)
-    if pad_max != 0.0 or any(t.shape[-1] == dh for t in padded):
-        raise AssertionError(f"flash kernels at {shape}: the padded columns "
-                             f"read {pad_max}, not exact zeros")
-    if native and (bwd_pads or any(t.shape[-1] != dh for t in wide[1:])):
-        raise AssertionError(f"the native flash backward at {shape} padded "
-                             f"({bwd_pads}) or returned "
-                             f"{[t.shape[-1] for t in wide[1:]]} columns")
+    pad_max = None
+    if native:
+        if pads or any(t.shape[-1] != dh for t in wide):
+            raise AssertionError(f"the native flash kernels at {shape} "
+                                 f"padded ({pads}) or returned "
+                                 f"{[t.shape[-1] for t in wide]} columns")
+        with padded_kernels():
+            padded_out, padded_lse = K.flash_attention(q, k, v, False)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, padded_out)
+                and torch.equal(lse, padded_lse)):
+            raise AssertionError(
+                f"flash_attention at {shape}: the dh-{dh} instance's bits "
+                f"differ from the padded path's in "
+                f"{int((out != padded_out).sum())} of out and "
+                f"{int((lse != padded_lse).sum())} of lse")
+        del padded_out, padded_lse
+    else:
+        pad_max = max(float(t[..., dh:].abs().max()) for t in wide)
+        if pad_max != 0.0 or any(t.shape[-1] == dh for t in wide):
+            raise AssertionError(f"flash kernels at {shape}: the padded "
+                                 f"columns read {pad_max}, not exact zeros")
     f32 = [t.float() for t in (q, k, v, do)]
     ref_out, ref_lse = K.flash_attention_plain(*f32[:3], False)
     err, lerr = max_err(out, ref_out), max_err(lse, ref_lse)
@@ -6505,18 +6559,41 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
     out_rel = rel_err(out, ref_out)
     del ref_out, ref_lse
 
+    shape = f"{shape} (run at dh {width})"
+
+    def versus_padded(name, row, fn, source, entry):
+        """A native row: no copy runs; the padded path it replaces timed
+        in the same call, and the kernel's ptxas readings."""
+        row["pad_copy_share"] = 0.0
+        with padded_kernels():
+            row["padded_graph_ms"] = graph_ms(
+                torch, fn, iters=5 if row["ms"] > 1.0 else 20)
+        row.update(ptxas_of(source, entry))
+        if row["graph_ms"] >= row["padded_graph_ms"]:
+            raise AssertionError(
+                f"{name} at {shape}: the dh-{dh} instance "
+                f"({row['graph_ms']} ms) is no faster than the dh-128 one "
+                f"on padded inputs ({row['padded_graph_ms']} ms)")
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pairs = B * H * N * N
+
+    def fwd():
+        return K.flash_attention(q, k, v, False)
     row = dict(
         max_abs_err=err, lse_err=lerr, out_rel_err=out_rel,
         row_rel_err=row_err, pad_max=pad_max, **sdpa_out,
-        **timings(torch, lambda: K.flash_attention(q, k, v, False),
+        **timings(torch, fwd,
                   lambda: K.flash_attention_plain(q, k, v, False),
                   lambda: sdpa(q, k, v, enable_gqa=True),
                   *bound_ms(nbytes(q, k, v, out, lse), 4 * dh * pairs)),
-        shape=shapes["fwd"])
-    row["pad_copy_share"] = pad_copy_ms(torch, dh, (q, k, v),
-                                        wide[:1]) / row["graph_ms"]
+        shape=shape)
+    if native:
+        versus_padded("flash_attention", row, fwd, "flash_attention",
+                      f"flash_fwd_wgmmaILi{dh}E")
+    else:
+        row["pad_copy_share"] = pad_copy_ms(torch, dh, (q, k, v),
+                                            wide[:1]) / row["graph_ms"]
     rows = {"flash_attention": row}
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     o = sdpa(*leaves, enable_gqa=True)
@@ -6542,18 +6619,9 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
             **{key: val[part] for key, val in sdpa_grad.items()},
             **timings(torch, fn, plain, library,
                       *bound_ms(n_in + nbytes(*got[part]), flops)),
-            shape=shapes["bwd"])
+            shape=shape)
         if native:
-            # no copy runs; what the row replaces, in the same call
-            row["pad_copy_share"] = 0.0
-            with padded_backward():
-                row["padded_graph_ms"] = graph_ms(torch, fn)
-            row.update(ptxas_of("flash_attention_bwd", entry))
-            if row["graph_ms"] >= row["padded_graph_ms"]:
-                raise AssertionError(
-                    f"{name} at {shape}: the dh-{dh} instance "
-                    f"({row['graph_ms']} ms) is no faster than the dh-128 "
-                    f"one on padded inputs ({row['padded_graph_ms']} ms)")
+            versus_padded(name, row, fn, "flash_attention_bwd", entry)
         else:
             row["pad_copy_share"] = pad_copy_ms(
                 torch, dh, (q, k, v, do), wide[1:][part]) / row["graph_ms"]
@@ -6563,9 +6631,9 @@ def check_flash_encoder(torch, B, H, Hkv, N, dh, dtype, gen) -> dict:
 
 def check_flash80_edges(torch, gen) -> list:
     """`check_flash_edges` (its limits, its SDPA readings) at
-    FLASH80_EDGES: the three flash kernels in bf16 at dh 80 (the forward
-    zero-padded to its dh-128 instance, dq and dk/dv on their dh-80
-    instances) at ragged N and M."""
+    FLASH80_EDGES: the three flash kernels in bf16 at dh 80 (on their
+    dh-80 instances: dq and dk/dv since slice 24, the forward since slice
+    25) at ragged N and M."""
     with swapped(sys.modules[__name__], "FLASH_EDGES", FLASH80_EDGES):
         return check_flash_edges(torch, gen)
 
@@ -6839,9 +6907,10 @@ def encoder_kernel_rows(torch, dtypes, gen) -> dict:
 
 def encoder_phase(torch, card, counts) -> tuple:
     """Slice 23: the flash kernels at hubert-xlarge's attention shape
-    (B 2, H 16 = Hkv, N 4096, dh 80, non-causal; zero-padded to 128 but
-    for the bf16 dq and dk/dv, on their dh-80 instances since slice 24)
-    in bf16 and fp32 (`encoder_kernel_rows`) and in bf16 at FLASH80_EDGES;
+    (B 2, H 16 = Hkv, N 4096, dh 80, non-causal; zero-padded to 128 in
+    fp32, in bf16 on their dh-80 instances: dq and dk/dv since slice 24,
+    the forward since slice 25) in bf16 and fp32 (`encoder_kernel_rows`)
+    and in bf16 at FLASH80_EDGES, and the two dh-80 digests;
     then hubert-xlarge at full width and depth encodes (`encode_hubert`)
     and trains (`train_encoder`), its fp32 gates (`encoder_encode_gate`,
     `encoder_train_gate`) before. Returns (row, kernel rows at dh 80 in
@@ -6853,10 +6922,13 @@ def encoder_phase(torch, card, counts) -> tuple:
     print(f"dh-80 flash edges {json.dumps(edges)}", flush=True)
     digest = dh80_flash_backward_digest(torch)
     print(f"dh-80 flash backward digest {digest}", flush=True)
+    fwd_digest = dh80_flash_forward_digest(torch)
+    print(f"dh-80 flash forward digest {fwd_digest}", flush=True)
     torch.cuda.empty_cache()
     t = phase("encoder: dh-80 kernels", t)
     launches, row = {}, dict(kernels=kern, edges=edges,
-                             dh80_flash_backward_digest=digest)
+                             dh80_flash_backward_digest=digest,
+                             dh80_flash_forward_digest=fwd_digest)
     row["encode_gate"] = encoder_encode_gate(torch)
     print(f"encode_hubert fp32 gate {json.dumps(row['encode_gate'])}",
           flush=True)
@@ -6938,8 +7010,9 @@ def digests_only(torch, out=None) -> int:
 def flash80_only(torch, card, out=None) -> int:
     """``--flash80-only``: build the flash kernels of the repro_torch that
     is imported (``--src`` picks another tree's) and run the encoder
-    phase's kernel step (`encoder_kernel_rows`) in bf16 alone; with
-    ``out`` write its rows there too."""
+    phase's kernel step (`encoder_kernel_rows`) in bf16 alone: the three
+    flash kernels on their dh-80 instances (the forward's since slice 25)
+    beside the padded path; with ``out`` write its rows there too."""
     import repro_torch
     from repro_torch.kernels import common
     where = str(Path(repro_torch.__file__).parent)
@@ -7417,8 +7490,9 @@ def main(argv=None) -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"]))
     # the flash kernels at dh 80 (slice 23), launched by hubert-xlarge's
-    # paths; since slice 24 the bf16 dq and dk/dv on their dh-80 instances,
-    # with the padded path's time and their ptxas readings
+    # paths; the bf16 dq and dk/dv on their dh-80 instances since slice 24,
+    # the forward since slice 25, with the padded path's time and their
+    # ptxas readings
     for name, row in kern80.items():
         meta = KERNELS[name]
         paths = [p for p in meta["paths"] if p.endswith("_hubert")]

@@ -8,14 +8,29 @@
 // dh 192 and 256: `fwd_keys`) through a ring of two K/V stages (`sm90::Ring`),
 // from 3-D tensor maps (dh, rows, planes): rows past a plane's end arrive
 // as zeros, never as the next plane's rows. At dh 128 a tile is two boxes
-// of 64 columns, at dh 192 three, at dh 256 four. Per tile S = Q K^T is
-// one SS wgmma chain (m64n128k16, m64n64k16 at dh 192 and 256; K a
-// K-major operand); the
-// online softmax runs in fp32 on the accumulator registers (a row's max
-// and sum over the 4 threads of a quad); P, zero where masked and rounded
-// to bf16 in registers (`pack_a`), is the A operand of the RS wgmma chain
-// O += P V (V an MN-major operand). The output is rounded to bf16 once;
+// of 64 columns, at dh 192 three, at dh 256 four (`head_boxes`). At dh 80
+// (the flash forward's instance for hubert-xlarge's heads) a tile is two
+// boxes too, the second holding columns 64-79 and the zeros TMA writes
+// past the plane's dh (counted in the barriers' bytes); the products read
+// columns 0-79 only. Per tile S = Q K^T is one SS wgmma chain of dh / 16
+// k16 steps (five at dh 80, the fifth from the second box; m64n128k16,
+// m64n64k16 at dh 192 and 256; K a K-major operand); the online softmax
+// runs in fp32 on the accumulator registers (a row's max and sum over the
+// 4 threads of a quad); P, zero where masked and rounded to bf16 in
+// registers (`pack_a`), is the A operand of the RS wgmma chain O += P V
+// (V an MN-major operand; m64n80k16 at dh 80, B over two boxes one tile
+// apart). The output is rounded to bf16 once and written dh wide;
 // lse = m * scale + log(max(l, 1e-30)) in fp32.
+//
+// The body runs the softmax of a tile between its two products, with no
+// overlap of one tile's exponentials with the next tile's wgmma. In the
+// flash forward (which replaces the TPU kernel `_kernel` of the JAX
+// package's kernels/flash_attention.py) the products bound the work, 4 *
+// dh operations a pair: at dh 80 and hubert-xlarge's shape (B 2, H 16,
+// N = M 4096) 0.1737 ms at the card's bf16 peak. Its N * M exponentials a
+// head, at 16 a clock per SM, take some 0.14-0.15 ms of that shape on
+// their own, ~83% of the products' time, so at dh 80 they are the next
+// cost to take on.
 //
 // What the walk covers and what is masked is the policy's (the `P` of the
 // body), so one body serves row indices, windows and positions:
@@ -78,7 +93,7 @@ __host__ __device__ constexpr int fwd_keys() {
 
 template <int DH>
 struct FwdSmemH {
-  static constexpr int BOXES = DH / BOX_COLS;
+  static constexpr int BOXES = head_boxes<DH>();
   static constexpr int KEYS = fwd_keys<DH>();
   static constexpr uint32_t QBOX = FWD_ROWS * ROW_BYTES;  // bytes of a box
   static constexpr uint32_t KBOX = KEYS * ROW_BYTES;

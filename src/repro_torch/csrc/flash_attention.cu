@@ -6,30 +6,42 @@
 // (non-causal) or for j <= i (causal, on row indices also when M != N: the
 // TPU kernel's `_causal_iota`, hence the backend's
 // supports_positions=False). The scale comes from the caller: 1/sqrt of
-// the true head dim, which the wrapper pads to dh 64 or 128 with zero
-// columns (hubert-xlarge's 80 runs at 128). Emits the output in q's
-// type and the per-row log-sum-exp m + log(max(l, 1e-30)) in fp32. Any N,
-// M >= 1; the ragged last tiles are masked. GQA goes through the kv-head
-// index, no repeated k/v.
+// the true head dim, which the wrapper pads to the next instance with zero
+// columns (dh 64 or 128; in bf16 also 80, hubert-xlarge's heads, which
+// run at their own width). Emits the output in q's type and the per-row
+// log-sum-exp m + log(max(l, 1e-30)) in fp32. Any N, M >= 1; the ragged
+// last tiles are masked. GQA goes through the kv-head index, no repeated
+// k/v.
 //
 // What bounds it on this card: 4*dh flops per attended pair against q, k,
 // v and out read or written once; at qwen2's train shape (B 2, H 14, Hkv
 // 2, N 4096, dh 64, causal, bf16) that is ~60 GFLOP per ~34 MB, far above
 // the bf16 ridge (~295 flops per byte), so the tensor cores bound it
-// (~0.06 ms).
+// (~0.06 ms); at hubert-xlarge's (B 2, H 16, N 4096, dh 80, non-causal)
+// ~172 GFLOP, 0.1737 ms.
 //
 // The dtype alone picks the design; nothing falls back.
 //
-// bf16 (dh 64 and 128): `flash_fwd_wgmma`, on the tensor cores with the
-// body of attn_fwd_sm90.cuh, which the local-window and gathered routing
-// forwards share (the design is described there: 128 query rows a block,
-// Q loaded once by TMA, 128-row K/V tiles through a ring, S = Q K^T and
-// O += P V by wgmma, P rounded to bf16 once). Flash's policy (`FlashFwd`)
-// masks on row indices: only tiles that cross the diagonal or the ragged
-// end of the keys are masked; causal key tiles wholly above the diagonal
-// are neither loaded nor computed, so the work is the causal half of the
-// N*M pairs. The heaviest query blocks (the last ones, under causality)
-// start first. The output is rounded to bf16 once.
+// bf16 (dh 64, 80 and 128): `flash_fwd_wgmma`, on the tensor cores with
+// the body of attn_fwd_sm90.cuh, which the local-window and gathered
+// routing forwards share (the design is described there: 128 query rows a
+// block, Q loaded once by TMA, 128-row K/V tiles through a ring, S = Q K^T
+// and O += P V by wgmma, P rounded to bf16 once; a tile's exponentials do
+// not overlap the next tile's products, and at dh 80 they cost ~83% as
+// much as the products). Flash's policy (`FlashFwd`) masks on row indices:
+// only tiles that cross the diagonal or the ragged end of the keys are
+// masked; causal key tiles wholly above the diagonal are neither loaded
+// nor computed, so the work is the causal half of the N*M pairs. The
+// heaviest query blocks (the last ones, under causality) start first. The
+// output is rounded to bf16 once.
+// At dh 80 the tensor maps take the rows at their true width (160 bytes,
+// a multiple of the 16 TMA's strides need): each tile row is two 64-column
+// boxes, the second filled with zeros past column 80 by TMA, so no padded
+// copy exists in device memory; S runs five k16 steps, O += P V is
+// m64n80k16, and out is written 80 wide. The dh-128 instance on
+// zero-padded inputs did 1.6x these products and took three pad copies
+// and a cut per call; zero columns add exact zeros to S, and chip_smoke.py
+// holds the two to the same bits.
 //
 // fp32: `flash_fwd_kernel`, fp32 FMAs from shared memory with the online
 // softmax of `FlashTile` (common.cuh), shared with the local-window and
@@ -179,9 +191,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B,H,N,dh), k/v (B,Hkv,M,dh); o like q, lse (B,H,N) fp32.
-// dtype: 0 fp32, 1 bf16. scale: the softmax scale, 1 / sqrt of the true
-// head dim (the wrapper runs a narrower head dim zero-padded to dh).
-// Returns a cudaError_t code.
+// dtype: 0 fp32, 1 bf16; dh 64 or 128, and 80 in bf16. scale: the
+// softmax scale, 1 / sqrt of the true head dim (the wrapper runs another
+// head dim zero-padded to dh). Returns a cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse, int B,
                                    int H, int Hkv, int N, int M, int dh,
@@ -191,6 +203,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && dh == 128)
     return launch_bf16<128>(q, k, v, o, lse, B, H, Hkv, N, M, causal, scale,
                             s);
+  if (dtype == 1 && dh == 80)
+    return launch_bf16<80>(q, k, v, o, lse, B, H, Hkv, N, M, causal, scale,
+                           s);
   if (dtype == 1 && dh == 64)
     return launch_bf16<64>(q, k, v, o, lse, B, H, Hkv, N, M, causal, scale,
                            s);
@@ -213,12 +228,13 @@ extern "C" int forward_tile_smem_bytes(int dh) {
 }
 
 // Dynamic shared memory of one block of the bf16 flash forward on the
-// tensor cores (Q, two K/V stages, barriers, alignment room), for reports;
-// -1 for an unsupported dh.
+// tensor cores (Q, two K/V stages, barriers, alignment room; dh 80 takes
+// dh 128's, two boxes a row), for reports; -1 for an unsupported dh.
 extern "C" int flash_fwd_wgmma_smem_bytes(int dh) {
   using sm90::aligned_smem_bytes;
   using sm90::FwdSmemH;
   if (dh == 128) return static_cast<int>(aligned_smem_bytes<FwdSmemH<128>>());
+  if (dh == 80) return static_cast<int>(aligned_smem_bytes<FwdSmemH<80>>());
   if (dh == 64) return static_cast<int>(aligned_smem_bytes<FwdSmemH<64>>());
   return -1;
 }

@@ -1,5 +1,6 @@
 // One wgmma product of each form the bf16 flash backward kernels
-// (flash_attention_bwd.cu) run, alone, for tests/test_torch_wgmma_probe.py
+// (flash_attention_bwd.cu) and the dh-80 forward (flash_attention.cu)
+// run, alone, for tests/test_torch_wgmma_probe.py
 // to hold against torch.matmul on the card: a wrong shared-memory
 // descriptor or fragment layout shows here on one tile, not as a wrong
 // gradient somewhere in a whole kernel. Not on any model's path.
@@ -11,6 +12,9 @@
 // At dh 80 (hubert-xlarge's) the operands take two 64-column boxes, the
 // second zero-filled by TMA past column 80: SS reads K = 80 in five k16
 // steps (the fifth from the second box), RS writes n80 across the two.
+// The forward's forms are those at 128 rows: S over a 128-key tile
+// (ss<128, 80>) and O += P V with B over 128 rows, its boxes 16 KB apart
+// (rs<128, 80>; the forward's A is one bf16 value, the probe's the pair).
 // One block of one warpgroup (128 threads); returns a cudaError_t code.
 #include "sm90.cuh"
 using namespace sm90;
@@ -146,6 +150,7 @@ extern "C" int probe_ss(const void* a, const void* b, float* out, int n,
   if (n == 64 && dh == 128) return ss<64, 128>(a, b, out);
   if (n == 32 && dh == 80) return ss<32, 80>(a, b, out);
   if (n == 64 && dh == 80) return ss<64, 80>(a, b, out);
+  if (n == 128 && dh == 80) return ss<128, 80>(a, b, out);
   return cudaErrorInvalidValue;
 }
 
@@ -157,5 +162,6 @@ extern "C" int probe_rs(const float* a, const void* b, float* out, int k,
   if (k == 64 && dh == 128) return rs<64, 128>(a, b, out);
   if (k == 32 && dh == 80) return rs<32, 80>(a, b, out);
   if (k == 64 && dh == 80) return rs<64, 80>(a, b, out);
+  if (k == 128 && dh == 80) return rs<128, 80>(a, b, out);
   return cudaErrorInvalidValue;
 }

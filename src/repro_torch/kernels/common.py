@@ -33,9 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the widths of the flash and gathered kernels: the flash wrappers run a
 # head dim up to 128 zero-padded to one of them (`pad_heads`; the bf16
-# flash dq and dk/dv also have a dh-80 instance,
-# `flash_attention.BF16_BWD_WIDTHS`); the gathered kernels take these two
-# only
+# flash kernels also have a dh-80 instance, `flash_attention.BF16_WIDTHS`);
+# the gathered kernels take these two only
 SUPPORTED_HEAD_DIMS = (64, 128)
 # the widths of the fused routing and paged decode kernels: a head dim up
 # to one of them runs zero-padded to it (`pad_heads`)

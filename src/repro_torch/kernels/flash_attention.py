@@ -11,19 +11,19 @@ M != N), as the TPU kernel does. Any N, M >= 1. Every wrapper sends a CPU
 tensor to its plain PyTorch version (``core/attention.py``) and launches
 its kernel on a CUDA tensor, or raises.
 
-The kernels have dh-64 and dh-128 instances (`WIDTHS`), and the bf16 dq
-and dk/dv kernels one of dh 80 too (`BF16_BWD_WIDTHS`: hubert-xlarge's
-heads, whose tensor maps read the rows at their true width; TMA fills the
-tiles' columns past 80 with zeros in shared memory). Any other head dim
-up to 128 runs zero-padded to the next width of its kernel and dtype
-(`common.pad_heads`) with the scale of its true head dim
-(`common.head_scale`, passed to the kernels), and out, dq, dk and dv are
-cut back to it; zero columns change no score, and the gradients' pad
-columns come out zero. The CPU takes the card's widths for the same
-kernel and dtype, so the CPU tests go through the padding, or its
-absence, as the card does: a bf16 dh-80 backward runs its plain versions
-at 80, and never pads. On the card a head dim over 128 raises; on the
-CPU it runs the plain version unpadded.
+The kernels have dh-64 and dh-128 instances (`WIDTHS`), and in bf16 all
+three one of dh 80 too (`BF16_WIDTHS`: hubert-xlarge's heads, whose
+tensor maps read the rows at their true width; TMA fills the tiles'
+columns past 80 with zeros in shared memory). Any other head dim up to
+128 runs zero-padded to the next width of its dtype (`common.pad_heads`)
+with the scale of its true head dim (`common.head_scale`, passed to the
+kernels), and out, dq, dk and dv are cut back to it; zero columns change
+no score, and the gradients' pad columns come out zero. The CPU takes the
+card's widths for the same dtype, so the CPU tests go through the
+padding, or its absence, as the card does: a bf16 dh-80 forward or
+backward runs its plain versions at 80, and never pads; fp32 pads dh 80
+to 128. On the card a head dim over 128 raises; on the CPU it runs the
+plain version unpadded.
 
 All three kernels do 4 to 8 * dh flops per attended pair on inputs read
 once, far above the card's bf16 ridge, so the tensor cores bound them. The
@@ -54,9 +54,9 @@ from repro_torch.kernels import common as C
 from repro_torch.obs.trace import span
 
 # the kernels' head-dim instances (`common.SUPPORTED_HEAD_DIMS`), and the
-# bf16 dq and dk/dv kernels' (dh 80 on its own instance)
+# bf16 kernels' (dh 80 on its own instance)
 WIDTHS = C.SUPPORTED_HEAD_DIMS
-BF16_BWD_WIDTHS = (64, 80, 128)
+BF16_WIDTHS = (64, 80, 128)
 LAUNCHES = C.counter("flash_attention")
 LAUNCHES_BWD_DQ = C.counter("flash_attention_bwd_dq")
 LAUNCHES_BWD_DKV = C.counter("flash_attention_bwd_dkv")
@@ -84,12 +84,12 @@ flash_attention_bwd_dq_plain = ref.full_attention_bwd_dq
 flash_attention_bwd_dkv_plain = ref.full_attention_bwd_dkv
 
 
-def _bwd_widths(q):
-    """The backward kernels' head-dim instances for ``q``'s dtype."""
-    return BF16_BWD_WIDTHS if q.dtype == torch.bfloat16 else WIDTHS
+def _widths(q):
+    """The kernels' head-dim instances for ``q``'s dtype."""
+    return BF16_WIDTHS if q.dtype == torch.bfloat16 else WIDTHS
 
 
-def _padded(what, dh, *tensors, widths=WIDTHS):
+def _padded(what, dh, *tensors, widths):
     """``tensors`` zero-padded to the kernel width of ``dh`` (the first
     of ``widths`` that holds it); at a width, and in a CPU call wider than
     the widest, they pass as they are, with no call to `pad_heads`."""
@@ -111,7 +111,7 @@ def _check(what, q, k, v, **more):
     C.check_tensors(what, q=q, k=k, v=v, **more)
 
 
-def _dims(what, q, k, widths=WIDTHS):
+def _dims(what, q, k, widths):
     B, H, N, dh = q.shape
     C.head_dim_ok(what, dh, widths)
     return B, H, k.shape[1], N, k.shape[2], dh, C.dtype_code(what, q)
@@ -124,11 +124,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(what, q, k, v)
     dh = q.shape[-1]
     scale = C.head_scale(dh)
-    q, k, v = _padded(what, dh, q, k, v)
+    widths = _widths(q)
+    q, k, v = _padded(what, dh, q, k, v, widths=widths)
     if q.device.type == "cpu":
         out, lse = flash_attention_plain(q, k, v, causal, scale)
         return C.unpad_heads(dh, out)[0], lse
-    B, H, Hkv, N, M, width, code = _dims(what, q, k)
+    B, H, Hkv, N, M, width, code = _dims(what, q, k, widths)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     fn = C.load("flash_attention", "flash_attention_fwd", _ARGTYPES)
@@ -160,7 +161,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dsum, causal: bool = True):
     _check_bwd(what, q, k, v, do, lse, dsum)
     dh = q.shape[-1]
     scale = C.head_scale(dh)
-    widths = _bwd_widths(q)
+    widths = _widths(q)
     q, k, v, do = _padded(what, dh, q, k, v, do, widths=widths)
     if q.device.type == "cpu":
         return C.unpad_heads(dh, flash_attention_bwd_dq_plain(
@@ -184,7 +185,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = True):
     _check_bwd(what, q, k, v, do, lse, dsum)
     dh = q.shape[-1]
     scale = C.head_scale(dh)
-    widths = _bwd_widths(q)
+    widths = _widths(q)
     q, k, v, do = _padded(what, dh, q, k, v, do, widths=widths)
     if q.device.type == "cpu":
         return C.unpad_heads(dh, *flash_attention_bwd_dkv_plain(

@@ -1,20 +1,21 @@
 """The bf16 flash backward at dh 80 (hubert-xlarge's heads) on its own
 kernel width, on the CPU, against the JAX package.
 
-The bf16 dq and dk/dv kernels have a dh-80 instance
-(`flash_attention.BF16_BWD_WIDTHS`); fp32 and the forward keep the dh-64
-and dh-128 ones (`WIDTHS`), dh 80 zero-padded to 128. The CPU takes the
-card's widths for the same kernel and dtype, so here:
+The bf16 flash kernels, the dq and dk/dv kernels among them, have a
+dh-80 instance (`flash_attention.BF16_WIDTHS`); fp32 keeps the dh-64 and
+dh-128 ones (`WIDTHS`), dh 80 zero-padded to 128. The CPU takes the
+card's widths for the same dtype, so here:
 
 * a bf16 dh-80 backward runs the plain dq and dk/dv versions at width 80
-  and never calls `common.pad_heads`; the forward runs at 128 in both
-  dtypes and fp32's backward at 128 (tests/test_torch_encoder.py holds
-  fp32); a bf16 dh 72 pads to 80, dh 96 to 128;
+  and never calls `common.pad_heads`, nor does its forward
+  (tests/test_torch_flash80_fwd.py holds the forward); fp32 runs all
+  three at 128 (tests/test_torch_encoder.py holds fp32); a bf16 dh 72
+  pads to 80, dh 96 to 128;
 * the `FlashAttention` gradients of bf16 dh-80 inputs (through the plain
   versions) match ``jax.vjp`` of the Pallas `flash_attention` in interpret
   mode on the same values upcast to fp32, non-causal and causal, MHA and
   GQA 4:1, within GRAD_REL_TOL of each gradient's largest value;
-* the kernel-side checks (`_dims`) take 80 for the bf16 backward only.
+* the kernel-side checks (`_dims`) take 80 for bf16 only.
 
 GRAD_REL_TOL: the port's Function rounds the forward's output to bf16
 before D = rowsum(do * out) and returns bf16 gradients, each a rounding of
@@ -70,8 +71,8 @@ def _spy(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_backward_widths_by_dtype(dtype, monkeypatch):
-    """bf16: forward padded to 128, dq and dk/dv at 80 with no pad; fp32:
-    all three padded to 128. Every output dh-80 wide."""
+    """bf16: forward, dq and dk/dv at 80 with no pad; fp32: all three
+    padded to 128. Every output dh-80 wide."""
     calls = _spy(monkeypatch)
     q, k, v, do = (torch.from_numpy(x).to(dtype)
                    for x in _inputs(80, 2, 2, 80))
@@ -81,11 +82,12 @@ def test_backward_widths_by_dtype(dtype, monkeypatch):
     grads = torch.autograd.grad(out, leaves, do)
     bwd = calls[len(fwd):]
     assert out.shape == q.shape and all(g.shape == q.shape for g in grads)
-    assert fwd == [("pad_heads", 80), ("flash_attention_plain", 128)]
     if dtype == torch.bfloat16:
+        assert fwd == [("flash_attention_plain", 80)]
         assert bwd == [("flash_attention_bwd_dq_plain", 80),
                        ("flash_attention_bwd_dkv_plain", 80)]
     else:
+        assert fwd == [("pad_heads", 80), ("flash_attention_plain", 128)]
         assert bwd == [("pad_heads", 80), ("flash_attention_bwd_dq_plain", 128),
                        ("pad_heads", 80),
                        ("flash_attention_bwd_dkv_plain", 128)]
@@ -136,10 +138,12 @@ def test_bf16_dh80_grads_match_pallas_vjp(causal, H, Hkv):
 
 
 def test_kernel_checks_take_80_for_the_bf16_backward_only():
+    """The bf16 backward takes 80 (as the bf16 forward now does:
+    tests/test_torch_flash80_fwd.py); fp32 refuses it."""
     q = torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16)
-    dims = flash_k._dims("bwd", q, q, flash_k.BF16_BWD_WIDTHS)
+    dims = flash_k._dims("bwd", q, q, flash_k.BF16_WIDTHS)
     assert dims[-2:] == (80, common.DTYPE_CODES[torch.bfloat16])
-    assert flash_k._bwd_widths(q) == (64, 80, 128)
-    assert flash_k._bwd_widths(q.float()) == flash_k.WIDTHS == (64, 128)
+    assert flash_k._widths(q) == (64, 80, 128)
+    assert flash_k._widths(q.float()) == flash_k.WIDTHS == (64, 128)
     with pytest.raises(ValueError, match="head_dim 80 unsupported"):
-        flash_k._dims("flash_attention", q, q)
+        flash_k._dims("bwd", q.float(), q.float(), flash_k.WIDTHS)

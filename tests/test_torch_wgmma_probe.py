@@ -1,5 +1,5 @@
-"""One wgmma product of each form the bf16 flash backward kernels run,
-alone, against an fp64 ``torch.matmul`` on the card.
+"""One wgmma product of each form the bf16 flash kernels run, alone,
+against an fp64 ``torch.matmul`` on the card.
 
 ``csrc/wgmma_probe.cu`` runs one 64-row tile of each:
 
@@ -12,10 +12,12 @@ alone, against an fp64 ``torch.matmul`` on the card.
   of itself, so the tile reads within 2e-5 (~3e-6 on an H100), where one
   bf16 A value reads ~1.5e-3.
 
-At dh 80 (hubert-xlarge's heads, the flash dq and dk/dv's dh-80
-instances) each operand row is two 64-column boxes, the second filled
-with zeros by TMA past column 80: SS reads K = 80 in five k16 steps, RS
-writes m64n80k16 across the two boxes.
+At dh 80 (hubert-xlarge's heads, the flash kernels' dh-80 instances)
+each operand row is two 64-column boxes, the second filled with zeros by
+TMA past column 80: SS reads K = 80 in five k16 steps, RS writes
+m64n80k16 across the two boxes. The forward's two forms are the cases at
+128 rows: S over a 128-key tile (n 128, K 80) and O += P V with B over
+128 rows, its boxes 16 KB apart (K 128, n80).
 
 A wrong descriptor, swizzle or fragment layout reads O(1). The kernels are
 CUDA for sm_90a and have no CPU version: these tests skip without a card.
@@ -48,7 +50,7 @@ def rel_err(got, ref):
 
 
 @pytest.mark.parametrize("n,dh", [(32, 64), (32, 128), (64, 64), (64, 128),
-                                  (32, 80), (64, 80)])
+                                  (32, 80), (64, 80), (128, 80)])
 def test_ss_product_matches_matmul(card, n, dh):
     g = torch.Generator().manual_seed(n * 1000 + dh)
     a = torch.randn(64, dh, generator=g).bfloat16().to(card)
@@ -63,7 +65,7 @@ def test_ss_product_matches_matmul(card, n, dh):
 
 
 @pytest.mark.parametrize("k,dh", [(32, 128), (64, 64), (64, 128), (32, 80),
-                                  (64, 80)])
+                                  (64, 80), (128, 80)])
 def test_rs_split_product_matches_matmul(card, k, dh):
     g = torch.Generator().manual_seed(k * 1000 + dh)
     a = (torch.rand(64, k, generator=g) / k).to(card)
